@@ -1,13 +1,16 @@
-"""FlashSparse core in PyTorch: the ME-BCRS format, the SpMM / SDDMM /
-attention operators behind the dispatch registry, sparse softmax, and
-the autodiff plan."""
+"""FlashSparse core in PyTorch: the ME-BCRS format and its load-balanced
+schedule, the SpMM / SDDMM / attention operators behind the dispatch
+registry, sparse softmax, and the differentiable ops on an autodiff
+plan."""
 
 from . import dispatch, validate
 from .autodiff import ADPlan, ad_plan, attention_ad, sddmm_ad, spmm_ad
 from .format import (
     MEBCRS,
     BlockedMEBCRS,
+    Schedule,
     block_format,
+    build_schedule,
     from_coo,
     from_dense,
     resolve_device,
@@ -23,11 +26,13 @@ __all__ = [
     "ADPlan",
     "BlockedMEBCRS",
     "MEBCRS",
+    "Schedule",
     "ValidationError",
     "ad_plan",
     "attention",
     "attention_ad",
     "block_format",
+    "build_schedule",
     "dispatch",
     "from_coo",
     "from_dense",

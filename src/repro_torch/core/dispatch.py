@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.core.dispatch`` without the fallback ladders.
 Every implementation of an op registers here exactly once, and every
-layer (core entry points, autodiff plans, models) resolves ``(op, impl)``
-through the same table.
+layer (core entry points, autodiff plans, models, train steps) resolves
+``(op, impl)`` through the same table.
 
 Registered ops: ``spmm``, ``sddmm`` and ``attention`` (SDDMM → sparse
 softmax → SpMM).  Impl names:
@@ -15,6 +15,14 @@ softmax → SpMM).  Impl names:
                    counterpart of ``pallas``
   cuda_fused_attn  the single-pass attention kernel, the counterpart of
                    ``pallas_fused_attn``
+  cuda_balanced    the block-parallel SpMM, SDDMM and attention kernels
+                   over a ``Schedule`` (``schedule=`` / ``split_blk=``
+                   kwargs), the counterpart of ``pallas_balanced``
+
+Capability flag ``differentiable``: the impl has a gradient path, natively
+(``blocked``'s PyTorch ops) or through the ``torch.autograd.Function``s of
+:mod:`repro_torch.core.autodiff`, which need the adjacency as an
+``ADPlan``.  :func:`require` enforces it.
 
 A **call log** records every dispatch: ``record_calls()`` yields a list
 that accumulates ``(op, impl)`` pairs while the context is active.
@@ -39,6 +47,7 @@ class OpImpl:
     op: str
     name: str
     fn: Callable
+    differentiable: bool = False
 
 
 _REGISTRY: Dict[Tuple[str, str], OpImpl] = {}
@@ -51,9 +60,10 @@ _loaded = False
 _lock = threading.Lock()
 
 
-def register(op: str, name: str, fn: Callable) -> OpImpl:
+def register(op: str, name: str, fn: Callable, *,
+             differentiable: bool = False) -> OpImpl:
     """Register ``fn`` as implementation ``name`` of ``op``."""
-    entry = OpImpl(op=op, name=name, fn=fn)
+    entry = OpImpl(op=op, name=name, fn=fn, differentiable=differentiable)
     _REGISTRY[(op, name)] = entry
     return entry
 
@@ -85,10 +95,16 @@ def impls(op: str) -> Tuple[str, ...]:
     return tuple(sorted(n for (o, n) in _REGISTRY if o == op))
 
 
-def require(op: str, impl: str) -> OpImpl:
-    """Resolve ``(op, impl)`` or raise a ``ValueError`` listing the
-    registered impls."""
-    return get(op, impl)
+def require(op: str, impl: str, *, differentiable: bool = False) -> OpImpl:
+    """Resolve ``(op, impl)`` and enforce the capability flag, raising a
+    ``ValueError`` that lists the impls that have it."""
+    entry = get(op, impl)
+    if differentiable and not entry.differentiable:
+        ok = [n for n in impls(op) if _REGISTRY[(op, n)].differentiable]
+        raise ValueError(
+            f"impl {impl!r} of op {op!r} is not differentiable; "
+            f"differentiable impls: {', '.join(ok)}")
+    return entry
 
 
 # ---------------------------------------------------------------------------

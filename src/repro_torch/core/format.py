@@ -15,7 +15,9 @@ the storage is Aᵀ restricted to nonzero vectors.
 
 :class:`BlockedMEBCRS` pads each window's vector count to a multiple of
 ``k_blk`` for the window-GEMM kernels; the canonical format stays
-padding-free.
+padding-free.  :class:`Schedule` re-maps a blocked view's work onto
+uniform segments of at most ``split_blk`` K-blocks for the block-parallel
+(load-balanced) kernels.
 
 Building is host-side numpy, as in the JAX package (format translation is
 preprocessing); the built arrays are torch tensors.  The canonical format
@@ -36,6 +38,8 @@ from . import validate as _validate
 __all__ = [
     "MEBCRS",
     "BlockedMEBCRS",
+    "Schedule",
+    "build_schedule",
     "resolve_device",
     "from_dense",
     "from_coo",
@@ -145,6 +149,59 @@ class BlockedMEBCRS:
         return -(-self.shape[0] // self.vector_size)
 
     def to(self, device) -> "BlockedMEBCRS":
+        """A copy with every tensor on ``device``."""
+        return _to_device(self, self._TENSORS, device)
+
+    def schedule(self, split_blk: int = 1) -> "Schedule":
+        """Block-parallel :class:`Schedule` on this view's device, built on
+        the host and memoized per ``split_blk``."""
+        memo = getattr(self, "_schedules", None)
+        if memo is None:
+            memo = {}
+            object.__setattr__(self, "_schedules", memo)
+        if split_blk not in memo:
+            memo[split_blk] = build_schedule(self, split_blk)
+        return memo[split_blk]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Schedule:
+    """Block-parallel, load-balanced execution schedule (DESIGN.md §11).
+
+    The window-parallel kernels give each output window one unit of work
+    with a ragged loop over its K-blocks, so on a power-law graph hub
+    windows dominate the run time.  A schedule cuts the work into
+    **segments** of at most ``split_blk`` K-blocks:
+
+      seg_win  (NS,)    int32  output window of each segment
+      seg_meta (NS, 4)  int32  per segment: [first K-block, K-block count,
+                               is-first-segment-of-window,
+                               is-last-segment-of-window]
+      blk_id   (NSB,)   int32  scheduled K-blocks in segment order (the
+                               block-grid SDDMM walks these)
+      blk_win  (NSB,)   int32  owning window of each scheduled block
+
+    The arrays equal ``repro.core.format.Schedule``'s.  Segments of one
+    window are contiguous and ascend in block order.  An empty window keeps
+    one zero-length segment (count 0, first = last = 1) that only stores
+    zeros, so the all-empty matrix is a valid zero-block schedule.  The
+    balanced CUDA kernels merge a split window's segments through a combine
+    tree of their own (``repro_torch.kernels._combine``)."""
+
+    seg_win: torch.Tensor
+    seg_meta: torch.Tensor
+    blk_id: torch.Tensor
+    blk_win: torch.Tensor
+    split_blk: int            # max K-blocks per segment (0 = unsplit)
+    num_blocks: int           # total scheduled K-blocks (0 iff all-empty)
+
+    _TENSORS = ("seg_win", "seg_meta", "blk_id", "blk_win")
+
+    @property
+    def num_segments(self) -> int:
+        return int(self.seg_win.shape[0])
+
+    def to(self, device) -> "Schedule":
         """A copy with every tensor on ``device``."""
         return _to_device(self, self._TENSORS, device)
 
@@ -305,3 +362,48 @@ def block_format(fmt: MEBCRS, k_blk: int = 8, *,
         win_ptr=torch.from_numpy(win_ptr),
         shape=fmt.shape, vector_size=v, k_blk=k_blk,
     ).to(device)
+
+
+def build_schedule(blocked: BlockedMEBCRS, split_blk: int = 1) -> Schedule:
+    """Split windows into segments of at most ``split_blk`` K-blocks; an
+    empty window keeps one zero-length store-only segment.
+
+    ``split_blk = 0`` disables splitting: one segment per window, the
+    window-parallel assignment in schedule form.  Host-side numpy, like
+    :func:`block_format`; the schedule lands on ``blocked``'s device and is
+    checked by :func:`~repro_torch.core.validate.check_schedule`.
+    """
+    if split_blk < 0:
+        raise ValueError(f"split_blk must be >= 0, got {split_blk}")
+    wp = blocked.win_ptr.cpu().numpy().astype(np.int64)
+    w = blocked.num_windows
+    counts = np.diff(wp)
+
+    step = (np.maximum(counts, 1) if split_blk == 0
+            else np.full(w, split_blk, np.int64))
+    nseg = np.maximum(-(-counts // step), 1)   # empty windows keep one seg
+    seg_win = np.repeat(np.arange(w, dtype=np.int64), nseg)
+    idx = np.arange(seg_win.size) - np.repeat(np.cumsum(nseg) - nseg, nseg)
+    seg_lo = wp[seg_win] + idx * step[seg_win]
+    seg_len = np.clip(counts[seg_win] - idx * step[seg_win], 0,
+                      step[seg_win])
+    seg_lo = np.where(seg_len > 0, seg_lo, 0)  # empty: store-only segment
+    seg_first = (idx == 0).astype(np.int64)
+    seg_last = (idx == nseg[seg_win] - 1).astype(np.int64)
+    seg_meta = np.stack([seg_lo, seg_len, seg_first, seg_last], axis=1)
+
+    # Segments walk each window's contiguous block range in ascending
+    # order, so the scheduled blocks are exactly the owned blocks
+    # 0..win_ptr[-1) (the dummy block of an all-empty matrix is never
+    # scheduled).
+    sched = Schedule(
+        seg_win=torch.from_numpy(seg_win.astype(np.int32)),
+        seg_meta=torch.from_numpy(seg_meta.astype(np.int32)),
+        blk_id=torch.arange(int(wp[-1]), dtype=torch.int32),
+        blk_win=torch.from_numpy(np.repeat(np.arange(w, dtype=np.int32),
+                                           counts)),
+        split_blk=split_blk,
+        num_blocks=int(wp[-1]),
+    )
+    _validate.check_schedule(sched, wp)
+    return sched.to(blocked.win_ptr.device)

@@ -19,7 +19,7 @@ import torch
 from . import dispatch as _dispatch
 from .format import BlockedMEBCRS, block_format, to_coo
 from .softmax import sparse_softmax
-from .spmm import _spmm_blocked_impl
+from .spmm import _optional, _spmm_blocked_impl
 
 __all__ = ["sddmm", "sddmm_blocked", "sddmm_dense_ref", "sddmm_coo",
            "attention", "with_values"]
@@ -62,26 +62,29 @@ def sddmm_coo(rows: torch.Tensor, cols: torch.Tensor, q: torch.Tensor,
 
 
 def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
-          k_blk: int = 8, f_blk: int | None = None):
+          k_blk: int = 8, f_blk: int | None = None,
+          split_blk: int | None = None, schedule=None):
     """SDDMM dispatch through the registry → blocked-layout values.
 
     Compose with SpMM by rebinding the values (:func:`with_values`).
+    ``split_blk``/``schedule`` go to the block-parallel ``cuda_balanced``
+    kernel.
     """
-    kwargs = {"k_blk": k_blk}
-    if f_blk is not None:
-        kwargs["f_blk"] = f_blk
-    return _dispatch.dispatch("sddmm", impl, fmt, q, k, **kwargs)
+    return _dispatch.dispatch("sddmm", impl, fmt, q, k, k_blk=k_blk,
+                              **_optional(f_blk=f_blk, split_blk=split_blk,
+                                          schedule=schedule))
 
 
 def attention(fmt, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              impl: str = "blocked", *, scale=None, k_blk: int = 8):
+              impl: str = "blocked", *, scale=None, k_blk: int = 8,
+              split_blk: int | None = None, schedule=None):
     """Sparse attention ``softmax_sparse(scale · mask ⊙ QKᵀ) @ V`` through
     the registry (``dispatch.impls("attention")``).  ``scale`` defaults to
-    ``1/sqrt(F)`` and may be a 0-d tensor."""
-    kwargs = {"k_blk": k_blk}
-    if scale is not None:
-        kwargs["scale"] = scale
-    return _dispatch.dispatch("attention", impl, fmt, q, k, v, **kwargs)
+    ``1/sqrt(F)`` and may be a 0-d tensor; ``split_blk``/``schedule`` go to
+    the block-parallel ``cuda_balanced`` kernel."""
+    return _dispatch.dispatch("attention", impl, fmt, q, k, v, k_blk=k_blk,
+                              **_optional(scale=scale, split_blk=split_blk,
+                                          schedule=schedule))
 
 
 def with_values(blocked: BlockedMEBCRS, new_vals: torch.Tensor) -> BlockedMEBCRS:
@@ -124,6 +127,8 @@ def _attention_blocked_adapter(fmt, q, k, v, *, scale=None, k_blk: int = 8):
     return attention_staged(blocked, q, k, v, scale)
 
 
-_dispatch.register("sddmm", "blocked", _sddmm_blocked_adapter)
+_dispatch.register("sddmm", "blocked", _sddmm_blocked_adapter,
+                   differentiable=True)
 _dispatch.register("sddmm", "coo", _sddmm_coo_adapter)
-_dispatch.register("attention", "blocked", _attention_blocked_adapter)
+_dispatch.register("attention", "blocked", _attention_blocked_adapter,
+                   differentiable=True)

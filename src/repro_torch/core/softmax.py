@@ -33,7 +33,10 @@ def sparse_softmax(blocked: BlockedMEBCRS, scores: torch.Tensor) -> torch.Tensor
     neg = torch.finfo(torch.float32).min
     s = torch.where(mask, scores.float(), neg).reshape(nb, blocked.k_blk, v)
 
-    block_max = s.amax(dim=1)                                          # (NB, V)
+    # The row maximum only keeps exp() in range: the softmax does not
+    # depend on it in exact arithmetic, so it is taken without a gradient
+    # (which also avoids amax's tie rule in the backward).
+    block_max = s.detach().amax(dim=1)                                 # (NB, V)
     # Initial value ``neg`` keeps empty windows finite, as the reference's
     # ``maximum(segment_max, neg)`` does.
     row_max = torch.full((w, v), neg, device=s.device).scatter_reduce(

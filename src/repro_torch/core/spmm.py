@@ -7,8 +7,9 @@ dispatch registry:
     gather the B rows of every K-block, one batched contraction over the
     vector index, and an ``index_add_`` of the per-block partials into
     their windows, accumulating in fp32.
-  * ``cuda`` (registered by :mod:`repro_torch.kernels.ops`): the
-    hand-written kernel of ``kernels/csrc/spmm.cu``.
+  * ``cuda`` and ``cuda_balanced`` (registered by
+    :mod:`repro_torch.kernels.ops`): the hand-written kernels of
+    ``kernels/csrc/spmm.cu`` and ``spmm_balanced.cu``.
   * ``coo_segment``: element-wise scatter-add SpMM, an independent oracle.
 """
 
@@ -61,18 +62,25 @@ def spmm_coo_segment(rows: torch.Tensor, cols: torch.Tensor,
     return out.index_add_(0, rows.long(), contrib).to(b.dtype)
 
 
+def _optional(**kwargs) -> dict:
+    """The keyword arguments that were given (not ``None``)."""
+    return {key: val for key, val in kwargs.items() if val is not None}
+
+
 def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
-         n_blk: int | None = None) -> torch.Tensor:
+         n_blk: int | None = None, split_blk: int | None = None,
+         schedule=None) -> torch.Tensor:
     """SpMM dispatch through the registry (``dispatch.impls("spmm")``).
 
     ``fmt`` is the canonical :class:`~repro_torch.core.format.MEBCRS`
     (blocked on ``b``'s device with ``k_blk``) or a ``BlockedMEBCRS``;
-    ``n_blk`` sets the column tile of the ``cuda`` kernel.
+    ``n_blk`` sets the column tile of the ``cuda*`` kernels;
+    ``split_blk``/``schedule`` parameterize the block-parallel
+    ``cuda_balanced`` kernel (DESIGN.md §11).
     """
-    kwargs = {"k_blk": k_blk}
-    if n_blk is not None:
-        kwargs["n_blk"] = n_blk
-    return _dispatch.dispatch("spmm", impl, fmt, b, **kwargs)
+    return _dispatch.dispatch("spmm", impl, fmt, b, k_blk=k_blk,
+                              **_optional(n_blk=n_blk, split_blk=split_blk,
+                                          schedule=schedule))
 
 
 # ---------------------------------------------------------------------------
@@ -95,5 +103,6 @@ def _spmm_coo_adapter(fmt, b, *, k_blk: int = 8, n_blk: int | None = None):
                             num_rows=fmt.shape[0])
 
 
-_dispatch.register("spmm", "blocked", _spmm_blocked_adapter)
+_dispatch.register("spmm", "blocked", _spmm_blocked_adapter,
+                   differentiable=True)
 _dispatch.register("spmm", "coo_segment", _spmm_coo_adapter)

@@ -27,7 +27,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
-__all__ = ["SOURCES", "build", "library", "ptxas_report", "check_launch"]
+__all__ = ["SOURCES", "build", "library", "ptxas_report", "check_launch",
+           "host_ints"]
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -36,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C entry point and argument types of each library.  Every pointer and the
 # stream are c_void_p: without argtypes ctypes would pass 32-bit ints.
 SOURCES: Dict[str, tuple] = {
@@ -43,6 +45,13 @@ SOURCES: Dict[str, tuple] = {
     "sddmm": ("sddmm_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "attention": ("attention_f32",
                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "spmm_balanced": ("spmm_balanced_f32",
+                      [_P] * 9 + [_I] * 7 + [_L, _L, _P, _I, _L, _P]),
+    "sddmm_balanced": ("sddmm_balanced_f32",
+                       [_P] * 7 + [_I] * 6 + [_L, _L, _L, _P]),
+    "attention_balanced": ("attention_balanced_f32",
+                           [_P] * 15 + [_I] * 7 + [_L, _L, _L, _P, _I, _L,
+                                                   _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -108,6 +117,15 @@ def library(name: str) -> ctypes.CDLL:
                 err_fn.restype = ctypes.c_char_p
                 _libs[src] = lib
         return _libs[name]
+
+
+def host_ints(values) -> ctypes.c_void_p:
+    """A host array of C ints holding ``values``, as a pointer argument
+    (the caller keeps the array alive by keeping the return value)."""
+    arr = (ctypes.c_int * max(len(values), 1))(*values)
+    ptr = ctypes.cast(arr, ctypes.c_void_p)
+    ptr._keep = arr
+    return ptr
 
 
 def check_launch(name: str, err: int) -> None:

@@ -13,16 +13,17 @@ import torch
 
 from repro_torch.core.autodiff import forward_only
 
-__all__ = ["on_cpu", "forward_inputs", "kernel_inputs", "int32_max"]
+__all__ = ["on_cpu", "forward_inputs", "kernel_inputs", "heads",
+           "head_stride", "int32_max"]
 
 int32_max = 2**31 - 1
 
 
 def forward_inputs(op: str, **tensors: torch.Tensor) -> None:
     """Raise ``TypeError`` unless every tensor is float32, and
-    ``RuntimeError`` if one needs a gradient (:func:`forward_only`): the
-    kernels have no backward yet, and a launch would silently cut the
-    graph."""
+    ``RuntimeError`` if one needs a gradient (:func:`forward_only`): a
+    launch would silently cut the graph.  The autograd Functions of
+    ``core/autodiff.py`` call the wrappers with gradients off."""
     for label, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{op}: {label} is {t.dtype}; this kernel takes "
@@ -52,3 +53,27 @@ def kernel_inputs(op: str, indices: dict, dense: dict) -> None:
     for label, t in {**indices, **dense}.items():
         if not t.is_contiguous():
             raise ValueError(f"{op}: {label} must be contiguous")
+
+
+def heads(op: str, **operands: tuple) -> tuple:
+    """``(H, batched)`` of operands given as ``label=(tensor, ndim)``: each
+    tensor has ``ndim`` dimensions, or one more for a leading head
+    dimension; the heads of all 3-D operands agree, and ``H`` is 1 when
+    none has one."""
+    hs = set()
+    for label, (t, ndim) in operands.items():
+        if t.dim() == ndim + 1:
+            hs.add(t.shape[0])
+        elif t.dim() != ndim:
+            raise ValueError(f"{op}: {label} must have {ndim} or {ndim + 1} "
+                             f"dimensions, got {tuple(t.shape)}")
+    if len(hs) > 1:
+        raise ValueError(f"{op}: operands disagree on the head count "
+                         f"{sorted(hs)}")
+    return (next(iter(hs)) if hs else 1), bool(hs)
+
+
+def head_stride(t: torch.Tensor, ndim: int) -> int:
+    """Elements between heads of a per-head operand, 0 for a shared one
+    (every head reads slice 0)."""
+    return t[0].numel() if t.dim() == ndim + 1 else 0

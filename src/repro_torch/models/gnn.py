@@ -18,9 +18,12 @@ The adjacency arrives either as
 ``cfg.impl`` selects the impl of every sparse op.  Weights are
 ``(fan_in, fan_out)`` and applied as ``h @ w``, as in the JAX package.
 
-This is the inference path: with a ``cuda`` impl, run the models under
-``torch.inference_mode()`` (the kernels' backward is ROADMAP.md queue 1
-item 5).  ``gnn_loss`` reports loss and accuracy for evaluation.
+Over an ``ADPlan`` every impl trains: the sparse ops are autograd
+Functions whose backward runs the dispatched duality on the same kernels
+(:mod:`repro_torch.core.autodiff`).  Over a bare blocked view only the
+plain ``blocked`` impl has a gradient, as in the reference.
+``gnn_loss`` gives the masked loss and accuracy; :func:`make_train_step`
+the SGD-with-momentum step.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from repro_torch.core.sddmm import with_values
 from repro_torch.core.softmax import sparse_softmax
 
 __all__ = ["GNNConfig", "Adjacency", "GCN", "AGNN", "gcn_forward",
-           "agnn_forward", "gnn_loss", "params_from_jax"]
+           "agnn_forward", "gnn_loss", "make_train_step", "params_from_jax"]
 
 Adjacency = Union[ADPlan, BlockedMEBCRS]
 
@@ -51,7 +54,7 @@ class GNNConfig:
     hidden_dim: int = 128           # paper: 128 (GCN), 32 (AGNN)
     num_classes: int = 16
     num_layers: int = 5             # paper: 5-layer GCN
-    impl: str = "blocked"           # registry impl: "blocked" | "cuda"
+    impl: str = "blocked"           # "blocked" | "cuda" | "cuda_balanced"
     dtype: torch.dtype = torch.float32
 
 
@@ -171,6 +174,15 @@ def gnn_loss(params: Dict, adj: Adjacency, x: torch.Tensor,
     loss = (nll * train_mask).sum() / denom
     acc = ((logits.argmax(-1) == labels) * train_mask).sum() / denom
     return loss, acc
+
+
+def make_train_step(cfg: GNNConfig, model: nn.Module, lr: float = 1e-2):
+    """GNN train step — delegates to :mod:`repro_torch.train.train_step`,
+    which checks ``cfg.impl``'s ``differentiable`` capability in the
+    registry before the first step."""
+    from repro_torch.train.train_step import make_gnn_train_step
+
+    return make_gnn_train_step(cfg, model, lr=lr)
 
 
 def params_from_jax(cfg: GNNConfig, params: Dict, *, device=None) -> nn.Module:

@@ -1,8 +1,10 @@
 """Card-only checks of the port's CUDA kernels (marker ``gpu``).
 
-Each kernel against its plain PyTorch version on the card, the launch
-counters, and the refusals of the wrappers.  They skip on a host without
-a CUDA device; on one, run
+Each kernel against its plain PyTorch version on the card (the balanced
+ones over split schedules, with one and two heads), the launch counters,
+the refusals of the wrappers, and gradients of a train step against the
+plain ``blocked`` impl.  They skip on a host without a CUDA device; on
+one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
@@ -12,8 +14,13 @@ import pytest
 import torch
 
 from repro_torch.core import ad_plan, block_format, from_dense
-from repro_torch.kernels import (attention_cuda, attention_plain, sddmm_cuda,
-                                 sddmm_plain, spmm_cuda, spmm_plain)
+from repro_torch.core.sddmm import with_values
+from repro_torch.kernels import (attention_balanced_cuda,
+                                 attention_balanced_plain, attention_cuda,
+                                 attention_plain, sddmm_balanced_cuda,
+                                 sddmm_balanced_plain, sddmm_cuda,
+                                 sddmm_plain, spmm_balanced_cuda,
+                                 spmm_balanced_plain, spmm_cuda, spmm_plain)
 from repro_torch.models import gnn
 
 pytestmark = pytest.mark.gpu
@@ -119,3 +126,67 @@ def test_gcn_forward_on_card_matches_blocked(device):
                                gnn.GNNConfig(in_dim=32, hidden_dim=32,
                                              num_classes=4, num_layers=3))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
+def test_balanced_kernels_match_plain_on_card(device, case, h, split):
+    m, k, density, empty, v, k_blk, n, f, dv = case
+    rng = np.random.default_rng(m * k + h)
+    a = _matrix(rng, m, k, density, empty)
+    blocked = block_format(from_dense(a, vector_size=v), k_blk, device=device)
+    sched = blocked.schedule(split)
+    hs = (h,) if h > 1 else ()
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    # two heads: per-head vals, B, Q, V; shared K
+    bv = with_values(blocked, t(*hs, *blocked.vals.shape) * blocked.mask)
+    b, q, kk, vv = t(*hs, k, n), t(*hs, m, f), t(k, f), t(*hs, k, dv)
+    torch.testing.assert_close(spmm_balanced_cuda(bv, b, schedule=sched),
+                               spmm_balanced_plain(bv, b, sched),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(sddmm_balanced_cuda(blocked, q, kk,
+                                                   schedule=sched),
+                               sddmm_balanced_plain(blocked, q, kk, sched),
+                               rtol=RTOL, atol=ATOL)
+    scale = torch.tensor(0.8, device=device)
+    torch.testing.assert_close(
+        attention_balanced_cuda(blocked, q, kk, vv, scale=scale,
+                                schedule=sched),
+        attention_balanced_plain(blocked, q, kk, vv, sched, scale),
+        rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+
+
+def test_all_empty_matrix_launches_no_balanced_sddmm(device):
+    blocked = block_format(from_dense(np.zeros((30, 30), np.float32)), 8,
+                           device=device)
+    x = torch.ones(30, 8, device=device)
+    before = sddmm_balanced_cuda.launches
+    out = sddmm_balanced_cuda(blocked, x, x)
+    assert sddmm_balanced_cuda.launches == before
+    assert out.shape == blocked.vals.shape and not out.any()
+    assert not spmm_balanced_cuda(blocked, x).any()
+    assert not attention_balanced_cuda(blocked, x, x, x).any()
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_balanced"])
+@pytest.mark.parametrize("model", ["gcn", "agnn"])
+def test_train_step_gradients_on_card_match_blocked(device, model, impl):
+    rng = np.random.default_rng(1)
+    a = _matrix(rng, 300, 300, 0.02) + np.eye(300, dtype=np.float32)
+    fmt = from_dense(a)
+    x = torch.from_numpy(rng.standard_normal((300, 32)).astype(np.float32)).to(device)
+    kw = dict(model=model, in_dim=32, hidden_dim=32 if model == "gcn" else 16,
+              num_classes=4, num_layers=3)
+    grads = {}
+    for name in (impl, "blocked"):
+        cfg = gnn.GNNConfig(impl=name, **kw)
+        net = (gnn.GCN if model == "gcn" else gnn.AGNN)(cfg, device=device)
+        net(ad_plan(fmt, impl=name, device=device), x).square().mean().backward()
+        grads[name] = [p.grad for p in net.parameters()]
+    for got, want in zip(grads[impl], grads["blocked"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

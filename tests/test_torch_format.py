@@ -150,7 +150,7 @@ def test_transpose_values_relayout_matches_jax():
 def test_unported_plan_impls_name_the_roadmap():
     fmt = tf.from_dense(np.eye(8, dtype=np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ad_plan(fmt, impl="cuda_balanced", device="cpu")
+        ad_plan(fmt, impl="cuda_tuned", device="cpu")
     with pytest.raises(ValueError, match="canonical"):
         ad_plan(tf.block_format(fmt, device="cpu"), device="cpu")
 

@@ -126,10 +126,18 @@ def test_gcn_dispatches_one_spmm_per_layer(adjacency):
 
 
 def test_forward_with_grad_enabled_raises(adjacency):
+    """With grad on, a ``cuda`` GCN over the bare blocked format still
+    raises (its kernels have no backward there); over the ADPlan it
+    backpropagates to every weight."""
     cfg, _ = _configs("gcn", "cuda", "pallas")
     module = gnn.GCN(cfg, device="cpu")
+    x = torch.from_numpy(adjacency["x"])
     with pytest.raises(RuntimeError, match="forward-only"):
-        module(adjacency["plan"][0], torch.from_numpy(adjacency["x"]))
+        module(adjacency["blocked"][0], x)
+    module(adjacency["plan"][0], x).square().sum().backward()
+    for w in module.w:
+        assert w.grad is not None and bool(torch.isfinite(w.grad).all())
+        assert bool(w.grad.abs().sum() > 0)
 
 
 def test_params_from_jax_checks_shapes():

@@ -176,9 +176,12 @@ def test_sparse_softmax_matches_jax(name):
 
 
 def test_registry_lists_the_ported_impls():
-    assert dispatch.impls("spmm") == ("blocked", "coo_segment", "cuda")
-    assert dispatch.impls("sddmm") == ("blocked", "coo", "cuda")
-    assert dispatch.impls("attention") == ("blocked", "cuda_fused_attn")
+    assert dispatch.impls("spmm") == ("blocked", "coo_segment", "cuda",
+                                      "cuda_balanced")
+    assert dispatch.impls("sddmm") == ("blocked", "coo", "cuda",
+                                       "cuda_balanced")
+    assert dispatch.impls("attention") == ("blocked", "cuda_balanced",
+                                           "cuda_fused_attn")
     with pytest.raises(ValueError, match="available"):
         dispatch.get("spmm", "pallas")
 
