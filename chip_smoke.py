@@ -8,19 +8,28 @@ a non-zero exit at the first phase that fails:
 
   1. the card: name and power limit (``nvidia-smi``);
   2. build: ``nvcc`` compiles ``src/repro_torch/kernels/csrc/*.cu`` for
-     sm_90a, one process per source; ``-Xptxas -v``'s register,
-     shared-memory and spill lines;
+     sm_90a, one process per source, all started together; ``-Xptxas
+     -v``'s register, shared-memory and spill lines;
   3. each kernel against its plain PyTorch version on the card: (a) on
      edge cases, the balanced kernels over schedules split at
      split_blk in {0, 1, 3} with one and two heads, shared and per-head
-     operands, and the all-empty matrix (no balanced SDDMM launch);
-     (b) at the main path's shapes on the Amazon replica, the balanced
-     kernels over the schedules of A and of its transpose;
+     operands, and the all-empty matrix (no balanced SDDMM launch); the
+     head-grid SpMM and SDDMM and the fused attention at H in {1, 2, 4}
+     with every mix of shared and per-head operands, each bitwise-equal
+     to H one-head launches; the non-coalesced SpMM bitwise-equal to the
+     SpMM; the staged SpMM; (b) at the main paths' shapes: on the Amazon
+     replica, the balanced kernels over the schedules of A and of its
+     transpose, and the two SpMM baselines at N = 128; on the attention
+     pattern (12 heads, 16,384 tokens, head dim 64), the head-grid SpMM
+     on A and on its transpose, the head-grid SDDMM and the fused
+     attention;
   4. inference: GCN (5 x 128) and AGNN (hidden 32, 5 layers) on
      ``make_dataset("Amazon", 1.0, seed=0)`` over the ``cuda`` plan, the
-     bare blocked format and the ``cuda_balanced`` plan, each held against
-     the same model with the plain ``blocked`` impl, with the kernels'
-     launch counters read around each forward;
+     bare blocked format and the ``cuda_balanced`` plan, and GCN over the
+     bare format with the two SpMM baselines (``cuda_noncoalesced``,
+     ``cuda_staged``), each held against the same model with the plain
+     ``blocked`` impl, with the kernels' launch counters read around each
+     forward;
      4b. training: the gradients of ``spmm_ad``, ``sddmm_ad`` and
      ``attention_ad`` (β's included) under a random cotangent on both
      routes against ``blocked``; three steps of each model on ``cuda`` and
@@ -28,6 +37,16 @@ a non-zero exit at the first phase that fails:
      loss and gradients against the same step with ``blocked``, a finite
      decreasing loss, and the launch counters against the counts that the
      layers and the gradients the step needs give;
+     4c. multi-head block-sparse attention forward at the widths of
+     Longformer-base / LED-base (12 heads x 64, 16,384 tokens, the
+     repository's causal window-64 / stride-128 pattern) on the ``cuda``
+     (one fused launch for all heads), ``cuda_balanced`` and
+     ``cuda_staged`` routes, each against ``blocked`` and, head by head,
+     against dense masked attention;
+     4d. its training: dout/dQ on ``cuda``, ``cuda_balanced`` and through
+     ``sparse_attention_staged`` on the ``cuda`` plan against ``blocked``,
+     and three value-projection SGD steps on each, with the launch
+     counters against the derived counts;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
      never calls), the balanced kernels at split_blk in {1, 8, 32}, each
@@ -58,6 +77,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Kernel against plain version: both fp32, sums taken in another order.
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
+# A hub window (more K-blocks than HUB_OF_MEDIAN x the median window) is
+# one fp32 running sum of n = blocks x k_blk terms in the window-parallel
+# kernels.  Its rows are held against an fp64 product within
+# KERNEL_ATOL + HUB_LAMBDA * sqrt(n) * 2^-24 * sum|a * b|, the
+# probabilistic bound of a recursive fp32 sum (Higham and Mary, SIAM J.
+# Sci. Comput. 41(5), 2019).
+HUB_OF_MEDIAN, HUB_LAMBDA = 4, 3.0
 # End to end: fp32 sums re-ordered over five layers.
 E2E_RTOL, E2E_ATOL = 1e-4, 1e-4
 # Training, first step against impl="blocked": each gradient is an fp32
@@ -83,6 +109,13 @@ FP32_FLOPS_PER_S = 67e12
 DEVICE = "cuda"
 SCALE = 1.0  # the Amazon replica at full size
 
+# Multi-head sparse attention at the widths of Longformer-base / LED-base
+# (d_model 768 = 12 heads x 64) and LED's 16,384-token encoder length.
+ATTN_SEQ, ATTN_HEADS, ATTN_DIM = 16384, 12, 64
+# Against dense masked attention: the reference example's tolerances.
+ATTN_DENSE_TOL, ATTN_DQ_TOL = 2e-4, 2e-3
+ATTN_LR = 0.05  # the reference example's value-projection rate
+
 KERNELS = {  # name: (route, impl that launches it, source, TPU kernel)
     "spmm": ("cuda", "cuda", "src/repro_torch/kernels/csrc/spmm.cu",
              "src/repro/kernels/spmm_pallas.py:110"),
@@ -99,6 +132,18 @@ KERNELS = {  # name: (route, impl that launches it, source, TPU kernel)
     "attention_balanced": ("cuda", "cuda_balanced",
                            "src/repro_torch/kernels/csrc/attention_balanced.cu",
                            "src/repro/kernels/attention_pallas.py:241"),
+    "spmm_noncoalesced": ("cuda", "cuda_noncoalesced",
+                          "src/repro_torch/kernels/csrc/spmm_noncoalesced.cu",
+                          "src/repro/kernels/spmm_pallas.py:271"),
+    "spmm_batched": ("cuda", "cuda_batched",
+                     "src/repro_torch/kernels/csrc/spmm_batched.cu",
+                     "src/repro/kernels/spmm_pallas.py:294"),
+    "spmm_staged": ("cuda", "cuda_staged",
+                    "src/repro_torch/kernels/csrc/spmm_staged.cu",
+                    "src/repro/kernels/spmm_pallas.py:613"),
+    "sddmm_batched": ("cuda", "cuda_batched",
+                      "src/repro_torch/kernels/csrc/sddmm_batched.cu",
+                      "src/repro/kernels/sddmm_pallas.py:171"),
 }
 
 
@@ -302,6 +347,193 @@ def check_kernels_edge(rng) -> None:
     torch.cuda.synchronize()
 
 
+def check_hub_windows(label: str, blocked, vals, b, out, ref) -> float:
+    """Hold ``out`` = Aᵀ⟨vals⟩ @ B (head-grid SpMM, (H, M, N)) to ``ref``
+    (its plain version) at the kernel tolerance on the rows of ordinary
+    windows, and to an fp64 product within the running-sum bound on the
+    rows of hub windows.  Returns the max abs error of the ordinary rows."""
+    import torch
+
+    kb, v = blocked.k_blk, blocked.vector_size
+    nb, m = blocked.num_blocks, blocked.shape[0]
+    per_win = torch.diff(blocked.win_ptr.long())
+    hub_win = per_win > HUB_OF_MEDIAN * per_win.median()
+    hub_row = hub_win.repeat_interleave(v)[:m]
+    err = compare(f"{label}, {int((~hub_win).sum())} ordinary windows "
+                  "against the plain version", out[:, ~hub_row],
+                  ref[:, ~hub_row], KERNEL_RTOL, KERNEL_ATOL)
+    win = blocked.block_win.long()
+    sel = torch.nonzero(hub_win[win]).squeeze(1)
+    cols = blocked.cols.long().reshape(nb, kb)[sel]
+    worst, kern_err, plain_err = 0.0, 0.0, 0.0
+    for h in range(out.shape[0]):
+        vals4 = vals[h].reshape(nb, kb, v)[sel].double()
+        gb = b[h][cols].double()                              # (NS, K_BLK, N)
+        exact = torch.zeros((blocked.num_windows, v, b.shape[-1]),
+                            dtype=torch.float64, device=b.device)
+        absum = torch.zeros_like(exact)
+        exact.index_add_(0, win[sel], torch.einsum("bkv,bkn->bvn", vals4, gb))
+        absum.index_add_(0, win[sel], torch.einsum("bkv,bkn->bvn",
+                                                   vals4.abs(), gb.abs()))
+        n = (per_win * kb).double().sqrt()[:, None, None]
+        limit = KERNEL_ATOL + HUB_LAMBDA * n * 2.0 ** -24 * absum
+        exact, limit = (t.reshape(-1, b.shape[-1])[:m][hub_row]
+                        for t in (exact, limit))
+        got = out[h][hub_row]
+        if not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"FAIL {label}: non-finite values in head {h}")
+        diff = (got.double() - exact).abs()
+        ratio = (diff / limit).max().item()
+        if ratio > 1.0:
+            raise SystemExit(f"FAIL {label}: head {h}, hub rows off the fp64 "
+                             f"product by {diff.max().item():.3e}, {ratio:.3f}"
+                             " x the bound")
+        worst = max(worst, ratio)
+        kern_err = max(kern_err, diff.max().item())
+        plain_err = max(plain_err, (ref[h][hub_row].double() - exact).abs()
+                        .max().item())
+    print(f"  ok   {label}, {int(hub_win.sum())} hub windows (up to "
+          f"{int(per_win.max())} K-blocks) against fp64: max abs err "
+          f"{kern_err:.3e}, at most {worst:.3f} x the bound {HUB_LAMBDA} "
+          f"sqrt(n) 2^-24 sum|a b| + {KERNEL_ATOL}; the plain version's "
+          f"blockwise sums are off fp64 by {plain_err:.3e}, the output's "
+          f"largest entry is {out.abs().max().item():.3e}", flush=True)
+    return err
+
+
+def bitwise(label: str, out, ref) -> None:
+    """Fail unless ``out`` and ``ref`` are the same bits."""
+    import torch
+
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        err = ((out - ref).abs().max().item() if out.shape == ref.shape
+               else float("nan"))
+        raise SystemExit(f"FAIL {label}: not bitwise-equal (max abs diff "
+                         f"{err:.3e}, shapes {tuple(out.shape)} and "
+                         f"{tuple(ref.shape)})")
+
+
+def check_head_grids_edge(rng) -> None:
+    """Phase 3a for the head-grid kernels, the fused attention over heads
+    and the two SpMM baselines."""
+    import torch
+
+    from repro_torch.core.format import block_format, from_dense
+    from repro_torch.core.sddmm import with_values
+    from repro_torch.kernels import (attention_cuda, attention_plain,
+                                     sddmm_batched_cuda, sddmm_batched_plain,
+                                     sddmm_cuda, spmm_batched_cuda,
+                                     spmm_batched_plain, spmm_cuda,
+                                     spmm_noncoalesced_cuda, spmm_staged_cuda,
+                                     spmm_staged_plain)
+
+    def t(heads, *shape):
+        return torch.from_numpy(rng.standard_normal(
+            heads + shape).astype(np.float32)).to(DEVICE)
+
+    def head(x, i):
+        return x[i] if x.dim() == 3 else x
+
+    two = ("first", "second", "both")
+    # which of q, k, v carry the head dimension (at least one)
+    three = [m for m in ((a, b, c) for a in (0, 1) for b in (0, 1)
+                         for c in (0, 1)) if any(m)]
+    beta = torch.tensor(0.8, device=DEVICE)
+    for label, a, v, k_blk, n, f, dv in kernel_cases(rng):
+        blocked = block_format(from_dense(a, vector_size=v), k_blk,
+                               device=DEVICE)
+        m, k = a.shape
+        errs = []
+        for h in (1, 2, 4):
+            for mix in two:
+                hf = (h,) if mix in ("first", "both") else ()
+                hs = (h,) if mix in ("second", "both") else ()
+                tag = f"[{label}, H={h}, per-head {mix}]"
+                bv = with_values(blocked, t(hf, *blocked.vals.shape)
+                                 * blocked.mask)
+                b = t(hs, k, n)
+                out = spmm_batched_cuda(bv, b)
+                bitwise(f"spmm_batched {tag} vs {h} spmm launches", out,
+                        torch.stack([spmm_cuda(with_values(
+                            blocked, head(bv.vals, i)), head(b, i))
+                            for i in range(h)]))
+                errs.append(compare(f"spmm_batched {tag}", out,
+                                    spmm_batched_plain(bv, b), KERNEL_RTOL,
+                                    KERNEL_ATOL, show=False))
+                q, kk = t(hf, m, f), t(hs, k, f)
+                out = sddmm_batched_cuda(blocked, q, kk)
+                bitwise(f"sddmm_batched {tag} vs {h} sddmm launches", out,
+                        torch.stack([sddmm_cuda(blocked, head(q, i),
+                                                head(kk, i))
+                                     for i in range(h)]))
+                errs.append(compare(f"sddmm_batched {tag}", out,
+                                    sddmm_batched_plain(blocked, q, kk),
+                                    KERNEL_RTOL, KERNEL_ATOL, show=False))
+            for mq, mk, mv in three:
+                q, kk, vv = (t((h,) if per else (), rows, width)
+                             for per, rows, width in ((mq, m, f), (mk, k, f),
+                                                      (mv, k, dv)))
+                tag = f"[{label}, H={h}, per-head q/k/v {mq}{mk}{mv}]"
+                out = attention_cuda(blocked, q, kk, vv, scale=beta)
+                bitwise(f"attention {tag} vs {h} one-head launches", out,
+                        torch.stack([attention_cuda(
+                            blocked, head(q, i), head(kk, i), head(vv, i),
+                            scale=beta) for i in range(h)]))
+                errs.append(compare(f"attention {tag}", out,
+                                    attention_plain(blocked, q, kk, vv, beta),
+                                    KERNEL_RTOL, KERNEL_ATOL, show=False))
+        b = t((), k, n)
+        bitwise(f"spmm_noncoalesced [{label}] vs spmm",
+                spmm_noncoalesced_cuda(blocked, b), spmm_cuda(blocked, b))
+        errs.append(compare(f"spmm_staged [{label}]",
+                            spmm_staged_cuda(blocked, b),
+                            spmm_staged_plain(blocked, b), KERNEL_RTOL,
+                            KERNEL_ATOL, show=False))
+        print(f"  ok   [{label}]: spmm_batched, sddmm_batched (H 1/2/4 x 3 "
+              "mixes) and attention (H 1/2/4 x 7 mixes) bitwise-equal to "
+              "their one-head launches, spmm_noncoalesced bitwise-equal to "
+              f"spmm; against the plain versions max abs err {max(errs):.3e}",
+              flush=True)
+    torch.cuda.synchronize()
+
+
+def attention_setup(rng) -> dict:
+    """The multi-head attention configuration on the card: the pattern,
+    its ``cuda`` and ``cuda_balanced`` plans, q, k and v (the reference
+    example's inputs, from numpy seed 0) and a random cotangent g."""
+    import torch
+
+    from repro_torch.core.autodiff import ad_plan
+    from repro_torch.core.format import from_coo
+    from repro_torch.train.sparse_attention_train import (
+        block_sparse_causal_pattern, make_inputs, params_from_jax)
+
+    t0 = time.time()
+    rows, cols = block_sparse_causal_pattern(ATTN_SEQ)
+    fmt = from_coo(rows, cols, np.ones(rows.shape, np.float32),
+                   (ATTN_SEQ, ATTN_SEQ), vector_size=8)
+    plan = ad_plan(fmt, impl="cuda", k_blk=8, device=DEVICE)
+    bplan = ad_plan(fmt, impl="cuda_balanced", k_blk=8, split_blk=1,
+                    device=DEVICE)
+    t_host = time.time() - t0
+    print(f"  attention pattern: S={ATTN_SEQ}, window 64, stride 128: "
+          f"{rows.shape[0]} nonzeros, {plan.fwd.num_windows} windows; "
+          f"pattern + plans {t_host:.1f} s on the host")
+    for dirn, bl, sc in (("A", bplan.fwd, bplan.fwd_sched),
+                         ("A^T", bplan.bwd, bplan.bwd_sched)):
+        per_win = np.diff(bl.win_ptr.cpu().numpy())
+        print(f"  {dirn}: {bl.num_blocks} K-blocks, NNZP={bl.vals.shape[0]}, "
+              f"blocks per window mean {per_win.mean():.2f}, max "
+              f"{per_win.max()}; split_blk=1 schedule: {sc.num_segments} "
+              "segments")
+    t = params_from_jax(device=DEVICE, **dict(zip(
+        "qkv", make_inputs(ATTN_SEQ, ATTN_HEADS, ATTN_DIM))))
+    g = torch.from_numpy(rng.standard_normal(
+        (ATTN_HEADS, ATTN_SEQ, ATTN_DIM)).astype(np.float32)).to(DEVICE)
+    return dict(rows=rows, cols=cols, plan=plan, bplan=bplan, g=g,
+                scale=1.0 / math.sqrt(ATTN_DIM), host_s=t_host, **t)
+
+
 def main() -> None:
     import torch
 
@@ -315,14 +547,25 @@ def main() -> None:
     from repro_torch.kernels import (_build, attention_balanced_cuda,
                                      attention_balanced_plain, attention_cuda,
                                      attention_plain, sddmm_balanced_cuda,
-                                     sddmm_balanced_plain, sddmm_cuda,
+                                     sddmm_balanced_plain, sddmm_batched_cuda,
+                                     sddmm_batched_plain, sddmm_cuda,
                                      sddmm_plain, spmm_balanced_cuda,
-                                     spmm_balanced_plain, spmm_cuda,
-                                     spmm_plain)
+                                     spmm_balanced_plain, spmm_batched_cuda,
+                                     spmm_batched_plain, spmm_cuda,
+                                     spmm_noncoalesced_cuda,
+                                     spmm_noncoalesced_plain, spmm_plain,
+                                     spmm_staged_cuda, spmm_staged_plain)
     from repro_torch.kernels._combine import combine_tree
+    from repro_torch.core.sddmm import attention, with_values
+    from repro_torch.core.softmax import sparse_softmax
     from repro_torch.models.gnn import (AGNN, GCN, GNNConfig, agnn_forward,
                                         gcn_forward, gnn_loss)
+    from repro_torch.models.layers import (sparse_attention,
+                                           sparse_attention_staged)
     from repro_torch.sparse.graphs import make_dataset
+    from repro_torch.train.sparse_attention_train import (
+        dense_mask, dense_masked_attention, initial_w, train_value_projection,
+        value_projection_loss)
     from repro_torch.train.gnn_train import make_task
     from repro_torch.train.train_step import make_gnn_train_step
 
@@ -330,7 +573,11 @@ def main() -> None:
                 "attention": attention_cuda,
                 "spmm_balanced": spmm_balanced_cuda,
                 "sddmm_balanced": sddmm_balanced_cuda,
-                "attention_balanced": attention_balanced_cuda}
+                "attention_balanced": attention_balanced_cuda,
+                "spmm_noncoalesced": spmm_noncoalesced_cuda,
+                "spmm_batched": spmm_batched_cuda,
+                "spmm_staged": spmm_staged_cuda,
+                "sddmm_batched": sddmm_batched_cuda}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -365,6 +612,7 @@ def main() -> None:
     phase("3a. kernels against their plain versions: edge cases")
     rng = np.random.default_rng(0)
     check_kernels_edge(rng)
+    check_head_grids_edge(rng)
 
     phase("3b. kernels against their plain versions: main-path shapes")
     t0 = time.time()
@@ -435,6 +683,48 @@ def main() -> None:
         if dirn == "A":
             err.update(spmm_balanced=e_spmm[0], sddmm_balanced=e_sddmm[0],
                        attention_balanced=e_attn)
+    # The Fig. 15 baseline keeps spmm.cu's per-output order: same bits.
+    bitwise("spmm_noncoalesced [Amazon, N=128] vs spmm",
+            spmm_noncoalesced_cuda(blk, b), spmm_cuda(blk, b))
+    err["spmm_noncoalesced"] = compare(
+        "spmm_noncoalesced [Amazon, N=128]", spmm_noncoalesced_cuda(blk, b),
+        spmm_noncoalesced_plain(blk, b), KERNEL_RTOL, KERNEL_ATOL)
+    err["spmm_staged"] = compare(
+        "spmm_staged [Amazon, N=128]", spmm_staged_cuda(blk, b),
+        spmm_staged_plain(blk, b), KERNEL_RTOL, KERNEL_ATOL)
+    torch.cuda.synchronize()
+
+    att = attention_setup(rng)
+    aplan, abplan = att["plan"], att["bplan"]
+    ablk = aplan.fwd
+    aq, ak, av, ag = att["q"], att["k"], att["v"], att["g"]
+    with torch.no_grad():
+        aprobs = sparse_softmax(ablk, sddmm_batched_plain(ablk, aq, ak)
+                                * att["scale"])
+    aprobs_t = aplan.transpose_vals(aprobs)
+    tag = (f"H={ATTN_HEADS}, S={ATTN_SEQ}, D=DV={ATTN_DIM}")
+    err["spmm_batched"] = compare(
+        f"spmm_batched [attention A, {tag}: probabilities @ V]",
+        spmm_batched_cuda(with_values(ablk, aprobs), av),
+        spmm_batched_plain(with_values(ablk, aprobs), av), KERNEL_RTOL,
+        KERNEL_ATOL)
+    # A global key's window of A^T sums up to 16,384 vectors in one fp32
+    # running sum (spmm.cu's order, the reference's sequential window
+    # accumulation), where the plain version sums blockwise: its rows are
+    # held against fp64, the rest against the plain version.
+    check_hub_windows(
+        f"spmm_batched [attention A^T, {tag}: dV = P^T @ G]", aplan.bwd,
+        aprobs_t, ag, spmm_batched_cuda(with_values(aplan.bwd, aprobs_t), ag),
+        spmm_batched_plain(with_values(aplan.bwd, aprobs_t), ag))
+    err["sddmm_batched"] = compare(
+        f"sddmm_batched [attention A, {tag}: scores]",
+        sddmm_batched_cuda(ablk, aq, ak), sddmm_batched_plain(ablk, aq, ak),
+        KERNEL_RTOL, KERNEL_ATOL)
+    err["attention_h12"] = compare(
+        f"attention [attention A, {tag}, scale 1/sqrt(D)]",
+        attention_cuda(ablk, aq, ak, av, scale=att["scale"]),
+        attention_plain(ablk, aq, ak, av, att["scale"]), KERNEL_RTOL,
+        KERNEL_ATOL)
     torch.cuda.synchronize()
 
     phase("4. end to end: GCN and AGNN inference on the Amazon replica")
@@ -477,6 +767,17 @@ def main() -> None:
                           lambda: agnn_forward(agnn.params(), bplan, x,
                                                plain["agnn"]),
                           expect(attention_balanced=n_layers)),
+        # the paper's SpMM ablation baselines on the GCN forward
+        "gcn_noncoalesced": (
+            lambda: gcn_forward(gcn.params(), blk, x, dataclasses.replace(
+                cfgs["gcn"], impl="cuda_noncoalesced")),
+            lambda: gcn_forward(gcn.params(), blk, x, plain["gcn"]),
+            expect(spmm_noncoalesced=n_layers)),
+        "gcn_staged": (
+            lambda: gcn_forward(gcn.params(), blk, x, dataclasses.replace(
+                cfgs["gcn"], impl="cuda_staged")),
+            lambda: gcn_forward(gcn.params(), blk, x, plain["gcn"]),
+            expect(spmm_staged=n_layers)),
     }
     launches = {name: 0 for name in wrappers}
     outs = {}
@@ -602,6 +903,135 @@ def main() -> None:
             train[f"{model}_{impl}"] = {"losses": losses,
                                         "launches_per_step": got}
 
+    phase(f"4c. multi-head sparse attention forward: H={ATTN_HEADS}, "
+          f"S={ATTN_SEQ}, D=DV={ATTN_DIM}")
+    attn_routes = {   # name: (forward, launches of one forward)
+        "cuda": (lambda: sparse_attention(aplan, aq, ak, av),
+                 expect(attention=1)),
+        "cuda_balanced": (lambda: sparse_attention(abplan, aq, ak, av),
+                          expect(attention_balanced=1)),
+        "cuda_staged": (lambda: attention(ablk, aq, ak, av,
+                                          impl="cuda_staged"),
+                        expect(sddmm_batched=1, spmm_batched=1)),
+    }
+
+    def attn_blocked():
+        return sparse_attention(aplan, aq, ak, av, impl="blocked")
+
+    amask = dense_mask(att["rows"], att["cols"], ATTN_SEQ, DEVICE)
+    dense_heads = (0, ATTN_HEADS - 1)
+    with torch.inference_mode():
+        attn_ref = attn_blocked()
+        # the dense oracle, one head at a time (1 GiB of scores per head)
+        dense = {h: dense_masked_attention(aq[h], ak[h], av[h], amask)
+                 for h in dense_heads}
+        for h in dense_heads:
+            compare(f"attention blocked head {h} vs dense masked attention",
+                    attn_ref[h], dense[h], ATTN_DENSE_TOL, ATTN_DENSE_TOL)
+        for name, (run, want) in attn_routes.items():
+            reset_counts()
+            out = run()
+            torch.cuda.synchronize()
+            got = counts()
+            print(f"  attention forward {name}: launches {got}")
+            if got != want:
+                raise SystemExit(f"FAIL attention forward {name}: launch "
+                                 f"counts {got} != {want}")
+            for k_name in launches:
+                launches[k_name] += got[k_name]
+            compare(f"attention forward {name} vs impl=blocked", out,
+                    attn_ref, E2E_RTOL, E2E_ATOL)
+            for h in dense_heads:
+                compare(f"attention forward {name} head {h} vs dense masked "
+                        "attention", out[h], dense[h], ATTN_DENSE_TOL,
+                        ATTN_DENSE_TOL)
+        del dense, attn_ref
+    print(f"  cuda: ONE attention_cuda launch for {ATTN_HEADS} heads")
+
+    phase("4d. multi-head sparse attention training: dout/dQ and "
+          f"{TRAIN_STEPS} value-projection SGD steps")
+    # (plan, impl, staged layer): the fused routes through
+    # sparse_attention, and sparse_attention_staged over the cuda plan.
+    attn_train = {"cuda": (aplan, "cuda", False),
+                  "cuda_balanced": (abplan, "cuda_balanced", False),
+                  "staged_cuda": (aplan, "cuda", True)}
+
+    def attn_counts(route, what):
+        # Launches of a forward ("fwd"), or of a forward and the backward
+        # for dQ ("dq") or for dV ("dv", the value projection), from the
+        # autograd Functions and the gradients needed.  Fused routes:
+        # forward one attention kernel; backward the recomputed scores
+        # (SDDMM), then for dQ the dProbs SDDMM and the dQ SpMM, for dV the
+        # dV SpMM on A^T.  Staged layer: forward the scores SDDMM and the
+        # P @ V SpMM; backward for dQ the dProbs SDDMM and the dQ SpMM, for
+        # dV the dV SpMM.  Each is one launch for all heads.
+        batched = route != "cuda_balanced"
+        sd, sp = (("sddmm_batched", "spmm_batched") if batched
+                  else ("sddmm_balanced", "spmm_balanced"))
+        if route == "staged_cuda":
+            fwd = {sd: 1, sp: 1}
+            bwd = {sd: 1, sp: 1} if what == "dq" else {sp: 1}
+        else:
+            fwd = {"attention" if batched else "attention_balanced": 1}
+            bwd = {sd: 2, sp: 1} if what == "dq" else {sd: 1, sp: 1}
+        if what == "fwd":
+            bwd = {}
+        return {k_: fwd.get(k_, 0) + bwd.get(k_, 0) for k_ in wrappers}
+
+    def attn_dq(plan_, impl, staged):
+        layer = sparse_attention_staged if staged else sparse_attention
+        leaf = aq.detach().clone().requires_grad_(True)
+        (dq,) = torch.autograd.grad(layer(plan_, leaf, ak, av,
+                                          impl=impl).sum(), leaf)
+        return dq
+
+    dq_ref = attn_dq(aplan, "blocked", False)
+    vp_ref = train_value_projection(aplan, aq, ak, av, "blocked", steps=1,
+                                    lr=ATTN_LR)
+    attn_result = {}
+    for name, (plan_, impl, staged) in attn_train.items():
+        reset_counts()
+        dq = attn_dq(plan_, impl, staged)
+        torch.cuda.synchronize()
+        got, want = counts(), attn_counts(name, "dq")
+        if got != want:
+            raise SystemExit(f"FAIL attention dQ {name}: launch counts "
+                             f"{got} != {want}")
+        for k_name in launches:
+            launches[k_name] += got[k_name]
+        compare(f"attention dout/dQ {name} vs impl=blocked", dq, dq_ref,
+                ATTN_DQ_TOL, ATTN_DQ_TOL)
+        reset_counts()
+        run = train_value_projection(plan_, aq, ak, av, impl,
+                                     steps=TRAIN_STEPS, lr=ATTN_LR,
+                                     staged=staged)
+        torch.cuda.synchronize()
+        got = counts()
+        # the target and the final loss are one forward each
+        fwd, step = attn_counts(name, "fwd"), attn_counts(name, "dv")
+        want = {k_: 2 * fwd[k_] + TRAIN_STEPS * step[k_] for k_ in wrappers}
+        if got != want:
+            raise SystemExit(f"FAIL attention value projection {name}: "
+                             f"launch counts {got} != {want}")
+        for k_name in launches:
+            launches[k_name] += got[k_name]
+        losses = run.losses + [run.final]
+        print(f"  value projection {name}: losses {losses}; launches "
+              f"{got} (target + {TRAIN_STEPS} steps + final loss)")
+        if not (all(map(math.isfinite, losses))
+                and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
+            raise SystemExit(f"FAIL value projection {name}: losses "
+                             f"{losses} are not finite and decreasing")
+        compare(f"value projection {name}: step-1 loss vs blocked",
+                torch.tensor(run.losses[0]), torch.tensor(vp_ref.losses[0]),
+                GRAD_RTOL, 0.0)
+        compare(f"value projection {name}: step-1 dloss/dW vs blocked",
+                run.first_grad, vp_ref.first_grad, GRAD_RTOL,
+                GRAD_ATOL_OF_MAX * vp_ref.first_grad.abs().max().item())
+        attn_result[name] = {"losses": losses, "launches": got,
+                             "launches_per_step": step}
+    del dq, dq_ref
+
     phase("5. timing (CUDA events around back-to-back calls, median of runs)")
     csr = torch.sparse_coo_tensor(
         torch.from_numpy(np.stack([g.rows, g.cols])),
@@ -609,6 +1039,31 @@ def main() -> None:
     pattern = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
                                       torch.ones_like(csr.values()), (m, m))
     bblk, bsched = bplan.fwd, bplan.fwd_sched
+    # Library yardsticks of the attention kernels: the probabilities as a
+    # (H, S, S) sparse COO tensor for torch.bmm, the pattern as a batched
+    # CSR tensor for sampled_addmm, the dense mask for
+    # scaled_dot_product_attention.
+    aprob_blk = with_values(ablk, aprobs)
+    t_idx, r_idx = torch.nonzero(ablk.mask, as_tuple=True)
+    a_rows = (ablk.block_win.long()[t_idx // ablk.k_blk]
+              * ablk.vector_size + r_idx)
+    a_cols = ablk.cols.long()[t_idx]
+    heads_idx = torch.arange(ATTN_HEADS, device=DEVICE).repeat_interleave(
+        a_rows.shape[0])
+    aprob_coo = torch.sparse_coo_tensor(
+        torch.stack([heads_idx, a_rows.repeat(ATTN_HEADS),
+                     a_cols.repeat(ATTN_HEADS)]),
+        aprobs[:, t_idx, r_idx].reshape(-1),
+        (ATTN_HEADS, ATTN_SEQ, ATTN_SEQ)).coalesce()
+    pat = torch.sparse_coo_tensor(torch.stack([a_rows, a_cols]),
+                                  torch.ones_like(a_rows, dtype=torch.float32),
+                                  (ATTN_SEQ, ATTN_SEQ)).coalesce().to_sparse_csr()
+    apattern = torch.sparse_csr_tensor(
+        pat.crow_indices().repeat(ATTN_HEADS, 1),
+        pat.col_indices().repeat(ATTN_HEADS, 1),
+        pat.values().repeat(ATTN_HEADS, 1),
+        (ATTN_HEADS, ATTN_SEQ, ATTN_SEQ))
+    del t_idx, r_idx, heads_idx, pat
     e2e = {}
     with torch.inference_mode():
         timed = {
@@ -636,6 +1091,27 @@ def main() -> None:
                 lambda: attention_balanced_plain(bblk, h32, h32, v32, bsched,
                                                  beta),
                 None),
+            "spmm_noncoalesced": (lambda: spmm_noncoalesced_cuda(blk, b),
+                                  lambda: spmm_noncoalesced_plain(blk, b),
+                                  lambda: torch.sparse.mm(csr, b)),
+            "spmm_staged": (lambda: spmm_staged_cuda(blk, b),
+                            lambda: spmm_staged_plain(blk, b),
+                            lambda: torch.sparse.mm(csr, b)),
+            "spmm_batched": (lambda: spmm_batched_cuda(aprob_blk, av),
+                             lambda: spmm_batched_plain(aprob_blk, av),
+                             lambda: torch.bmm(aprob_coo, av)),
+            "sddmm_batched": (
+                lambda: sddmm_batched_cuda(ablk, aq, ak),
+                lambda: sddmm_batched_plain(ablk, aq, ak),
+                lambda: torch.sparse.sampled_addmm(apattern, aq,
+                                                   ak.transpose(1, 2),
+                                                   beta=0.0)),
+            "attention_h12": (
+                lambda: attention_cuda(ablk, aq, ak, av, scale=att["scale"]),
+                lambda: attention_plain(ablk, aq, ak, av, att["scale"]),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    aq[None], ak[None], av[None], attn_mask=amask,
+                    scale=att["scale"])),
         }
         ms = {}
         for name, (kern, plain_fn, lib_fn) in timed.items():
@@ -653,6 +1129,24 @@ def main() -> None:
                   f"{t_win:.4f} ms, balanced (split_blk=1) {t_bal:.4f} ms")
             e2e[f"spmm_transpose_n{n_cols}"] = {"cuda_ms": t_win,
                                                 "balanced_ms": t_bal}
+        # The attention backward's dV = P^T @ G on A^T, whose global-key
+        # windows hold up to 2,048 K-blocks: head grid against balanced.
+        aprob_t_blk = with_values(aplan.bwd, aprobs_t)
+        t_win = cuda_ms(lambda: spmm_batched_cuda(aprob_t_blk, ag))
+        t_bal = {split: cuda_ms(lambda: spmm_balanced_cuda(
+            aprob_t_blk, ag, schedule=aplan.bwd.schedule(split)))
+            for split in (1, 8, 32)}
+        dv_bound = bound(
+            read_once(aprobs_t, aplan.bwd.cols, aplan.bwd.win_ptr, ag)
+            + ag.numel() * 4,
+            2 * ATTN_HEADS * int(aplan.bwd.mask.sum()) * ATTN_DIM)
+        print(f"  attention dV on A^T, H={ATTN_HEADS}, N={ATTN_DIM}: head "
+              f"grid {t_win:.4f} ms, balanced " + ", ".join(
+                  f"split_blk={k_} {v_:.4f} ms" for k_, v_ in t_bal.items())
+              + f"; bound {dv_bound[0]:.4f} ms ({dv_bound[1]})")
+        e2e["attention_dv_transpose"] = {"cuda_batched_ms": t_win,
+                                         "balanced_ms": t_bal,
+                                         "bound_ms": dv_bound[0]}
         sweep = {}
         for split in (1, 8, 32):
             fs, ts = bblk.schedule(split), bplan.bwd.schedule(split)
@@ -688,6 +1182,39 @@ def main() -> None:
         print(f"  train step {model}/{impl}: {t_step:.3f} ms, peak memory "
               f"{peak / 2**30:.3f} GiB")
 
+    # Multi-head attention: a forward of each route, and one
+    # value-projection SGD step (loss, dloss/dW, update) of each.
+    with torch.no_grad():
+        vp_target = attn_blocked()
+    vp_w = torch.from_numpy(initial_w(ATTN_DIM)).to(DEVICE)
+
+    def vp_step(plan_, impl, staged):
+        w_leaf = vp_w.detach().requires_grad_(True)
+        loss = value_projection_loss(plan_, aq, ak, av, w_leaf, vp_target,
+                                     impl=impl, staged=staged)
+        (gw,) = torch.autograd.grad(loss, w_leaf)
+        return (w_leaf - ATTN_LR * gw).detach()
+
+    attn_fwd = dict(attn_routes, blocked=(attn_blocked, None))
+    for name, (run, _) in attn_fwd.items():
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t_fwd = cuda_ms(run, reps=3, batch=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        e2e[f"attention_{name}"] = {"ms": t_fwd, "peak_bytes": peak}
+        print(f"  attention forward {name}: {t_fwd:.3f} ms, peak memory "
+              f"{peak / 2**30:.3f} GiB")
+    attn_steps = dict(attn_train, blocked=(aplan, "blocked", False))
+    for name, (plan_, impl, staged) in attn_steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        t_step = cuda_ms(lambda: vp_step(plan_, impl, staged), reps=3,
+                         batch=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        attn_result.setdefault(name, {}).update(step_ms=t_step,
+                                                peak_bytes=peak)
+        print(f"  attention value-projection step {name}: {t_step:.3f} ms, "
+              f"peak memory {peak / 2**30:.3f} GiB")
+
     phase("6. where the time goes (torch.profiler, one forward or step each)")
     with torch.inference_mode():
         for name, (run, _, _) in runs.items():
@@ -697,6 +1224,14 @@ def main() -> None:
         print(f"  train step {model}/{impl}:")
         train[f"{model}_{impl}"].update(profile_run(
             lambda: step(adjs[impl], x, labels, train_mask)))
+    for name, (run, _) in attn_fwd.items():
+        print(f"  attention forward {name}:")
+        with torch.inference_mode():
+            e2e[f"attention_{name}"].update(profile_run(run))
+    for name, (plan_, impl, staged) in attn_steps.items():
+        print(f"  attention value-projection step {name}:")
+        attn_result[name].update(profile_run(
+            lambda: vp_step(plan_, impl, staged)))
 
     v = blk.vector_size
     # Each distinct input read once (the main path passes Q and K as one
@@ -719,40 +1254,83 @@ def main() -> None:
         "attention_balanced": (read_once(h32, h32, v32, beta, bblk.mask,
                                          bblk.cols, *sched_meta)
                                + m * 32 * 4),
+        # the two SpMM baselines compute row 1's function on its inputs
+        # (the staged gather is the design's own traffic)
+        "spmm_noncoalesced": (read_once(blk.vals, blk.cols, blk.win_ptr, b)
+                              + m * 128 * 4),
+        "spmm_staged": (read_once(blk.vals, blk.cols, blk.block_win, b)
+                        + m * 128 * 4),
+        # the attention configuration, H = 12: probabilities @ V, the
+        # scores, the fused attention
+        "spmm_batched": (read_once(aprobs, ablk.cols, ablk.win_ptr, av)
+                         + av.numel() * 4),
+        "sddmm_batched": (read_once(aq, ak, ablk.mask, ablk.cols,
+                                    ablk.block_win) + aprobs.numel() * 4),
+        "attention_h12": (read_once(aq, ak, av, ablk.mask, ablk.cols,
+                                    ablk.win_ptr) + av.numel() * 4),
     }
-    flops = {"spmm": 2 * nnzp * v * 128, "sddmm": 2 * nnzp * v * 32,
-             "attention": 2 * nnzp * v * (32 + 32)}
+    # Operations on the true nonzeros only: the padded and masked-off
+    # slots of a block are the format's, not the function's.
+    annzp, hd = ablk.vals.shape[0], ATTN_HEADS * ATTN_DIM
+    nnz, annz = int(blk.mask.sum()), int(ablk.mask.sum())
+    flops = {"spmm": 2 * nnz * 128, "sddmm": 2 * nnz * 32,
+             "attention": 2 * nnz * (32 + 32),
+             "spmm_batched": 2 * annz * hd,
+             "sddmm_batched": 2 * annz * hd,
+             "attention_h12": 2 * annz * 2 * hd}
     for name in ("spmm", "sddmm", "attention"):
         flops[f"{name}_balanced"] = flops[name]
+    for name in ("spmm_noncoalesced", "spmm_staged"):
+        flops[name] = flops["spmm"]
     shapes = {
-        "spmm": {"M": m, "K": m, "N": 128, "NNZP": nnzp, "V": v, "k_blk": 8},
-        "sddmm": {"M": m, "F": 32, "NNZP": nnzp, "V": v, "k_blk": 8},
-        "attention": {"M": m, "D": 32, "DV": 32, "NNZP": nnzp, "V": v,
-                      "k_blk": 8},
+        "spmm": {"M": m, "K": m, "N": 128, "NNZP": nnzp, "nnz": nnz, "V": v,
+                 "k_blk": 8},
+        "sddmm": {"M": m, "F": 32, "NNZP": nnzp, "nnz": nnz, "V": v,
+                  "k_blk": 8},
+        "attention": {"M": m, "D": 32, "DV": 32, "NNZP": nnzp, "nnz": nnz,
+                      "V": v, "k_blk": 8},
+        "spmm_batched": {"H": ATTN_HEADS, "M": ATTN_SEQ, "K": ATTN_SEQ,
+                         "N": ATTN_DIM, "NNZP": annzp, "nnz": annz, "V": v,
+                         "k_blk": 8, "per_head": "vals, B"},
+        "sddmm_batched": {"H": ATTN_HEADS, "M": ATTN_SEQ, "F": ATTN_DIM,
+                          "NNZP": annzp, "nnz": annz, "V": v, "k_blk": 8,
+                          "per_head": "Q, K"},
+        "attention_h12": {"H": ATTN_HEADS, "M": ATTN_SEQ, "D": ATTN_DIM,
+                          "DV": ATTN_DIM, "NNZP": annzp, "nnz": annz, "V": v,
+                          "k_blk": 8, "per_head": "Q, K, V"},
     }
     for name in ("spmm", "sddmm", "attention"):
         shapes[f"{name}_balanced"] = dict(
             shapes[name], split_blk=1, segments=bsched.num_segments)
-    rows = []
-    for name, (route, impl, source, replaces) in KERNELS.items():
+    for name in ("spmm_noncoalesced", "spmm_staged"):
+        shapes[name] = shapes["spmm"]
+
+    def measured(name):
         b_ms, b_by = bound(nbytes[name], flops[name])
         kernel_ms, plain_ms, library_ms = ms[name]
+        return {"shape": shapes[name], "max_abs_err": err[name],
+                "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": nbytes[name], "flops": flops[name]}
+
+    rows = []
+    for name, (route, impl, source, replaces) in KERNELS.items():
         # "route" is the kind of kernel (hand-written CUDA C++); "impl" the
         # registry impl whose path launches it.
-        rows.append({"name": name, "route": route, "impl": impl,
-                     "source": source,
-                     "replaces": replaces, "tpu_kernel": replaces,
-                     "launches": launches[name], "shape": shapes[name],
-                     "max_abs_err": err[name], "ms": kernel_ms,
-                     "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "bytes": nbytes[name],
-                     "flops": flops[name]})
+        row = {"name": name, "route": route, "impl": impl, "source": source,
+               "replaces": replaces, "tpu_kernel": replaces,
+               "launches": launches[name], **measured(name)}
+        if name == "attention":
+            # the fused kernel on the multi-head attention path, beside its
+            # one-head (AGNN) numbers above
+            row["h12"] = measured("attention_h12")
+        rows.append(row)
     for name, n_launch in launches.items():
         if n_launch == 0:
             raise SystemExit(f"FAIL: the {name} kernel never ran on the main path")
 
     print(json.dumps({"end_to_end": e2e, "training": train,
+                      "sparse_attention": attn_result,
                       "split_blk_sweep": sweep, "card": card,
                       "seconds": round(time.time() - t_start, 1)}))
     print(card)

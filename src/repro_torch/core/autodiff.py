@@ -28,8 +28,11 @@ that no input needs launches nothing (``ctx.needs_input_grad``).
 :func:`attention_ad` runs the single-pass kernel forward and recomputes
 the scores backward (FlashAttention-style), so no score tensor is kept.
 
-Operands are 2-D; the leading-head (3-D) path is ROADMAP.md queue 1
-item 8.
+Operands follow the batched convention: each may carry a leading head
+dimension, a 2-D operand being shared by every head.  The ``cuda`` route
+then runs the head-grid kernels (``cuda_batched``), one launch for all
+heads; ``cuda_balanced`` and ``blocked`` take heads as they are.  The
+gradient of a shared operand is the sum of its heads' gradients.
 """
 
 from __future__ import annotations
@@ -76,13 +79,15 @@ class ADPlan:
         return self.fwd.shape
 
     def transpose_vals(self, vals: torch.Tensor) -> torch.Tensor:
-        """Re-lay ``fwd``-layout values (NNZP, V) into ``bwd`` layout.
+        """Re-lay ``fwd``-layout values ``([H,] NNZP, V)`` into ``bwd``
+        layout, head by head.
 
         Pure gather: sources are mask-true ``fwd`` entries and padding
         targets are zeroed, so junk in masked-off positions never leaks.
         """
-        flat = vals.reshape(-1)[self.perm.reshape(-1).long()]
-        return flat.reshape(self.bwd.vals.shape) * self.bwd.mask
+        lead = vals.shape[:-2]
+        flat = vals.reshape(*lead, -1)[..., self.perm.reshape(-1).long()]
+        return flat.reshape(*lead, *self.bwd.vals.shape) * self.bwd.mask
 
 
 def _blocked_perm(blocked_a: BlockedMEBCRS,
@@ -178,17 +183,21 @@ def forward_only(name: str, **tensors) -> None:
             "or torch.no_grad()")
 
 
-def _two_d(name: str, *tensors) -> None:
-    if any(t.dim() != 2 for t in tensors):
-        raise NotImplementedError(
-            f"{name}: operands with a leading head dimension wait for the "
-            "batched head grids (ROADMAP.md queue 1 item 8); pass 2-D "
-            "operands")
-
-
 # ---------------------------------------------------------------------------
 # Direction routing: every op of the duality through the registry.
 # ---------------------------------------------------------------------------
+
+
+def _head_impl(op: str, impl: str, *operands) -> str:
+    """The impl that runs ``op`` of ``impl`` on these operands: the
+    window-parallel ``cuda`` kernels take one head, so a leading head
+    dimension routes to their head-grid versions, one launch for every
+    head; the impl that takes the heads must be flagged ``batched``."""
+    if not any(t.dim() == 3 for t in operands):
+        return impl
+    name = "cuda_batched" if impl == "cuda" else impl
+    _dispatch.require(op, name, batched=True)
+    return name
 
 
 def _run_spmm(impl: str, plan: ADPlan, vals, b, *, transposed: bool):
@@ -199,7 +208,8 @@ def _run_spmm(impl: str, plan: ADPlan, vals, b, *, transposed: bool):
     if impl == "cuda_balanced":
         # this direction's own schedule: Aᵀ's skew differs from A's
         kwargs["schedule"] = plan.bwd_sched if transposed else plan.fwd_sched
-    return _dispatch.dispatch("spmm", impl, with_values(blocked, vals),
+    return _dispatch.dispatch("spmm", _head_impl("spmm", impl, vals, b),
+                              with_values(blocked, vals.contiguous()),
                               b.contiguous(), **kwargs)
 
 
@@ -209,8 +219,17 @@ def _run_sddmm(impl: str, plan: ADPlan, q, k):
     kwargs = {"k_blk": plan.fwd.k_blk}
     if impl == "cuda_balanced":
         kwargs["schedule"] = plan.fwd_sched
-    return _dispatch.dispatch("sddmm", impl, plan.fwd, q.contiguous(),
-                              k.contiguous(), **kwargs)
+    return _dispatch.dispatch("sddmm", _head_impl("sddmm", impl, q, k),
+                              plan.fwd, q.contiguous(), k.contiguous(),
+                              **kwargs)
+
+
+def _sum_heads(grad, operand):
+    """The gradient of ``operand`` from per-head gradients: a shared (2-D)
+    operand's is the sum over the heads."""
+    if grad is not None and grad.dim() > operand.dim():
+        return grad.sum(dim=0)
+    return grad
 
 
 def _spmm_vjp(impl: str, plan: ADPlan, vals, b, g, need_vals: bool,
@@ -223,7 +242,7 @@ def _spmm_vjp(impl: str, plan: ADPlan, vals, b, g, need_vals: bool,
                        g, transposed=True)
     if need_vals:   # dVals = mask ⊙ SDDMM(G, B) (the kernels mask)
         dvals = _run_sddmm(impl, plan, g, b)
-    return dvals, db
+    return _sum_heads(dvals, vals), _sum_heads(db, b)
 
 
 class _SpmmAD(torch.autograd.Function):
@@ -261,18 +280,19 @@ class _SddmmAD(torch.autograd.Function):
         if ctx.needs_input_grad[3]:     # dK = Aᵀ⟨g⟩ @ Q
             dk = _run_spmm(impl, plan, plan.transpose_vals(gm), q,
                            transposed=True)
-        return None, None, dq, dk
+        return None, None, _sum_heads(dq, q), _sum_heads(dk, k)
 
 
 def _attention_kernel(impl: str, plan: ADPlan, q, k, v, scale):
     """The single-pass kernel of ``impl``: window-parallel for ``cuda``,
     over the forward schedule for ``cuda_balanced``."""
     if impl == "cuda_balanced":
-        return _dispatch.dispatch("attention", "cuda_balanced", plan.fwd, q,
-                                  k, v, scale=scale, k_blk=plan.fwd.k_blk,
-                                  schedule=plan.fwd_sched)
-    return _dispatch.dispatch("attention", "cuda_fused_attn", plan.fwd, q, k,
-                              v, scale=scale, k_blk=plan.fwd.k_blk)
+        return _dispatch.dispatch(
+            "attention", _head_impl("attention", impl, q, k, v), plan.fwd, q,
+            k, v, scale=scale, k_blk=plan.fwd.k_blk, schedule=plan.fwd_sched)
+    return _dispatch.dispatch(
+        "attention", _head_impl("attention", "cuda_fused_attn", q, k, v),
+        plan.fwd, q, k, v, scale=scale, k_blk=plan.fwd.k_blk)
 
 
 def _softmax_probs(impl: str, plan: ADPlan, q, k, scale):
@@ -319,14 +339,14 @@ def spmm_ad(plan: ADPlan, vals: torch.Tensor, b: torch.Tensor, *,
             impl: str | None = None) -> torch.Tensor:
     """Differentiable SpMM ``C = A⟨vals⟩ @ B`` on ``plan``'s pattern.
 
-    ``vals``: (NNZP, V) forward-layout values; ``b``: (K, N).  Gradients
-    flow to both: dVals through the masked SDDMM, dB through the transpose
-    SpMM on ``plan.bwd``, each dispatched through the registry.
+    ``vals``: (NNZP, V) forward-layout values; ``b``: (K, N); either may
+    carry a leading head dimension H, and then the result is (H, M, N).
+    Gradients flow to both: dVals through the masked SDDMM, dB through the
+    transpose SpMM on ``plan.bwd``, each dispatched through the registry.
     Masked-off and padding ``vals`` entries are structural zeros.
     """
     impl = impl or plan.impl
     _dispatch.require("spmm", impl, differentiable=True)
-    _two_d("spmm_ad", vals, b)
     return _SpmmAD.apply(impl, plan, vals, b)
 
 
@@ -334,13 +354,14 @@ def sddmm_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor, *,
              impl: str | None = None) -> torch.Tensor:
     """Differentiable SDDMM → forward-layout values (NNZP, V) of ``plan``.
 
-    ``q``: (M, F); ``k``: (Mc, F).  Always a bare value array in the plan's
-    layout, so SDDMM → sparse softmax → SpMM compose without re-blocking.
-    Backward: dQ = A⟨g⟩ K and dK = Aᵀ⟨g⟩ Q, two dispatched SpMMs.
+    ``q``: (M, F); ``k``: (Mc, F); either may carry a leading head
+    dimension H, and then the result is (H, NNZP, V).  Always a bare value
+    array in the plan's layout, so SDDMM → sparse softmax → SpMM compose
+    without re-blocking.  Backward: dQ = A⟨g⟩ K and dK = Aᵀ⟨g⟩ Q, two
+    dispatched SpMMs.
     """
     impl = impl or plan.impl
     _dispatch.require("sddmm", impl, differentiable=True)
-    _two_d("sddmm_ad", q, k)
     return _SddmmAD.apply(impl, plan, q, k)
 
 
@@ -349,9 +370,11 @@ def attention_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor,
                  impl: str | None = None) -> torch.Tensor:
     """Differentiable block-sparse attention on ``plan``'s pattern.
 
-    ``q (M, F)``, ``k (Mc, F)``, ``v (Mc, FV)``; ``scale`` (default
-    ``1/sqrt(F)``) may be a 0-d tensor such as AGNN's learned β, and then
-    receives a gradient.  ``impl="cuda"`` runs the single-pass kernel
+    ``q (M, F)``, ``k (Mc, F)``, ``v (Mc, FV)``, each optionally with a
+    leading head dimension H (any mix of per-head and shared operands);
+    ``scale`` (default ``1/sqrt(F)``) is one scalar for every head and may
+    be a 0-d tensor such as AGNN's learned β, and then receives a
+    gradient.  ``impl="cuda"`` runs the single-pass kernel
     (``"cuda_fused_attn"``) and ``"cuda_balanced"`` its block-parallel
     version over the forward schedule; both keep the scores out of device
     memory and recompute them backward.  ``"blocked"`` runs the staged
@@ -360,7 +383,6 @@ def attention_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor,
     impl = impl or plan.impl
     _dispatch.require("spmm", impl, differentiable=True)
     _dispatch.require("sddmm", impl, differentiable=True)
-    _two_d("attention_ad", q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)

@@ -18,11 +18,25 @@ softmax → SpMM).  Impl names:
   cuda_balanced    the block-parallel SpMM, SDDMM and attention kernels
                    over a ``Schedule`` (``schedule=`` / ``split_blk=``
                    kwargs), the counterpart of ``pallas_balanced``
+  cuda_batched     the SpMM and SDDMM kernels over a head grid, one launch
+                   for H heads, the counterpart of ``pallas_batched``
+  cuda_staged      SpMM over a staged gather ``B[cols]`` (the pre-fusion
+                   baseline) and, for ``attention``, the batched SDDMM →
+                   sparse softmax → batched SpMM composition; the
+                   counterparts of ``pallas_staged``
+  cuda_noncoalesced  SpMM with the thread mapping the paper's coalesced
+                   one replaces (Fig. 15), the counterpart of
+                   ``pallas_noncoalesced``
 
-Capability flag ``differentiable``: the impl has a gradient path, natively
-(``blocked``'s PyTorch ops) or through the ``torch.autograd.Function``s of
-:mod:`repro_torch.core.autodiff`, which need the adjacency as an
-``ADPlan``.  :func:`require` enforces it.
+Capability flags, enforced by :func:`require`:
+
+  differentiable  the impl has a gradient path, natively (``blocked``'s
+                  PyTorch ops) or through the ``torch.autograd.Function``s
+                  of :mod:`repro_torch.core.autodiff`, which need the
+                  adjacency as an ``ADPlan``;
+  batched         the impl takes operands with a leading head dimension
+                  (a 2-D operand is shared by every head) and serves every
+                  head in one pass: one launch for a kernel impl.
 
 A **call log** records every dispatch: ``record_calls()`` yields a list
 that accumulates ``(op, impl)`` pairs while the context is active.
@@ -48,6 +62,7 @@ class OpImpl:
     name: str
     fn: Callable
     differentiable: bool = False
+    batched: bool = False
 
 
 _REGISTRY: Dict[Tuple[str, str], OpImpl] = {}
@@ -60,10 +75,10 @@ _loaded = False
 _lock = threading.Lock()
 
 
-def register(op: str, name: str, fn: Callable, *,
-             differentiable: bool = False) -> OpImpl:
-    """Register ``fn`` as implementation ``name`` of ``op``."""
-    entry = OpImpl(op=op, name=name, fn=fn, differentiable=differentiable)
+def register(op: str, name: str, fn: Callable, **flags) -> OpImpl:
+    """Register ``fn`` as implementation ``name`` of ``op`` with the
+    capability ``flags`` of :class:`OpImpl`."""
+    entry = OpImpl(op=op, name=name, fn=fn, **flags)
     _REGISTRY[(op, name)] = entry
     return entry
 
@@ -95,15 +110,18 @@ def impls(op: str) -> Tuple[str, ...]:
     return tuple(sorted(n for (o, n) in _REGISTRY if o == op))
 
 
-def require(op: str, impl: str, *, differentiable: bool = False) -> OpImpl:
-    """Resolve ``(op, impl)`` and enforce the capability flag, raising a
-    ``ValueError`` that lists the impls that have it."""
+def require(op: str, impl: str, *, differentiable: bool = False,
+            batched: bool = False) -> OpImpl:
+    """Resolve ``(op, impl)`` and enforce the capability flags, raising a
+    ``ValueError`` that lists the impls that have the missing one."""
     entry = get(op, impl)
-    if differentiable and not entry.differentiable:
-        ok = [n for n in impls(op) if _REGISTRY[(op, n)].differentiable]
-        raise ValueError(
-            f"impl {impl!r} of op {op!r} is not differentiable; "
-            f"differentiable impls: {', '.join(ok)}")
+    for flag, wanted, text in (
+            ("differentiable", differentiable, "is not differentiable"),
+            ("batched", batched, "has no native batched path")):
+        if wanted and not getattr(entry, flag):
+            ok = [n for n in impls(op) if getattr(_REGISTRY[(op, n)], flag)]
+            raise ValueError(f"impl {impl!r} of op {op!r} {text}; {flag} "
+                             f"impls: {', '.join(ok) or '(none)'}")
     return entry
 
 

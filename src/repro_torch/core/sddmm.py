@@ -34,22 +34,34 @@ def sddmm_dense_ref(a_mask_dense: torch.Tensor, q: torch.Tensor,
 
 def _sddmm_blocked_impl(blocked: BlockedMEBCRS, q: torch.Tensor,
                         k: torch.Tensor) -> torch.Tensor:
+    q3 = q if q.dim() == 3 else q[None]
+    k3 = k if k.dim() == 3 else k[None]
+    h = max(q3.shape[0], k3.shape[0])
     v = blocked.vector_size
     nb = blocked.num_blocks
     w = blocked.num_windows
+    f = q3.shape[-1]
     # Pad Q rows up to W*V (last window residue).
-    qpad = torch.zeros((w * v, q.shape[1]), dtype=torch.float32,
+    qpad = torch.zeros((q3.shape[0], w * v, f), dtype=torch.float32,
                        device=q.device)
-    qpad[: q.shape[0]] = q
-    kg = k.float()[blocked.cols.long()].reshape(nb, blocked.k_blk, -1)
-    qg = qpad.reshape(w, v, -1)[blocked.block_win.long()]      # (NB, V, F)
-    scores = torch.einsum("bkf,bvf->bkv", kg, qg).reshape(nb * blocked.k_blk, v)
-    return (scores * blocked.mask).to(q.dtype)
+    qpad[:, : q3.shape[1]] = q3
+    kg = k3.float()[:, blocked.cols.long()].reshape(k3.shape[0], nb,
+                                                    blocked.k_blk, f)
+    qg = qpad.reshape(q3.shape[0], w, v, f)[:, blocked.block_win.long()]
+    # a shared operand (leading 1) broadcasts over the heads
+    scores = torch.einsum("hbkf,hbvf->hbkv", kg.expand(h, -1, -1, -1),
+                          qg.expand(h, -1, -1, -1)).reshape(h, -1, v)
+    out = (scores * blocked.mask).to(q.dtype)
+    return out if (q.dim() == 3 or k.dim() == 3) else out[0]
 
 
 def sddmm_blocked(fmt, q: torch.Tensor, k: torch.Tensor,
                   k_blk: int = 8) -> torch.Tensor:
-    """Plain-PyTorch SDDMM → values (NNZP, V) in the blocked view's layout."""
+    """Plain-PyTorch SDDMM → values (NNZP, V) in the blocked view's layout.
+
+    ``q`` may be ``(H, M, F)`` and ``k`` ``(H, Mc, F)``; a 2-D operand is
+    shared by every head, and 2-D in gives 2-D out, else ``(H, NNZP, V)``.
+    """
     blocked = (fmt if isinstance(fmt, BlockedMEBCRS)
                else block_format(fmt, k_blk, device=q.device))
     return _sddmm_blocked_impl(blocked, q, k)
@@ -94,7 +106,9 @@ def with_values(blocked: BlockedMEBCRS, new_vals: torch.Tensor) -> BlockedMEBCRS
 
 def attention_staged(blocked: BlockedMEBCRS, q, k, v, scale=None):
     """Plain SDDMM → sparse softmax → plain SpMM: the sparse-attention
-    function computed in three passes, scores through device memory."""
+    function computed in three passes, scores through device memory.
+    ``q``, ``k`` and ``v`` may each carry a leading head dimension (a 2-D
+    operand is shared by every head); all 2-D in gives ``(M, DV)`` out."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scores = _sddmm_blocked_impl(blocked, q, k)
@@ -128,7 +142,7 @@ def _attention_blocked_adapter(fmt, q, k, v, *, scale=None, k_blk: int = 8):
 
 
 _dispatch.register("sddmm", "blocked", _sddmm_blocked_adapter,
-                   differentiable=True)
+                   differentiable=True, batched=True)
 _dispatch.register("sddmm", "coo", _sddmm_coo_adapter)
 _dispatch.register("attention", "blocked", _attention_blocked_adapter,
-                   differentiable=True)
+                   differentiable=True, batched=True)

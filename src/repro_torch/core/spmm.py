@@ -29,24 +29,36 @@ def spmm_dense_ref(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _spmm_blocked_impl(blocked: BlockedMEBCRS, b: torch.Tensor) -> torch.Tensor:
+    vals = blocked.vals
+    batched = vals.dim() == 3 or b.dim() == 3
+    vals3 = vals if vals.dim() == 3 else vals[None]
+    b3 = b if b.dim() == 3 else b[None]
+    h = max(vals3.shape[0], b3.shape[0])
     v = blocked.vector_size
     nb = blocked.num_blocks
     w = blocked.num_windows
-    bgath = b.float()[blocked.cols.long()]                 # (NB*K_BLK, N)
-    vals = blocked.vals.float().reshape(nb, blocked.k_blk, v)
-    gb = bgath.reshape(nb, blocked.k_blk, -1)
-    # C_wᵀ = Σ_blocks B_gᵀ @ A_wᵀ: contraction over the vector index.
-    partial_c = torch.einsum("bkv,bkn->bvn", vals, gb)     # (NB, V, N)
-    c_win = torch.zeros((w, v, b.shape[1]), dtype=torch.float32,
-                        device=b.device)
-    c_win.index_add_(0, blocked.block_win.long(), partial_c)
-    return c_win.reshape(w * v, -1)[: blocked.shape[0]].to(b.dtype)
+    n = b3.shape[-1]
+    gb = b3.float()[:, blocked.cols.long()].reshape(
+        b3.shape[0], nb, blocked.k_blk, n)                 # (H|1, NB, K_BLK, N)
+    vals4 = vals3.float().reshape(vals3.shape[0], nb, blocked.k_blk, v)
+    # C_wᵀ = Σ_blocks B_gᵀ @ A_wᵀ: contraction over the vector index; a
+    # shared operand (leading 1) broadcasts over the heads.
+    partial_c = torch.einsum("hbkv,hbkn->hbvn", vals4.expand(h, -1, -1, -1),
+                             gb.expand(h, -1, -1, -1))      # (H, NB, V, N)
+    c_win = torch.zeros((h, w, v, n), dtype=torch.float32, device=b.device)
+    c_win.index_add_(1, blocked.block_win.long(), partial_c)
+    out = c_win.reshape(h, w * v, n)[:, : blocked.shape[0]].to(b.dtype)
+    return out if batched else out[0]
 
 
 def spmm_blocked(fmt, b: torch.Tensor, k_blk: int = 8) -> torch.Tensor:
     """Plain-PyTorch swap-and-transpose SpMM: ``C (M, N) = A @ B`` over the
     blocked view (``fmt`` may be canonical or already blocked).  Returns
-    ``(M, N)`` in ``b``'s dtype; fp32 accumulation."""
+    ``(M, N)`` in ``b``'s dtype; fp32 accumulation.
+
+    Batched convention: the blocked view's ``vals`` may be ``(H, NNZP, V)``
+    and ``b`` ``(H, K, N)``; a 2-D operand is shared by every head, and
+    2-D in gives 2-D out, else ``(H, M, N)``."""
     blocked = (fmt if isinstance(fmt, BlockedMEBCRS)
                else block_format(fmt, k_blk, device=b.device))
     return _spmm_blocked_impl(blocked, b)
@@ -104,5 +116,5 @@ def _spmm_coo_adapter(fmt, b, *, k_blk: int = 8, n_blk: int | None = None):
 
 
 _dispatch.register("spmm", "blocked", _spmm_blocked_adapter,
-                   differentiable=True)
+                   differentiable=True, batched=True)
 _dispatch.register("spmm", "coo_segment", _spmm_coo_adapter)

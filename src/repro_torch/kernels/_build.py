@@ -1,14 +1,15 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each source ``kernels/csrc/<name>.cu`` becomes one shared library with a
-plain C interface (no PyTorch headers), compiled for ``sm_90a``:
+plain C interface (no PyTorch headers), compiled for ``sm_90a`` (sources
+that share a kernel include it from a ``csrc/*.cuh`` header):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 The build runs at first use, all sources at once in parallel, into
 ``build/repro_torch_kernels/<name>-<hash>/`` at the repository root, keyed
-by a hash of the source, the shared header and the flags; a later process
+by a hash of the source, the shared headers and the flags; a later process
 finds the library there and loads it.  ``nvcc``'s ``-Xptxas -v`` report
 (registers, shared memory, spills) is kept beside each library.
 
@@ -42,9 +43,13 @@ _L = ctypes.c_int64
 # stream are c_void_p: without argtypes ctypes would pass 32-bit ints.
 SOURCES: Dict[str, tuple] = {
     "spmm": ("spmm_f32", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "spmm_batched": ("spmm_batched_f32", [_P] * 5 + [_I] * 7 + [_L, _L, _P]),
+    "spmm_noncoalesced": ("spmm_noncoalesced_f32",
+                          [_P] * 5 + [_I] * 5 + [_P]),
+    "spmm_staged": ("spmm_staged_f32", [_P] * 4 + [_I] * 6 + [_P]),
     "sddmm": ("sddmm_f32", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "attention": ("attention_f32",
-                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "sddmm_batched": ("sddmm_batched_f32", [_P] * 6 + [_I] * 6 + [_L, _L, _P]),
+    "attention": ("attention_f32", [_P] * 7 + [_I] * 7 + [_L, _L, _L, _P]),
     "spmm_balanced": ("spmm_balanced_f32",
                       [_P] * 9 + [_I] * 7 + [_L, _L, _P, _I, _L, _P]),
     "sddmm_balanced": ("sddmm_balanced_f32",
@@ -70,7 +75,7 @@ def _nvcc() -> str:
 
 def _out_dir(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"

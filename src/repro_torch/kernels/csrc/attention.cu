@@ -1,18 +1,27 @@
 // Single-pass fused sparse attention over the blocked ME-BCRS pattern:
-// out = softmax_rows(mask * (Q_s @ K^T)) @ Vmat, fp32, with Q_s = scale * Q
-// folded in before the launch.
+// out[h] = softmax_rows(mask * (Q_s[h] @ K[h]^T)) @ Vmat[h], fp32, for H
+// heads in one launch, with Q_s = scale * Q folded in before the launch
+// (one scale for every head).  Q, K and Vmat are each either per head or
+// shared by every head.
 //
 // Replaces: src/repro/kernels/attention_pallas.py, _fused_attn_kernel
 // (launched through attention_pallas).
 //
 // Bound on the card: bytes.  Each input read once and the output written
-// once is Q (M x D) + K, Vmat (Mc x D, Mc x DV) + mask (NNZP x V bytes) +
-// cols (NNZP) + win_ptr + out (M x DV); scores and probabilities never
-// reach device memory.  The work, about 2 * NNZP * V * (D + DV) flops plus
-// one exp per score, is well under the fp32 rate for that traffic.
+// once is Q (M x D) + K, Vmat (Mc x D, Mc x DV), each per distinct head, +
+// mask (NNZP x V bytes) + cols (NNZP) + win_ptr + out (H x M x DV); scores
+// and probabilities never reach device memory.  The work, about
+// 2 * H * NNZP * V * (D + DV) flops plus one exp per score, is well under
+// the fp32 rate for that traffic.
 //
-// Design: one warp per window (H = 1), four windows per thread block, and
-// no synchronisation wider than the warp.  The warp stages the window's V
+// Design: one warp per (window, head), four windows per thread block,
+// windows on gridDim.x and heads on gridDim.y, and no synchronisation
+// wider than the warp.  A head reads Q, K and Vmat at its own offsets
+// (h * q_hstride, h * k_hstride, h * v_hstride; a stride of 0 shares the
+// operand's one copy) and writes its own (M, DV) slice; the pattern
+// (win_ptr, cols, mask) is shared, and the per-warp arithmetic does not
+// depend on the head, so H heads in one launch give bitwise the output of
+// H one-head launches.  The warp stages the window's V
 // scaled query rows in shared memory and walks the window's vectors
 // [win_ptr[w] * k_blk, win_ptr[w+1] * k_blk) in chunks of 32, one vector
 // per lane, so every lane issues its own K-row loads (16 bytes at a time
@@ -54,12 +63,18 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
                  const float* __restrict__ vmat,
                  const uint8_t* __restrict__ mask, float* __restrict__ out,
                  int m, int d, int dv, int k_blk, int num_windows,
-                 int per_warp) {
+                 int per_warp, int64_t q_hstride, int64_t k_hstride,
+                 int64_t v_hstride) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWarps + warp;
   if (w >= num_windows) return;  // the whole warp leaves together
+  const int64_t h = blockIdx.y;
+  q += h * q_hstride;
+  k += h * k_hstride;
+  vmat += h * v_hstride;
+  out += h * static_cast<int64_t>(m) * dv;
 
   float* s_q = smem + static_cast<size_t>(warp) * per_warp;  // (V, d)
   float* s_acc = s_q + V * d;                                 // (V, dv)
@@ -164,9 +179,12 @@ template <int V>
 cudaError_t launch(const int* win_ptr, const int* cols, const float* q,
                    const float* k, const float* vmat, const uint8_t* mask,
                    float* out, int m, int d, int dv, int num_windows,
-                   int k_blk, cudaStream_t stream) {
+                   int heads, int k_blk, int64_t q_hstride, int64_t k_hstride,
+                   int64_t v_hstride, cudaStream_t stream) {
   const int per_warp = warp_floats(V, d, dv);
   const size_t smem = sizeof(float) * static_cast<size_t>(per_warp) * kWarps;
+  // D a multiple of 4 keeps every K row and every head's K 16-byte
+  // aligned once the base pointer is.
   const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0;
   const void* fn = vec4 ? reinterpret_cast<const void*>(attention_kernel<V, true>)
                         : reinterpret_cast<const void*>(attention_kernel<V, false>);
@@ -178,15 +196,15 @@ cudaError_t launch(const int* win_ptr, const int* cols, const float* q,
       return err;
     }
   }
-  const unsigned grid = (num_windows + kWarps - 1) / kWarps;
+  const dim3 grid((num_windows + kWarps - 1) / kWarps, heads);
   if (vec4) {
     attention_kernel<V, true><<<grid, kWarps * 32, smem, stream>>>(
         win_ptr, cols, q, k, vmat, mask, out, m, d, dv, k_blk, num_windows,
-        per_warp);
+        per_warp, q_hstride, k_hstride, v_hstride);
   } else {
     attention_kernel<V, false><<<grid, kWarps * 32, smem, stream>>>(
         win_ptr, cols, q, k, vmat, mask, out, m, d, dv, k_blk, num_windows,
-        per_warp);
+        per_warp, q_hstride, k_hstride, v_hstride);
   }
   return cudaGetLastError();
 }
@@ -194,11 +212,15 @@ cudaError_t launch(const int* win_ptr, const int* cols, const float* q,
 }  // namespace
 
 // win_ptr (W + 1,) int32, cols (NNZP,) int32, q (M, D) f32 already scaled,
-// k (Mc, D) f32, vmat (Mc, DV) f32, mask (NNZP, V) bool, out (M, DV) f32.
+// k (Mc, D) f32, vmat (Mc, DV) f32, each with heads q_hstride, k_hstride,
+// v_hstride elements apart (0: shared by every head), mask (NNZP, V) bool,
+// out (H, M, DV) f32.  H at most 65,535.
 extern "C" int attention_f32(const void* win_ptr, const void* cols,
                              const void* q, const void* k, const void* vmat,
                              const void* mask, void* out, int m, int d, int dv,
-                             int num_windows, int v, int k_blk, void* stream) {
+                             int num_windows, int heads, int v, int k_blk,
+                             int64_t q_hstride, int64_t k_hstride,
+                             int64_t v_hstride, void* stream) {
   const auto* wp = static_cast<const int*>(win_ptr);
   const auto* cl = static_cast<const int*>(cols);
   const auto* qq = static_cast<const float*>(q);
@@ -209,9 +231,11 @@ extern "C" int attention_f32(const void* win_ptr, const void* cols,
   auto st = static_cast<cudaStream_t>(stream);
   switch (v) {
     case 8:
-      return launch<8>(wp, cl, qq, kk, vv, mk, o, m, d, dv, num_windows, k_blk, st);
+      return launch<8>(wp, cl, qq, kk, vv, mk, o, m, d, dv, num_windows, heads,
+                       k_blk, q_hstride, k_hstride, v_hstride, st);
     case 16:
-      return launch<16>(wp, cl, qq, kk, vv, mk, o, m, d, dv, num_windows, k_blk, st);
+      return launch<16>(wp, cl, qq, kk, vv, mk, o, m, d, dv, num_windows, heads,
+                        k_blk, q_hstride, k_hstride, v_hstride, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,0 +1,42 @@
+// Batched SDDMM over the blocked ME-BCRS pattern, one launch for H heads:
+// S[h] = mask * (Q[h] @ K[h]^T), fp32, (H, NNZP, V), where Q and K are
+// each either per head or shared by every head.
+//
+// Replaces: src/repro/kernels/sddmm_pallas.py, _batched_sddmm_kernel
+// (launched through sddmm_pallas_batched), the (H, NB, F / F_BLK) grid of
+// the staged attention's scores and of the multi-head backward (the
+// recomputed scores and dProbs).
+//
+// Bound on the card: bytes.  Each input read once and the output written
+// once is Q (M x F per distinct head) + K (Mc x F per distinct head) +
+// mask (NNZP x V bytes) + cols (NNZP) + block_win (NB) + S (H x NNZP x V);
+// the work, 2 * H * NNZP * V * F flops, is well under the fp32 rate for
+// that traffic.
+//
+// Design: the row-parallel kernel of sddmm.cu (sddmm_rows.cuh) with the
+// heads on gridDim.y (rows stay on gridDim.x, which has no 65,535 limit).
+// A shared operand is read with a head stride of 0 from its one copy; the
+// pattern (block_win, cols, mask) is shared by the heads.  Per (head, row)
+// the arithmetic is sddmm.cu's, so this launch is bitwise-equal to H
+// launches of sddmm.cu, as the reference promises for its batched grid.
+// Like sddmm.cu it walks the whole feature dimension in one pass: the
+// reference's f_blk feature tiles, which bound a TPU cell's VMEM, have no
+// counterpart, since a thread's V sums live in registers for any F.
+#include "sddmm_rows.cuh"
+
+// block_win (NB,) int32, cols (NB * k_blk,) int32, q (M, F) f32 with heads
+// q_hstride elements apart (0: shared), k (Mc, F) f32 with heads k_hstride
+// apart (0: shared), mask (NB * k_blk, V) bool, out (H, NB * k_blk, V)
+// f32 with 16-byte alignment (a fresh allocation).  H at most 65,535.
+extern "C" int sddmm_batched_f32(const void* block_win, const void* cols,
+                                 const void* q, const void* k,
+                                 const void* mask, void* out, int m, int f,
+                                 int num_blocks, int heads, int v, int k_blk,
+                                 int64_t q_hstride, int64_t k_hstride,
+                                 void* stream) {
+  return repro::launch_sddmm_rows(block_win, cols, q, k, mask, out, m, f,
+                                  num_blocks, heads, v, k_blk, q_hstride,
+                                  k_hstride, stream);
+}
+
+REPRO_ERROR_STRING(sddmm_batched_error_string)

@@ -18,25 +18,36 @@ def _win_of_vec(blocked) -> torch.Tensor:
 
 
 def spmm_ref(blocked, b_dense: torch.Tensor) -> torch.Tensor:
-    """Oracle SpMM: per-vector outer products scatter-added into windows."""
+    """Oracle SpMM: per-vector outer products scatter-added into windows.
+    ``vals`` and ``b_dense`` may carry a leading head dimension (a 2-D
+    operand is shared by every head); 2-D in gives 2-D out."""
     v = blocked.vector_size
     w = blocked.num_windows
-    bg = b_dense[blocked.cols.long()]                               # (NNZP, N)
-    contrib = blocked.vals[:, :, None] * bg[:, None, :]             # (NNZP, V, N)
-    c_win = torch.zeros((w,) + contrib.shape[1:], dtype=contrib.dtype,
-                        device=contrib.device)
-    c_win.index_add_(0, _win_of_vec(blocked), contrib)
-    out = c_win.reshape(w * v, -1)[: blocked.shape[0]]
-    return out.to(b_dense.dtype)
+    vals3 = blocked.vals if blocked.vals.dim() == 3 else blocked.vals[None]
+    b3 = b_dense if b_dense.dim() == 3 else b_dense[None]
+    bg = b3[:, blocked.cols.long()]                                 # (H, NNZP, N)
+    contrib = vals3[..., None] * bg[:, :, None, :]                  # (H, NNZP, V, N)
+    c_win = torch.zeros((contrib.shape[0], w) + contrib.shape[2:],
+                        dtype=contrib.dtype, device=contrib.device)
+    c_win.index_add_(1, _win_of_vec(blocked), contrib)
+    out = c_win.reshape(c_win.shape[0], w * v, -1)[:, : blocked.shape[0]]
+    out = out.to(b_dense.dtype)
+    return out if (blocked.vals.dim() == 3 or b_dense.dim() == 3) else out[0]
 
 
 def sddmm_ref(blocked, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Oracle SDDMM: per-vector dot products, masked."""
+    """Oracle SDDMM: per-vector dot products, masked.  ``q`` and ``k`` may
+    carry a leading head dimension (a 2-D operand is shared by every
+    head); 2-D in gives 2-D out."""
     v = blocked.vector_size
     w = blocked.num_windows
-    qpad = torch.zeros((w * v, q.shape[1]), dtype=q.dtype, device=q.device)
-    qpad[: q.shape[0]] = q
-    qwin = qpad.reshape(w, v, -1)[_win_of_vec(blocked)]             # (NNZP, V, F)
-    kg = k[blocked.cols.long()]                                     # (NNZP, F)
-    scores = (qwin * kg[:, None, :]).sum(-1)                        # (NNZP, V)
-    return (scores * blocked.mask).to(q.dtype)
+    q3 = q if q.dim() == 3 else q[None]
+    k3 = k if k.dim() == 3 else k[None]
+    qpad = torch.zeros((q3.shape[0], w * v, q3.shape[-1]), dtype=q.dtype,
+                       device=q.device)
+    qpad[:, : q3.shape[1]] = q3
+    qwin = qpad.reshape(q3.shape[0], w, v, -1)[:, _win_of_vec(blocked)]
+    kg = k3[:, blocked.cols.long()]                                 # (H, NNZP, F)
+    scores = (qwin * kg[:, :, None, :]).sum(-1)                     # (H, NNZP, V)
+    out = (scores * blocked.mask).to(q.dtype)
+    return out if (q.dim() == 3 or k.dim() == 3) else out[0]

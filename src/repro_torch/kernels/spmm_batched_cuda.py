@@ -1,0 +1,80 @@
+"""Batched SpMM kernel: ``spmm_batched_cuda`` (``csrc/spmm_batched.cu``) and
+its plain version.
+
+Counterpart of ``repro.kernels.spmm_pallas.spmm_pallas_batched``, which
+launches ``_batched_spmm_kernel``: the window-parallel SpMM over a grid
+of H heads, one launch for every head, bitwise-equal to H launches of
+``spmm_cuda``.  ``spmm_batched_cuda`` launches the hand-written kernel on
+CUDA tensors and counts each launch in ``spmm_batched_cuda.launches``; on
+CPU tensors it runs :func:`spmm_batched_plain`.
+
+Operands follow the batched convention of the reference: ``vals`` may be
+``(NNZP, V)`` or ``(H, NNZP, V)`` and ``b`` ``(K, N)`` or ``(H, K, N)``;
+a 2-D operand is shared by every head (read from its one copy), and the
+result is ``(H, M, N)``.  With neither operand batched it is the
+single-head :func:`~repro_torch.kernels.spmm_cuda.spmm_cuda`, as the
+reference falls through to ``spmm_pallas``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.format import BlockedMEBCRS
+from repro_torch.core.spmm import _spmm_blocked_impl
+
+from . import _build, _checks
+from .spmm_cuda import spmm_cuda
+
+__all__ = ["spmm_batched_cuda", "spmm_batched_plain"]
+
+
+def spmm_batched_plain(blocked: BlockedMEBCRS, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``C[h] = A[h] @ B[h]``."""
+    return _spmm_blocked_impl(blocked, b)
+
+
+def spmm_batched_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
+                      n_blk: int = 128) -> torch.Tensor:
+    """``C[h] (M, N) = A[h] @ B[h]`` over ``blocked`` in fp32 for every head
+    in one launch; ``n_blk`` is the column tile (threads per block, a
+    multiple of 32 up to 1024)."""
+    op = "spmm_batched_cuda"
+    _checks.forward_inputs(op, vals=blocked.vals, b=b)
+    h, batched = _checks.heads(op, vals=(blocked.vals, 2), b=(b, 2))
+    if not batched:
+        return spmm_cuda(blocked, b, n_blk=n_blk)
+    if _checks.on_cpu(op, win_ptr=blocked.win_ptr, cols=blocked.cols,
+                      vals=blocked.vals, b=b):
+        return spmm_batched_plain(blocked, b)
+    _checks.kernel_inputs(op, {"win_ptr": blocked.win_ptr, "cols": blocked.cols},
+                          {"vals": blocked.vals, "b": b})
+    m, k = blocked.shape
+    v = blocked.vector_size
+    if v not in (8, 16):
+        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
+    if b.shape[-2] != k:
+        raise ValueError(f"{op}: b must be ([H,] {k}, N), got {tuple(b.shape)}")
+    if not (n_blk % 32 == 0 and 32 <= n_blk <= 1024):
+        raise ValueError(f"{op}: n_blk={n_blk} must be a multiple of 32 in "
+                         "[32, 1024]")
+    n = b.shape[-1]
+    n_tile = min(n_blk, max(32, -(-n // 32) * 32))
+    if (max(m, n) > _checks.int32_max or -(-n // n_tile) > 65535
+            or h > 65535):
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
+    c = torch.empty((h, m, n), dtype=torch.float32, device=b.device)
+    if m == 0 or n == 0:
+        return c
+    err = _build.library("spmm_batched").spmm_batched_f32(
+        blocked.win_ptr.data_ptr(), blocked.cols.data_ptr(),
+        blocked.vals.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
+        blocked.num_windows, h, v, blocked.k_blk, n_tile,
+        _checks.head_stride(blocked.vals, 2), _checks.head_stride(b, 2),
+        torch.cuda.current_stream(b.device).cuda_stream)
+    _build.check_launch("spmm_batched", err)
+    spmm_batched_cuda.launches += 1
+    return c
+
+
+spmm_batched_cuda.launches = 0

@@ -1,1 +1,2 @@
-"""Models on the port's sparse operators: GCN and AGNN (paper §4.4)."""
+"""Models on the port's sparse operators: GCN and AGNN (paper §4.4), and
+the block-sparse attention layers (``layers``)."""

@@ -1,9 +1,11 @@
 """Card-only checks of the port's CUDA kernels (marker ``gpu``).
 
 Each kernel against its plain PyTorch version on the card (the balanced
-ones over split schedules, with one and two heads), the launch counters,
-the refusals of the wrappers, and gradients of a train step against the
-plain ``blocked`` impl.  They skip on a host without a CUDA device; on
+ones over split schedules, with one and two heads), the head-grid
+kernels and the non-coalesced SpMM bitwise against the one-head launches
+they stand for, the launch counters, the refusals of the wrappers, and
+gradients of a train step and of multi-head attention against the plain
+``blocked`` impl.  They skip on a host without a CUDA device; on
 one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
@@ -17,11 +19,17 @@ from repro_torch.core import ad_plan, block_format, from_dense
 from repro_torch.core.sddmm import with_values
 from repro_torch.kernels import (attention_balanced_cuda,
                                  attention_balanced_plain, attention_cuda,
-                                 attention_plain, sddmm_balanced_cuda,
-                                 sddmm_balanced_plain, sddmm_cuda,
-                                 sddmm_plain, spmm_balanced_cuda,
-                                 spmm_balanced_plain, spmm_cuda, spmm_plain)
+                                 attention_cuda_staged, attention_plain,
+                                 sddmm_balanced_cuda, sddmm_balanced_plain,
+                                 sddmm_batched_cuda, sddmm_batched_plain,
+                                 sddmm_cuda, sddmm_plain, spmm_balanced_cuda,
+                                 spmm_balanced_plain, spmm_batched_cuda,
+                                 spmm_batched_plain, spmm_cuda,
+                                 spmm_noncoalesced_cuda, spmm_plain,
+                                 spmm_staged_cuda, spmm_staged_plain)
 from repro_torch.models import gnn
+from repro_torch.models.layers import sparse_attention
+from repro_torch.train import sparse_attention_train as sat
 
 pytestmark = pytest.mark.gpu
 
@@ -188,5 +196,103 @@ def test_train_step_gradients_on_card_match_blocked(device, model, impl):
         net = (gnn.GCN if model == "gcn" else gnn.AGNN)(cfg, device=device)
         net(ad_plan(fmt, impl=name, device=device), x).square().mean().backward()
         grads[name] = [p.grad for p in net.parameters()]
+    for got, want in zip(grads[impl], grads["blocked"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _head(t, h):
+    return t[h] if t.dim() == 3 else t
+
+
+@pytest.mark.parametrize("mix", ["first", "second", "both"])
+@pytest.mark.parametrize("h", [1, 3])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
+def test_head_grid_kernels_are_bitwise_the_per_head_launches(device, case, h,
+                                                             mix):
+    m, k, density, empty, v, k_blk, n, f, dv = case
+    rng = np.random.default_rng(m * k + 7 * h)
+    a = _matrix(rng, m, k, density, empty)
+    blocked = block_format(from_dense(a, vector_size=v), k_blk, device=device)
+
+    def t(per_head, *shape):
+        hs = (h,) if per_head else ()
+        return torch.from_numpy(rng.standard_normal(hs + shape).astype(
+            np.float32)).to(device)
+
+    first, second = mix in ("first", "both"), mix in ("second", "both")
+    bv = with_values(blocked, t(first, *blocked.vals.shape) * blocked.mask)
+    b, q, kk = t(second, k, n), t(first, m, f), t(second, k, f)
+    out = spmm_batched_cuda(bv, b)
+    want = torch.stack([spmm_cuda(with_values(blocked, _head(bv.vals, i)),
+                                  _head(b, i)) for i in range(h)])
+    assert torch.equal(out, want)
+    torch.testing.assert_close(out, spmm_batched_plain(bv, b), rtol=RTOL,
+                               atol=ATOL)
+    out = sddmm_batched_cuda(blocked, q, kk)
+    assert torch.equal(out, torch.stack([
+        sddmm_cuda(blocked, _head(q, i), _head(kk, i)) for i in range(h)]))
+    torch.testing.assert_close(out, sddmm_batched_plain(blocked, q, kk),
+                               rtol=RTOL, atol=ATOL)
+    # attention: per-head Q with shared K, V ("first"), shared Q with
+    # per-head K, V ("second"), or all per head
+    vv = t(second, k, dv)
+    scale = torch.tensor(0.8, device=device)
+    out = attention_cuda(blocked, q, kk, vv, scale=scale)
+    assert torch.equal(out, torch.stack([
+        attention_cuda(blocked, _head(q, i), _head(kk, i), _head(vv, i),
+                       scale=scale) for i in range(h)]))
+    torch.testing.assert_close(out, attention_plain(blocked, q, kk, vv, scale),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        attention_cuda_staged(blocked, q, kk, vv, scale=scale),
+        attention_plain(blocked, q, kk, vv, scale), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
+def test_spmm_baselines_on_card(device, case):
+    m, k, density, empty, v, k_blk, n, f, dv = case
+    rng = np.random.default_rng(m * k + 3)
+    a = _matrix(rng, m, k, density, empty)
+    blocked = block_format(from_dense(a, vector_size=v), k_blk, device=device)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(device)
+    # the Fig. 15 baseline keeps spmm.cu's per-output order
+    assert torch.equal(spmm_noncoalesced_cuda(blocked, b), spmm_cuda(blocked, b))
+    torch.testing.assert_close(spmm_staged_cuda(blocked, b),
+                               spmm_staged_plain(blocked, b), rtol=RTOL,
+                               atol=ATOL)
+    torch.cuda.synchronize()
+
+
+def test_new_wrappers_count_their_launches(device):
+    blocked = block_format(from_dense(np.eye(16, dtype=np.float32)), 8,
+                           device=device)
+    x = torch.ones(16, 8, device=device)
+    x3 = torch.ones(2, 16, 8, device=device)
+    wrappers = (spmm_batched_cuda, sddmm_batched_cuda, spmm_staged_cuda,
+                spmm_noncoalesced_cuda, spmm_cuda, sddmm_cuda)
+    before = [w.launches for w in wrappers]
+    spmm_batched_cuda(blocked, x3)
+    sddmm_batched_cuda(blocked, x3, x)
+    spmm_staged_cuda(blocked, x)
+    spmm_noncoalesced_cuda(blocked, x)
+    spmm_batched_cuda(blocked, x)          # 2-D: the single-head kernel
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [
+        1, 1, 1, 1, 1, 0]
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_balanced"])
+def test_multi_head_attention_gradients_on_card_match_blocked(device, impl):
+    seq, heads, d = 300, 3, 16
+    rows, cols = sat.block_sparse_causal_pattern(seq)
+    fmt = from_dense(np.asarray(sat.dense_mask(rows, cols, seq, "cpu"),
+                                np.float32))
+    q, k, v = (torch.from_numpy(x).to(device)
+               for x in sat.make_inputs(seq, heads, d))
+    grads = {}
+    for name in (impl, "blocked"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plan = ad_plan(fmt, impl=name, device=device)
+        sparse_attention(plan, *leaves).square().sum().backward()
+        grads[name] = [t.grad for t in leaves]
     for got, want in zip(grads[impl], grads["blocked"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -177,11 +177,12 @@ def test_sparse_softmax_matches_jax(name):
 
 def test_registry_lists_the_ported_impls():
     assert dispatch.impls("spmm") == ("blocked", "coo_segment", "cuda",
-                                      "cuda_balanced")
+                                      "cuda_balanced", "cuda_batched",
+                                      "cuda_noncoalesced", "cuda_staged")
     assert dispatch.impls("sddmm") == ("blocked", "coo", "cuda",
-                                       "cuda_balanced")
+                                       "cuda_balanced", "cuda_batched")
     assert dispatch.impls("attention") == ("blocked", "cuda_balanced",
-                                           "cuda_fused_attn")
+                                           "cuda_fused_attn", "cuda_staged")
     with pytest.raises(ValueError, match="available"):
         dispatch.get("spmm", "pallas")
 

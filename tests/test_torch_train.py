@@ -102,13 +102,6 @@ def test_unneeded_cotangents_launch_nothing():
                    ("sddmm", "cuda"), ("spmm", "cuda")]
 
 
-def test_leading_head_operands_name_the_roadmap():
-    a = _matrix()
-    plan = ad_plan(from_dense(a), impl="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm_ad(plan, plan.vals, torch.ones(2, a.shape[1], 3))
-
-
 def _graph(n=56, deg=5, seed=7):
     rows, cols = jgraphs.erdos_renyi_graph(n, deg, seed=seed)
     loops = np.arange(n)
