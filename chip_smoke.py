@@ -13,16 +13,20 @@ a non-zero exit at the first phase that fails:
   3. each kernel against its plain PyTorch version on the card: (a) on
      edge cases, the balanced kernels over schedules split at
      split_blk in {0, 1, 3} with one and two heads, shared and per-head
-     operands, and the all-empty matrix (no balanced SDDMM launch); the
+     operands, and the all-empty matrix (no balanced SDDMM launch), the
+     run-carried SpMM and attention also against a second launch (same
+     bits); the
      head-grid SpMM and SDDMM and the fused attention at H in {1, 2, 4}
      with every mix of shared and per-head operands, each bitwise-equal
      to H one-head launches; the non-coalesced SpMM bitwise-equal to the
      SpMM; the staged SpMM; (b) at the main paths' shapes: on the Amazon
      replica, the balanced kernels over the schedules of A and of its
-     transpose, and the two SpMM baselines at N = 128; on the attention
-     pattern (12 heads, 16,384 tokens, head dim 64), the head-grid SpMM
-     on A and on its transpose, the head-grid SDDMM and the fused
-     attention;
+     transpose (the run-carried SpMM and attention at split_blk in
+     {0, 1, 3} and H in {1, 2}, each also against a second launch), and
+     the two SpMM baselines at N = 128; on the attention pattern (12 heads,
+     16,384 tokens, head dim 64), the head-grid SpMM on A and on its
+     transpose, the balanced SpMM on its transpose (dV), the head-grid
+     SDDMM and the fused attention;
   4. inference: GCN (5 x 128) and AGNN (hidden 32, 5 layers) on
      ``make_dataset("Amazon", 1.0, seed=0)`` over the ``cuda`` plan, the
      bare blocked format and the ``cuda_balanced`` plan, and GCN over the
@@ -49,7 +53,9 @@ a non-zero exit at the first phase that fails:
      counters against the derived counts;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
-     never calls), the balanced kernels at split_blk in {1, 8, 32}, each
+     never calls), the balanced kernels at split_blk in {0, 1, 8, 32} with
+     each run plan's runs, edge entries and partial bytes, the run length
+     of the run-carried SpMM and attention swept at split_blk = 1, each
      forward and train step with its peak memory;
   6. where the time goes: ``torch.profiler`` over one forward and one train
      step of each model and route, device time by kernel and the device's
@@ -250,6 +256,45 @@ def bound(nbytes: int, flops: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def plan_stats(sched, num_windows: int, n: int = 128, dv: int = 32) -> dict:
+    """The run plans of the run-carried SpMM and attention over ``sched``:
+    runs, edge entries, combine-tree levels, and the fp32 partial bytes the
+    kernel writes and the tree reads back at N = n (SpMM) or DV = dv
+    (attention, with m and l), beside the partials of a per-segment pass,
+    one per segment of every window that the schedule splits."""
+    from repro_torch.kernels._combine import run_plan
+    from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
+    from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
+
+    v = 8
+    nseg = np.bincount(sched.seg_win.cpu().numpy(), minlength=num_windows)
+    split_segments = int(nseg[nseg > 1].sum())
+    out = {"segments": sched.num_segments, "split_segments": split_segments}
+    for kind, run_blk, entry_bytes in (("spmm", SPMM_RUN, 4 * v * n),
+                                       ("attention", ATTN_RUN,
+                                        4 * (v * dv + 2 * v))):
+        plan = run_plan("chip_smoke", sched, num_windows, run_blk)
+        out[kind] = {"run_blk": run_blk, "runs": plan.num_runs,
+                     "pieces": plan.num_pieces, "entries": plan.entries,
+                     "tree_levels": len(plan.tree.levels),
+                     "partial_bytes": plan.entries * entry_bytes,
+                     "segment_partial_bytes": split_segments * entry_bytes}
+    return out
+
+
+def print_plans(label: str, st: dict) -> None:
+    for kind in ("spmm", "attention"):
+        k = st[kind]
+        ratio = k["segment_partial_bytes"] / max(k["partial_bytes"], 1)
+        print(f"  {label}, {kind} run plan (run_blk={k['run_blk']}): "
+              f"{k['runs']} runs, {k['pieces']} pieces, {k['entries']} edge "
+              f"entries, {k['tree_levels']} tree levels; partials "
+              f"{k['partial_bytes'] / 1e6:.3f} MB against "
+              f"{k['segment_partial_bytes'] / 1e6:.3f} MB per segment "
+              f"({st['split_segments']} of {st['segments']} segments), "
+              f"{ratio:.1f}x fewer", flush=True)
+
+
 def unit_rows(rng, m: int, d: int):
     import torch
 
@@ -309,6 +354,8 @@ def check_kernels_edge(rng) -> None:
                 attention_plain(blocked, q, kk, vv), KERNEL_RTOL, KERNEL_ATOL)
         # Balanced kernels: split_blk 0 / 1 / 3; one head with shared
         # operands, two heads with per-head vals, B, Q and V and shared K.
+        # The run-carried SpMM and attention sum in a fixed order: a second
+        # launch gives the same bits.
         errs = []
         sddmm_before = sddmm_balanced_cuda.launches
         for split in (0, 1, 3):
@@ -320,9 +367,16 @@ def check_kernels_edge(rng) -> None:
                 bh, qh, vh = t(*hs, k, n), t(*hs, m, f), t(*hs, k, dv)
                 beta = torch.tensor(0.8, device=DEVICE)
                 tag = f"[{label}, split_blk={split}, H={h}]"
+                c_out = spmm_balanced_cuda(bv, bh, schedule=sched)
+                a_out = attention_balanced_cuda(blocked, qh, kk, vh,
+                                                scale=beta, schedule=sched)
+                bitwise(f"spmm_balanced {tag}, second launch", c_out,
+                        spmm_balanced_cuda(bv, bh, schedule=sched))
+                bitwise(f"attention_balanced {tag}, second launch", a_out,
+                        attention_balanced_cuda(blocked, qh, kk, vh,
+                                                scale=beta, schedule=sched))
                 errs.append(max(
-                    compare(f"spmm_balanced {tag}",
-                            spmm_balanced_cuda(bv, bh, schedule=sched),
+                    compare(f"spmm_balanced {tag}", c_out,
                             spmm_balanced_plain(bv, bh, sched),
                             KERNEL_RTOL, KERNEL_ATOL, show=False),
                     compare(f"sddmm_balanced {tag}",
@@ -330,16 +384,14 @@ def check_kernels_edge(rng) -> None:
                                                 schedule=sched),
                             sddmm_balanced_plain(blocked, qh, kk, sched),
                             KERNEL_RTOL, KERNEL_ATOL, show=False),
-                    compare(f"attention_balanced {tag}",
-                            attention_balanced_cuda(blocked, qh, kk, vh,
-                                                    scale=beta,
-                                                    schedule=sched),
+                    compare(f"attention_balanced {tag}", a_out,
                             attention_balanced_plain(blocked, qh, kk, vh,
                                                      sched, beta),
                             KERNEL_RTOL, KERNEL_ATOL, show=False)))
         sddmm_launched = sddmm_balanced_cuda.launches - sddmm_before
         print(f"  ok   balanced x3 [{label}], split_blk 0/1/3 x H 1/2: max abs "
-              f"err {max(errs):.3e}; balanced SDDMM launches {sddmm_launched}",
+              f"err {max(errs):.3e}, SpMM and attention the same bits on a "
+              f"second launch; balanced SDDMM launches {sddmm_launched}",
               flush=True)
         if a.any() != (sddmm_launched == 6):
             raise SystemExit(f"FAIL [{label}]: {sddmm_launched} balanced SDDMM "
@@ -555,8 +607,10 @@ def main() -> None:
                                      spmm_noncoalesced_cuda,
                                      spmm_noncoalesced_plain, spmm_plain,
                                      spmm_staged_cuda, spmm_staged_plain)
-    from repro_torch.kernels._combine import combine_tree
     from repro_torch.core.sddmm import attention, with_values
+    from repro_torch.kernels._combine import run_plan
+    from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
+    from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
     from repro_torch.core.softmax import sparse_softmax
     from repro_torch.models.gnn import (AGNN, GCN, GNNConfig, agnn_forward,
                                         gcn_forward, gnn_loss)
@@ -644,9 +698,8 @@ def main() -> None:
               f"{top[:5].tolist()}, the 10 largest windows hold "
               f"{top[:10].sum() / max(per_win.sum(), 1):.3f} of the blocks; "
               f"split_blk=1 schedule: {sc.num_segments} segments, "
-              f"{int((per_win > 1).sum())} split windows, combine tree of "
-              f"{len(combine_tree('chip_smoke', sc, bl.num_windows).levels)}"
-              " levels")
+              f"{int((per_win > 1).sum())} split windows")
+        print_plans(f"{dirn}, split_blk=1", plan_stats(sc, bl.num_windows))
     b = torch.from_numpy(rng.standard_normal((m, 128)).astype(np.float32)).to(DEVICE)
     b32 = torch.from_numpy(rng.standard_normal((m, 32)).astype(np.float32)).to(DEVICE)
     h32 = unit_rows(rng, m, 32).to(DEVICE)
@@ -664,6 +717,20 @@ def main() -> None:
             attention_plain(blk, h32, h32, v32, scale=beta),
             KERNEL_RTOL, KERNEL_ATOL),
     }
+    # The balanced kernels on A and A^T.  The run-carried SpMM and
+    # attention at split_blk 0 / 1 / 3, with one head (the main path's
+    # operands) and two (per-head vals, B, Q and V, shared K), each also
+    # against a second launch (same bits).
+    rng2 = np.random.default_rng(1)
+
+    def second_head(x, unit=False):
+        y = torch.from_numpy(rng2.standard_normal(tuple(x.shape)).astype(
+            np.float32)).to(DEVICE)
+        if unit:
+            y = y / y.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+        return torch.stack([x, y])
+
+    b_2, h32_2, v32_2 = second_head(b), second_head(h32, True), second_head(v32)
     for dirn, bl, sc in (("A", bplan.fwd, bplan.fwd_sched),
                          ("A^T", bplan.bwd, bplan.bwd_sched)):
         e_spmm = [compare(f"spmm_balanced [Amazon {dirn}, N={bb.shape[1]}]",
@@ -683,6 +750,31 @@ def main() -> None:
         if dirn == "A":
             err.update(spmm_balanced=e_spmm[0], sddmm_balanced=e_sddmm[0],
                        attention_balanced=e_attn)
+        vals_2 = torch.stack([bl.vals, bl.vals * torch.from_numpy(
+            rng2.uniform(0.5, 1.5, tuple(bl.vals.shape)).astype(
+                np.float32)).to(DEVICE)])
+        for split in (0, 1, 3):
+            sched = bl.schedule(split)
+            for h in (1, 2):
+                bv = bl if h == 1 else with_values(bl, vals_2)
+                bb, qq, vv = (b, h32, v32) if h == 1 else (b_2, h32_2, v32_2)
+                tag = f"[Amazon {dirn}, split_blk={split}, H={h}"
+                out = spmm_balanced_cuda(bv, bb, schedule=sched)
+                bitwise(f"spmm_balanced {tag}, N=128], second launch", out,
+                        spmm_balanced_cuda(bv, bb, schedule=sched))
+                compare(f"spmm_balanced {tag}, N=128]", out,
+                        spmm_balanced_plain(bv, bb, sched), KERNEL_RTOL,
+                        KERNEL_ATOL)
+                out = attention_balanced_cuda(bl, qq, h32, vv, scale=beta,
+                                              schedule=sched)
+                bitwise(f"attention_balanced {tag}, D=DV=32], second launch",
+                        out, attention_balanced_cuda(bl, qq, h32, vv,
+                                                     scale=beta,
+                                                     schedule=sched))
+                compare(f"attention_balanced {tag}, D=DV=32]", out,
+                        attention_balanced_plain(bl, qq, h32, vv, sched, beta),
+                        KERNEL_RTOL, KERNEL_ATOL)
+    del b_2, h32_2, v32_2, vals_2, out
     # The Fig. 15 baseline keeps spmm.cu's per-output order: same bits.
     bitwise("spmm_noncoalesced [Amazon, N=128] vs spmm",
             spmm_noncoalesced_cuda(blk, b), spmm_cuda(blk, b))
@@ -716,6 +808,20 @@ def main() -> None:
         f"spmm_batched [attention A^T, {tag}: dV = P^T @ G]", aplan.bwd,
         aprobs_t, ag, spmm_batched_cuda(with_values(aplan.bwd, aprobs_t), ag),
         spmm_batched_plain(with_values(aplan.bwd, aprobs_t), ag))
+    # The same dV on the balanced route: runs cut the global keys' windows.
+    aprob_t_blk = with_values(aplan.bwd, aprobs_t)
+    dv_sched = aplan.bwd.schedule(1)
+    dv_out = spmm_balanced_cuda(aprob_t_blk, ag, schedule=dv_sched)
+    bitwise(f"spmm_balanced [attention A^T, {tag}: dV, split_blk=1], second "
+            "launch", dv_out,
+            spmm_balanced_cuda(aprob_t_blk, ag, schedule=dv_sched))
+    compare(f"spmm_balanced [attention A^T, {tag}: dV, split_blk=1]", dv_out,
+            spmm_balanced_plain(aprob_t_blk, ag, dv_sched), KERNEL_RTOL,
+            KERNEL_ATOL)
+    print_plans("attention A^T, split_blk=1",
+                plan_stats(dv_sched, aplan.bwd.num_windows, n=ATTN_DIM,
+                           dv=ATTN_DIM))
+    del dv_out
     err["sddmm_batched"] = compare(
         f"sddmm_batched [attention A, {tag}: scores]",
         sddmm_batched_cuda(ablk, aq, ak), sddmm_batched_plain(ablk, aq, ak),
@@ -1131,11 +1237,10 @@ def main() -> None:
                                                 "balanced_ms": t_bal}
         # The attention backward's dV = P^T @ G on A^T, whose global-key
         # windows hold up to 2,048 K-blocks: head grid against balanced.
-        aprob_t_blk = with_values(aplan.bwd, aprobs_t)
         t_win = cuda_ms(lambda: spmm_batched_cuda(aprob_t_blk, ag))
         t_bal = {split: cuda_ms(lambda: spmm_balanced_cuda(
             aprob_t_blk, ag, schedule=aplan.bwd.schedule(split)))
-            for split in (1, 8, 32)}
+            for split in (0, 1, 8, 32)}
         dv_bound = bound(
             read_once(aprobs_t, aplan.bwd.cols, aplan.bwd.win_ptr, ag)
             + ag.numel() * 4,
@@ -1148,7 +1253,7 @@ def main() -> None:
                                          "balanced_ms": t_bal,
                                          "bound_ms": dv_bound[0]}
         sweep = {}
-        for split in (1, 8, 32):
+        for split in (0, 1, 8, 32):
             fs, ts = bblk.schedule(split), bplan.bwd.schedule(split)
             sweep[split] = {
                 "spmm_A_n128": cuda_ms(lambda: spmm_balanced_cuda(
@@ -1159,11 +1264,54 @@ def main() -> None:
                     bblk, h32, h32, schedule=fs)),
                 "attention_A_d32": cuda_ms(lambda: attention_balanced_cuda(
                     bblk, h32, h32, v32, scale=beta, schedule=fs)),
-                "segments_A": fs.num_segments, "segments_At": ts.num_segments,
+                "attention_At_d32": cuda_ms(lambda: attention_balanced_cuda(
+                    bplan.bwd, h32, h32, v32, scale=beta, schedule=ts)),
+                "plans_A": plan_stats(fs, bblk.num_windows),
+                "plans_At": plan_stats(ts, bplan.bwd.num_windows),
             }
             print(f"  split_blk={split}: " + ", ".join(
+                f"{k_} {v_:.4f} ms" for k_, v_ in sweep[split].items()
+                if isinstance(v_, float)))
+            print_plans(f"    A, split_blk={split}", sweep[split]["plans_A"])
+            print_plans(f"    A^T, split_blk={split}", sweep[split]["plans_At"])
+        # The run length of the run-carried kernels at split_blk = 1: SpMM
+        # on A and A^T (N = 128) and the attention dV, attention on A and
+        # A^T (D = DV = 32) and the 12-head attention forward.
+        run_sweep = {}
+        at_sched = bplan.bwd_sched
+        for r_blk in (8, 16, 32, 64):
+            run_sweep[f"spmm_run_blk_{r_blk}"] = {
+                "A_n128": cuda_ms(lambda: spmm_balanced_cuda(
+                    bblk, b, schedule=bsched, run_blk=r_blk)),
+                "At_n128": cuda_ms(lambda: spmm_balanced_cuda(
+                    bplan.bwd, b, schedule=at_sched, run_blk=r_blk)),
+                "attention_dV_h12": cuda_ms(lambda: spmm_balanced_cuda(
+                    aprob_t_blk, ag, schedule=dv_sched, run_blk=r_blk)),
+                "entries_A": run_plan("chip_smoke", bsched, bblk.num_windows,
+                                      r_blk).entries,
+                "entries_At": run_plan("chip_smoke", at_sched,
+                                       bplan.bwd.num_windows, r_blk).entries,
+            }
+        for r_blk in (2, 4, 8, 16, 32):
+            run_sweep[f"attention_run_blk_{r_blk}"] = {
+                "A_d32": cuda_ms(lambda: attention_balanced_cuda(
+                    bblk, h32, h32, v32, scale=beta, schedule=bsched,
+                    run_blk=r_blk)),
+                "At_d32": cuda_ms(lambda: attention_balanced_cuda(
+                    bplan.bwd, h32, h32, v32, scale=beta, schedule=at_sched,
+                    run_blk=r_blk)),
+                "attention_h12": cuda_ms(lambda: attention_balanced_cuda(
+                    abplan.fwd, aq, ak, av, scale=att["scale"],
+                    schedule=abplan.fwd_sched, run_blk=r_blk)),
+                "entries_A": run_plan("chip_smoke", bsched, bblk.num_windows,
+                                      r_blk).entries,
+                "entries_At": run_plan("chip_smoke", at_sched,
+                                       bplan.bwd.num_windows, r_blk).entries,
+            }
+        for key, row in run_sweep.items():
+            print(f"  {key}: " + ", ".join(
                 f"{k_} {v_:.4f} ms" if isinstance(v_, float) else f"{k_} {v_}"
-                for k_, v_ in sweep[split].items()))
+                for k_, v_ in row.items()))
         for name, (run, ref_run, _) in runs.items():
             torch.cuda.reset_peak_memory_stats()
             t_kernel = cuda_ms(run, batch=2, warmup=1)
@@ -1236,9 +1384,14 @@ def main() -> None:
     v = blk.vector_size
     # Each distinct input read once (the main path passes Q and K as one
     # tensor, AGNN's q = k = ĥ, counted once), the output written once, and
-    # for the balanced kernels the schedule arrays they read; never the
-    # balanced kernels' own scratch partials.
-    sched_meta = (bsched.seg_win, bsched.seg_meta)
+    # for the balanced kernels the schedule arrays they read (the run plan
+    # of the run-carried SpMM and attention); never the balanced kernels'
+    # own scratch partials.
+    bal_plans = {name: run_plan("chip_smoke", bsched, bblk.num_windows, r_)
+                 for name, r_ in (("spmm_balanced", SPMM_RUN),
+                                  ("attention_balanced", ATTN_RUN))}
+    plan_arrays = {name: (pl.run_ptr, pl.pieces)
+                   for name, pl in bal_plans.items()}
     nbytes = {
         "spmm": read_once(blk.vals, blk.cols, blk.win_ptr, b) + m * 128 * 4,
         "sddmm": (read_once(h32, h32, blk.mask, blk.cols, blk.block_win)
@@ -1246,13 +1399,15 @@ def main() -> None:
         "attention": (read_once(h32, h32, v32, beta, blk.mask, blk.cols,
                                 blk.win_ptr)
                       + m * 32 * 4),
-        "spmm_balanced": (read_once(bblk.vals, bblk.cols, b, *sched_meta)
+        "spmm_balanced": (read_once(bblk.vals, bblk.cols, b,
+                                    *plan_arrays["spmm_balanced"])
                           + m * 128 * 4),
         "sddmm_balanced": (read_once(h32, h32, bblk.mask, bblk.cols,
                                      bsched.blk_id, bsched.blk_win)
                            + nnzp * v * 4),
         "attention_balanced": (read_once(h32, h32, v32, beta, bblk.mask,
-                                         bblk.cols, *sched_meta)
+                                         bblk.cols,
+                                         *plan_arrays["attention_balanced"])
                                + m * 32 * 4),
         # the two SpMM baselines compute row 1's function on its inputs
         # (the staged gather is the design's own traffic)
@@ -1302,6 +1457,9 @@ def main() -> None:
     for name in ("spmm", "sddmm", "attention"):
         shapes[f"{name}_balanced"] = dict(
             shapes[name], split_blk=1, segments=bsched.num_segments)
+    for name, pl in bal_plans.items():
+        shapes[name].update(run_blk=pl.run_blk, runs=pl.num_runs,
+                            edge_entries=pl.entries)
     for name in ("spmm_noncoalesced", "spmm_staged"):
         shapes[name] = shapes["spmm"]
 
@@ -1331,7 +1489,8 @@ def main() -> None:
 
     print(json.dumps({"end_to_end": e2e, "training": train,
                       "sparse_attention": attn_result,
-                      "split_blk_sweep": sweep, "card": card,
+                      "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
+                      "card": card,
                       "seconds": round(time.time() - t_start, 1)}))
     print(card)
     print(json.dumps({"kernels": rows}))

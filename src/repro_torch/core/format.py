@@ -185,8 +185,9 @@ class Schedule:
     window are contiguous and ascend in block order.  An empty window keeps
     one zero-length segment (count 0, first = last = 1) that only stores
     zeros, so the all-empty matrix is a valid zero-block schedule.  The
-    balanced CUDA kernels merge a split window's segments through a combine
-    tree of their own (``repro_torch.kernels._combine``)."""
+    balanced CUDA SpMM and attention kernels walk it in runs of consecutive
+    segments and merge the windows that runs cut through a combine tree of
+    their own (``repro_torch.kernels._combine``)."""
 
     seg_win: torch.Tensor
     seg_meta: torch.Tensor

@@ -51,12 +51,12 @@ SOURCES: Dict[str, tuple] = {
     "sddmm_batched": ("sddmm_batched_f32", [_P] * 6 + [_I] * 6 + [_L, _L, _P]),
     "attention": ("attention_f32", [_P] * 7 + [_I] * 7 + [_L, _L, _L, _P]),
     "spmm_balanced": ("spmm_balanced_f32",
-                      [_P] * 9 + [_I] * 7 + [_L, _L, _P, _I, _L, _P]),
+                      [_P] * 9 + [_I] * 7 + [_L, _L, _P, _I, _L, _L, _P]),
     "sddmm_balanced": ("sddmm_balanced_f32",
                        [_P] * 7 + [_I] * 6 + [_L, _L, _L, _P]),
     "attention_balanced": ("attention_balanced_f32",
                            [_P] * 15 + [_I] * 7 + [_L, _L, _L, _P, _I, _L,
-                                                   _P]),
+                                                   _L, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -2,7 +2,9 @@
 tensors (their plain PyTorch versions) against the JAX package's
 ``spmm_pallas_balanced``, ``sddmm_pallas_balanced`` and
 ``attention_pallas_balanced`` in interpret mode, one and two heads, with
-shared and per-head operands, over split schedules."""
+shared and per-head operands, over split schedules; and the plain
+versions of the run-carried SpMM and attention against dense oracles over
+run plans that cut windows."""
 
 import numpy as np
 import pytest
@@ -12,14 +14,18 @@ import torch
 
 import repro.core as jcore
 from repro.core.sddmm import with_values as jax_with_values
+from repro.data.datasets import load_vendored
 from repro.kernels.attention_pallas import attention_pallas_balanced
 from repro.kernels.sddmm_pallas import sddmm_pallas_balanced
 from repro.kernels.spmm_pallas import spmm_pallas_balanced
 from repro_torch.core import attention, dispatch, sddmm, spmm
 from repro_torch.core.format import block_format, from_dense
 from repro_torch.core.sddmm import with_values
-from repro_torch.kernels import (attention_balanced_cuda, sddmm_balanced_cuda,
-                                 spmm_balanced_cuda)
+from repro_torch.kernels import (attention_balanced_cuda,
+                                 attention_balanced_plain, sddmm_balanced_cuda,
+                                 spmm_balanced_cuda, spmm_balanced_plain)
+from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
+from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
 
 # fp32 on both sides; the sums are taken in another order.
 RTOL, ATOL = 1e-5, 1e-5
@@ -133,3 +139,54 @@ def test_registry_routes_balanced_kwargs_and_counts_nothing_on_cpu():
                                atol=ATOL)
     assert (spmm_balanced_cuda.launches, sddmm_balanced_cuda.launches,
             attention_balanced_cuda.launches) == before
+
+
+# A hub matrix, a banded one, a rectangular one, and one whose first
+# window (150 vectors, 38 K-blocks at k_blk = 4) is longer than any run.
+ORACLE_MATRICES = ["hub_128", "skewband_64", "rect_120x40", "long_window"]
+
+
+def _oracle_matrix(name):
+    if name != "long_window":
+        return load_vendored([name])[0].dense().astype(np.float32)
+    rng = np.random.default_rng(3)
+    a = ((rng.random((48, 160)) < 0.1) * rng.standard_normal((48, 160))
+         ).astype(np.float32)
+    a[:8, :150] = 1.0
+    a[16:24] = 0.0
+    return a
+
+
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("name", ORACLE_MATRICES)
+def test_spmm_balanced_plain_matches_dense(name, split):
+    a = _oracle_matrix(name)
+    port = block_format(from_dense(a), 4, device="cpu")
+    rng = np.random.default_rng(split)
+    b = _np(rng, a.shape[1], 7)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    for run_blk in (2, SPMM_RUN):    # runs that cut windows, the kernel's
+        out = spmm_balanced_plain(port, torch.from_numpy(b),
+                                  port.schedule(split), run_blk)
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("name", ORACLE_MATRICES)
+def test_attention_balanced_plain_matches_dense(name, split):
+    a = _oracle_matrix(name)
+    port = block_format(from_dense(a), 4, device="cpu")
+    rng = np.random.default_rng(10 + split)
+    (m, mc), scale = a.shape, 0.6
+    q, k, v = _np(rng, m, 5), _np(rng, mc, 5), _np(rng, mc, 3)
+    s = scale * q.astype(np.float64) @ k.astype(np.float64).T
+    s = np.where(a != 0, s, -np.inf)
+    top = s.max(axis=1, keepdims=True)
+    p = np.where(a != 0, np.exp(s - np.where(np.isfinite(top), top, 0.0)),
+                 0.0)
+    want = (p @ v.astype(np.float64)) / np.maximum(p.sum(1, keepdims=True),
+                                                   1e-300)
+    for run_blk in (2, ATTN_RUN):
+        out = attention_balanced_plain(port, *map(torch.from_numpy, (q, k, v)),
+                                       port.schedule(split), scale, run_blk)
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -1,12 +1,13 @@
 """Card-only checks of the port's CUDA kernels (marker ``gpu``).
 
 Each kernel against its plain PyTorch version on the card (the balanced
-ones over split schedules, with one and two heads), the head-grid
-kernels and the non-coalesced SpMM bitwise against the one-head launches
-they stand for, the launch counters, the refusals of the wrappers, and
-gradients of a train step and of multi-head attention against the plain
-``blocked`` impl.  They skip on a host without a CUDA device; on
-one, run
+ones over split schedules, with one and two heads, and the run-carried
+SpMM and attention over runs that cut a hub window, each against a second
+launch for the same bits), the head-grid kernels and the non-coalesced
+SpMM bitwise against the one-head launches they stand for, the launch
+counters, the refusals of the wrappers, and gradients of a train step and
+of multi-head attention against the plain ``blocked`` impl.  They skip
+on a host without a CUDA device; on one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
@@ -27,6 +28,9 @@ from repro_torch.kernels import (attention_balanced_cuda,
                                  spmm_batched_plain, spmm_cuda,
                                  spmm_noncoalesced_cuda, spmm_plain,
                                  spmm_staged_cuda, spmm_staged_plain)
+from repro_torch.kernels._combine import run_plan
+from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
+from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
 from repro_torch.models import gnn
 from repro_torch.models.layers import sparse_attention
 from repro_torch.train import sparse_attention_train as sat
@@ -140,6 +144,28 @@ def test_gcn_forward_on_card_matches_blocked(device):
 @pytest.mark.parametrize("h", [1, 2])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
 def test_balanced_kernels_match_plain_on_card(device, case, h, split):
+    _balanced_on_card(device, case, h, split)
+
+
+# Two windows of about 1,000 vectors (125 K-blocks at k_blk = 8): at
+# split_blk >= 1 the run-carried kernels cut each into several runs.  (At
+# split_blk = 0 such a window is one fp32 running sum, as in the
+# window-parallel kernels; the CASES above hold that order.)
+HUB_CASE = (16, 1600, 0.1, (), 8, 8, 64, 32, 32)
+
+
+@pytest.mark.parametrize("split", [1, 3])
+@pytest.mark.parametrize("h", [1, 2])
+def test_balanced_kernels_cut_a_hub_window_on_card(device, h, split):
+    blocked = _balanced_on_card(device, HUB_CASE, h, split)
+    sched = blocked.schedule(split)
+    for run_blk in (SPMM_RUN, ATTN_RUN):
+        plan = run_plan("test", sched, blocked.num_windows, run_blk)
+        win = plan.pieces[:, 0].cpu().numpy()
+        assert (np.bincount(win, minlength=2)[:2] >= 2).all()  # cut, each
+
+
+def _balanced_on_card(device, case, h, split):
     m, k, density, empty, v, k_blk, n, f, dv = case
     rng = np.random.default_rng(m * k + h)
     a = _matrix(rng, m, k, density, empty)
@@ -153,20 +179,26 @@ def test_balanced_kernels_match_plain_on_card(device, case, h, split):
     # two heads: per-head vals, B, Q, V; shared K
     bv = with_values(blocked, t(*hs, *blocked.vals.shape) * blocked.mask)
     b, q, kk, vv = t(*hs, k, n), t(*hs, m, f), t(k, f), t(*hs, k, dv)
-    torch.testing.assert_close(spmm_balanced_cuda(bv, b, schedule=sched),
-                               spmm_balanced_plain(bv, b, sched),
+    out = spmm_balanced_cuda(bv, b, schedule=sched)
+    # a fixed summation order: a second launch gives the same bits
+    assert torch.equal(out, spmm_balanced_cuda(bv, b, schedule=sched))
+    torch.testing.assert_close(out, spmm_balanced_plain(bv, b, sched),
                                rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(sddmm_balanced_cuda(blocked, q, kk,
                                                    schedule=sched),
                                sddmm_balanced_plain(blocked, q, kk, sched),
                                rtol=RTOL, atol=ATOL)
     scale = torch.tensor(0.8, device=device)
+    out = attention_balanced_cuda(blocked, q, kk, vv, scale=scale,
+                                  schedule=sched)
+    assert torch.equal(out, attention_balanced_cuda(blocked, q, kk, vv,
+                                                    scale=scale,
+                                                    schedule=sched))
     torch.testing.assert_close(
-        attention_balanced_cuda(blocked, q, kk, vv, scale=scale,
-                                schedule=sched),
-        attention_balanced_plain(blocked, q, kk, vv, sched, scale),
+        out, attention_balanced_plain(blocked, q, kk, vv, sched, scale),
         rtol=RTOL, atol=ATOL)
     torch.cuda.synchronize()
+    return blocked
 
 
 def test_all_empty_matrix_launches_no_balanced_sddmm(device):
