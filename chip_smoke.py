@@ -15,12 +15,16 @@ a non-zero exit at the first phase that fails:
      split_blk in {0, 1, 3} with one and two heads, shared and per-head
      operands, and the all-empty matrix (no balanced SDDMM launch), the
      run-carried SpMM and attention also against a second launch (same
-     bits); the
+     bits); the window-parallel SpMM and the fused attention each against
+     a second launch (same bits); the
      head-grid SpMM and SDDMM and the fused attention at H in {1, 2, 4}
      with every mix of shared and per-head operands, each bitwise-equal
      to H one-head launches; the non-coalesced SpMM bitwise-equal to the
-     SpMM; the staged SpMM; (b) at the main paths' shapes: on the Amazon
-     replica, the balanced kernels over the schedules of A and of its
+     SpMM on the rows of the windows the SpMM does not split; the staged
+     SpMM; (b) at the main paths' shapes: on the Amazon replica, the
+     window-parallel SpMM on A and on its transpose (N = 128 and 32; the
+     rows of hub windows against fp64), each with its window plan, the
+     balanced kernels over the schedules of A and of its
      transpose (the run-carried SpMM and attention at split_blk in
      {0, 1, 3} and H in {1, 2}, each also against a second launch), and
      the two SpMM baselines at N = 128; on the attention pattern (12 heads,
@@ -53,7 +57,9 @@ a non-zero exit at the first phase that fails:
      counters against the derived counts;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
-     never calls), the balanced kernels at split_blk in {0, 1, 8, 32} with
+     never calls), the window-parallel SpMM also on the transposes (the
+     Amazon replica's at N = 128 and 32, the attention pattern's dV), the
+     balanced kernels at split_blk in {0, 1, 8, 32} with
      each run plan's runs, edge entries and partial bytes, the run length
      of the run-carried SpMM and attention swept at split_blk = 1, each
      forward and train step with its peak memory;
@@ -107,10 +113,13 @@ E2E_RTOL, E2E_ATOL = 1e-4, 1e-4
 GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-3, 1e-4
 TRAIN_STEPS = 3
 TRAIN_LR = 5e-2  # the reference smoke's rate (examples/gnn_train.py)
-# H100 SXM data sheet: device memory rate and fp32 rate outside the
-# tensor cores.
+# H100 SXM data sheet: device memory rate, fp32 rate outside the tensor
+# cores, and the dense TF32 tensor-core rate (the fused attention's
+# products, three TF32 products per multiply in its 3xTF32 split).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+TF32_PRODUCTS = 3
 
 DEVICE = "cuda"
 SCALE = 1.0  # the Amazon replica at full size
@@ -249,10 +258,11 @@ def read_once(*tensors) -> int:
     return sum(seen.values())
 
 
-def bound(nbytes: int, flops: int) -> tuple:
+def bound(nbytes: int, flops: int,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple:
     """Least time (ms) the card could take, and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -293,6 +303,58 @@ def print_plans(label: str, st: dict) -> None:
               f"{k['segment_partial_bytes'] / 1e6:.3f} MB per segment "
               f"({st['split_segments']} of {st['segments']} segments), "
               f"{ratio:.1f}x fewer", flush=True)
+
+
+def window_stats(label: str, blocked, n: int) -> dict:
+    """Print and return the window plan of the window-parallel SpMM over
+    ``blocked`` at N = n: windows split (long over a cluster, medium over a
+    block), their slices, the block shape and the cluster size."""
+    from repro_torch.kernels._window import SPLIT_BLK, window_plan
+
+    n_tile = min(128, max(32, -(-n // 32) * 32))
+    plan = window_plan("chip_smoke", blocked.win_ptr, SPLIT_BLK, n_tile)
+    per_win = np.diff(blocked.win_ptr.cpu().numpy())
+    split = per_win > SPLIT_BLK
+    slices = int(-(-per_win[split] // SPLIT_BLK).sum())
+    st = {"split_blk": SPLIT_BLK, "n_tile": n_tile, "groups": plan.groups,
+          "cluster": plan.cluster, "long_windows": plan.num_long,
+          "medium_windows": plan.num_medium, "slices": slices,
+          "split_blocks": int(per_win[split].sum()),
+          "blocks": int(per_win.sum()), "tasks": plan.num_tasks}
+    print(f"  {label}, window plan at N={n} (split_blk={SPLIT_BLK}): "
+          f"{plan.num_long} long windows over clusters of {plan.cluster} "
+          f"blocks, {plan.num_medium} medium over one block, {slices} slices "
+          f"holding {st['split_blocks']} of {st['blocks']} K-blocks; blocks "
+          f"of {plan.groups} x {n_tile} threads, {plan.num_tasks} tasks",
+          flush=True)
+    return st
+
+
+def unsplit_rows(blocked):
+    """Rows of the windows the window-parallel SpMM walks unsplit (at most
+    SPLIT_BLK K-blocks): there it keeps one running sum per output."""
+    import torch
+
+    from repro_torch.kernels._window import SPLIT_BLK
+
+    per_win = torch.diff(blocked.win_ptr.long())
+    return (per_win <= SPLIT_BLK).repeat_interleave(
+        blocked.vector_size)[:blocked.shape[0]]
+
+
+def check_noncoalesced(label: str, blocked, out, ref, plain) -> None:
+    """The Fig. 15 baseline keeps the window-parallel SpMM's per-output
+    order on every window that SpMM walks unsplit: same bits there.  The
+    rows of split windows (summed by slices in the SpMM) are held, for
+    both, to the plain version at the kernel tolerance."""
+    rows = unsplit_rows(blocked)
+    bitwise(f"{label}, rows of unsplit windows", out[rows], ref[rows])
+    if bool((~rows).any()):
+        compare(f"{label}, rows of split windows: spmm_noncoalesced vs "
+                "plain", out[~rows], plain[~rows], KERNEL_RTOL, KERNEL_ATOL,
+                show=False)
+        compare(f"{label}, rows of split windows: spmm vs plain", ref[~rows],
+                plain[~rows], KERNEL_RTOL, KERNEL_ATOL, show=False)
 
 
 def unit_rows(rng, m: int, d: int):
@@ -345,12 +407,19 @@ def check_kernels_edge(rng) -> None:
                                device=DEVICE)
         m, k = a.shape
         b, q, kk, vv = t(k, n), t(m, f), t(k, f), t(k, dv)
-        compare(f"spmm [{label}]", spmm_cuda(blocked, b), spmm_plain(blocked, b),
-                KERNEL_RTOL, KERNEL_ATOL)
+        # The window-parallel SpMM (windows of more than SPLIT_BLK K-blocks
+        # split over the groups of a block) and the fused attention: the
+        # same bits on a second launch.
+        out = spmm_cuda(blocked, b)
+        bitwise(f"spmm [{label}], second launch", out, spmm_cuda(blocked, b))
+        compare(f"spmm [{label}]", out, spmm_plain(blocked, b), KERNEL_RTOL,
+                KERNEL_ATOL)
         compare(f"sddmm [{label}, F={f}]", sddmm_cuda(blocked, q, kk),
                 sddmm_plain(blocked, q, kk), KERNEL_RTOL, KERNEL_ATOL)
-        compare(f"attention [{label}, D={f}, DV={dv}]",
-                attention_cuda(blocked, q, kk, vv),
+        out = attention_cuda(blocked, q, kk, vv)
+        bitwise(f"attention [{label}, D={f}, DV={dv}], second launch", out,
+                attention_cuda(blocked, q, kk, vv))
+        compare(f"attention [{label}, D={f}, DV={dv}]", out,
                 attention_plain(blocked, q, kk, vv), KERNEL_RTOL, KERNEL_ATOL)
         # Balanced kernels: split_blk 0 / 1 / 3; one head with shared
         # operands, two heads with per-head vals, B, Q and V and shared K.
@@ -476,8 +545,8 @@ def check_head_grids_edge(rng) -> None:
                                      sddmm_batched_cuda, sddmm_batched_plain,
                                      sddmm_cuda, spmm_batched_cuda,
                                      spmm_batched_plain, spmm_cuda,
-                                     spmm_noncoalesced_cuda, spmm_staged_cuda,
-                                     spmm_staged_plain)
+                                     spmm_noncoalesced_cuda, spmm_plain,
+                                     spmm_staged_cuda, spmm_staged_plain)
 
     def t(heads, *shape):
         return torch.from_numpy(rng.standard_normal(
@@ -505,6 +574,8 @@ def check_head_grids_edge(rng) -> None:
                                  * blocked.mask)
                 b = t(hs, k, n)
                 out = spmm_batched_cuda(bv, b)
+                bitwise(f"spmm_batched {tag}, second launch", out,
+                        spmm_batched_cuda(bv, b))
                 bitwise(f"spmm_batched {tag} vs {h} spmm launches", out,
                         torch.stack([spmm_cuda(with_values(
                             blocked, head(bv.vals, i)), head(b, i))
@@ -535,16 +606,18 @@ def check_head_grids_edge(rng) -> None:
                                     attention_plain(blocked, q, kk, vv, beta),
                                     KERNEL_RTOL, KERNEL_ATOL, show=False))
         b = t((), k, n)
-        bitwise(f"spmm_noncoalesced [{label}] vs spmm",
-                spmm_noncoalesced_cuda(blocked, b), spmm_cuda(blocked, b))
+        check_noncoalesced(f"spmm_noncoalesced [{label}] vs spmm", blocked,
+                           spmm_noncoalesced_cuda(blocked, b),
+                           spmm_cuda(blocked, b), spmm_plain(blocked, b))
         errs.append(compare(f"spmm_staged [{label}]",
                             spmm_staged_cuda(blocked, b),
                             spmm_staged_plain(blocked, b), KERNEL_RTOL,
                             KERNEL_ATOL, show=False))
         print(f"  ok   [{label}]: spmm_batched, sddmm_batched (H 1/2/4 x 3 "
               "mixes) and attention (H 1/2/4 x 7 mixes) bitwise-equal to "
-              "their one-head launches, spmm_noncoalesced bitwise-equal to "
-              f"spmm; against the plain versions max abs err {max(errs):.3e}",
+              "their one-head launches, spmm_batched to a second launch, "
+              "spmm_noncoalesced bitwise-equal to spmm on unsplit windows; "
+              f"against the plain versions max abs err {max(errs):.3e}",
               flush=True)
     torch.cuda.synchronize()
 
@@ -609,6 +682,7 @@ def main() -> None:
                                      spmm_staged_cuda, spmm_staged_plain)
     from repro_torch.core.sddmm import attention, with_values
     from repro_torch.kernels._combine import run_plan
+    from repro_torch.kernels._window import SPLIT_BLK, window_plan
     from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
     from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
     from repro_torch.core.softmax import sparse_softmax
@@ -706,17 +780,36 @@ def main() -> None:
     h128 = unit_rows(rng, m, 128).to(DEVICE)
     v32 = torch.from_numpy(rng.standard_normal((m, 32)).astype(np.float32)).to(DEVICE)
     beta = torch.ones((), device=DEVICE)
+    out = spmm_cuda(blk, b)
+    bitwise("spmm [Amazon, N=128], second launch", out, spmm_cuda(blk, b))
+    a_out = attention_cuda(blk, h32, h32, v32, scale=beta)
+    bitwise("attention [Amazon, D=DV=32, scale=beta], second launch", a_out,
+            attention_cuda(blk, h32, h32, v32, scale=beta))
     err = {
-        "spmm": compare("spmm [Amazon, N=128]", spmm_cuda(blk, b),
-                        spmm_plain(blk, b), KERNEL_RTOL, KERNEL_ATOL),
+        "spmm": compare("spmm [Amazon, N=128]", out, spmm_plain(blk, b),
+                        KERNEL_RTOL, KERNEL_ATOL),
         "sddmm": compare("sddmm [Amazon, F=32]", sddmm_cuda(blk, h32, h32),
                          sddmm_plain(blk, h32, h32), KERNEL_RTOL, KERNEL_ATOL),
         "attention": compare(
-            "attention [Amazon, D=DV=32, scale=beta]",
-            attention_cuda(blk, h32, h32, v32, scale=beta),
+            "attention [Amazon, D=DV=32, scale=beta]", a_out,
             attention_plain(blk, h32, h32, v32, scale=beta),
             KERNEL_RTOL, KERNEL_ATOL),
     }
+    # The window-parallel SpMM on A^T (the dB of every GCN and AGNN layer
+    # on the cuda route), whose hub columns of A are hub windows, cut into
+    # slices over thread-block clusters: ordinary windows against the plain
+    # version, hub windows against fp64, and a second launch (same bits).
+    windows = {"A_n128": window_stats("A", blk, 128),
+               "At_n128": window_stats("A^T", plan.bwd, 128),
+               "At_n32": window_stats("A^T", plan.bwd, 32)}
+    for n_cols, bb in ((128, b), (32, b32)):
+        out = spmm_cuda(plan.bwd, bb)
+        bitwise(f"spmm [Amazon A^T, N={n_cols}], second launch", out,
+                spmm_cuda(plan.bwd, bb))
+        err[f"spmm_At{n_cols}"] = check_hub_windows(
+            f"spmm [Amazon A^T, N={n_cols}]", plan.bwd, plan.bwd.vals[None],
+            bb[None], out[None], spmm_plain(plan.bwd, bb)[None])
+    del out, a_out
     # The balanced kernels on A and A^T.  The run-carried SpMM and
     # attention at split_blk 0 / 1 / 3, with one head (the main path's
     # operands) and two (per-head vals, B, Q and V, shared K), each also
@@ -775,9 +868,11 @@ def main() -> None:
                         attention_balanced_plain(bl, qq, h32, vv, sched, beta),
                         KERNEL_RTOL, KERNEL_ATOL)
     del b_2, h32_2, v32_2, vals_2, out
-    # The Fig. 15 baseline keeps spmm.cu's per-output order: same bits.
-    bitwise("spmm_noncoalesced [Amazon, N=128] vs spmm",
-            spmm_noncoalesced_cuda(blk, b), spmm_cuda(blk, b))
+    # The Fig. 15 baseline keeps spmm.cu's per-output order on unsplit
+    # windows (all of A's): same bits.
+    check_noncoalesced("spmm_noncoalesced [Amazon, N=128] vs spmm", blk,
+                       spmm_noncoalesced_cuda(blk, b), spmm_cuda(blk, b),
+                       spmm_plain(blk, b))
     err["spmm_noncoalesced"] = compare(
         "spmm_noncoalesced [Amazon, N=128]", spmm_noncoalesced_cuda(blk, b),
         spmm_noncoalesced_plain(blk, b), KERNEL_RTOL, KERNEL_ATOL)
@@ -804,12 +899,16 @@ def main() -> None:
     # running sum (spmm.cu's order, the reference's sequential window
     # accumulation), where the plain version sums blockwise: its rows are
     # held against fp64, the rest against the plain version.
-    check_hub_windows(
-        f"spmm_batched [attention A^T, {tag}: dV = P^T @ G]", aplan.bwd,
-        aprobs_t, ag, spmm_batched_cuda(with_values(aplan.bwd, aprobs_t), ag),
-        spmm_batched_plain(with_values(aplan.bwd, aprobs_t), ag))
-    # The same dV on the balanced route: runs cut the global keys' windows.
     aprob_t_blk = with_values(aplan.bwd, aprobs_t)
+    windows["attention_At_n64"] = window_stats("attention A^T", aplan.bwd,
+                                                ATTN_DIM)
+    dv_out = spmm_batched_cuda(aprob_t_blk, ag)
+    bitwise(f"spmm_batched [attention A^T, {tag}: dV], second launch",
+            dv_out, spmm_batched_cuda(aprob_t_blk, ag))
+    err["spmm_batched_At"] = check_hub_windows(
+        f"spmm_batched [attention A^T, {tag}: dV = P^T @ G]", aplan.bwd,
+        aprobs_t, ag, dv_out, spmm_batched_plain(aprob_t_blk, ag))
+    # The same dV on the balanced route: runs cut the global keys' windows.
     dv_sched = aplan.bwd.schedule(1)
     dv_out = spmm_balanced_cuda(aprob_t_blk, ag, schedule=dv_sched)
     bitwise(f"spmm_balanced [attention A^T, {tag}: dV, split_blk=1], second "
@@ -826,11 +925,14 @@ def main() -> None:
         f"sddmm_batched [attention A, {tag}: scores]",
         sddmm_batched_cuda(ablk, aq, ak), sddmm_batched_plain(ablk, aq, ak),
         KERNEL_RTOL, KERNEL_ATOL)
+    a_out = attention_cuda(ablk, aq, ak, av, scale=att["scale"])
+    bitwise(f"attention [attention A, {tag}], second launch", a_out,
+            attention_cuda(ablk, aq, ak, av, scale=att["scale"]))
     err["attention_h12"] = compare(
-        f"attention [attention A, {tag}, scale 1/sqrt(D)]",
-        attention_cuda(ablk, aq, ak, av, scale=att["scale"]),
+        f"attention [attention A, {tag}, scale 1/sqrt(D)]", a_out,
         attention_plain(ablk, aq, ak, av, att["scale"]), KERNEL_RTOL,
         KERNEL_ATOL)
+    del a_out
     torch.cuda.synchronize()
 
     phase("4. end to end: GCN and AGNN inference on the Amazon replica")
@@ -1144,7 +1246,11 @@ def main() -> None:
         torch.from_numpy(g.vals), (m, m)).coalesce().to_sparse_csr().to(DEVICE)
     pattern = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
                                       torch.ones_like(csr.values()), (m, m))
+    csr_t = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([g.cols, g.rows])),
+        torch.from_numpy(g.vals), (m, m)).coalesce().to_sparse_csr().to(DEVICE)
     bblk, bsched = bplan.fwd, bplan.fwd_sched
+    nnz_all = int(blk.mask.sum())
     # Library yardsticks of the attention kernels: the probabilities as a
     # (H, S, S) sparse COO tensor for torch.bmm, the pattern as a batched
     # CSR tensor for sampled_addmm, the dense mask for
@@ -1160,6 +1266,10 @@ def main() -> None:
         torch.stack([heads_idx, a_rows.repeat(ATTN_HEADS),
                      a_cols.repeat(ATTN_HEADS)]),
         aprobs[:, t_idx, r_idx].reshape(-1),
+        (ATTN_HEADS, ATTN_SEQ, ATTN_SEQ)).coalesce()
+    # P^T for the dV yardstick
+    aprob_t_coo = torch.sparse_coo_tensor(
+        aprob_coo.indices()[[0, 2, 1]], aprob_coo.values(),
         (ATTN_HEADS, ATTN_SEQ, ATTN_SEQ)).coalesce()
     pat = torch.sparse_coo_tensor(torch.stack([a_rows, a_cols]),
                                   torch.ones_like(a_rows, dtype=torch.float32),
@@ -1206,6 +1316,17 @@ def main() -> None:
             "spmm_batched": (lambda: spmm_batched_cuda(aprob_blk, av),
                              lambda: spmm_batched_plain(aprob_blk, av),
                              lambda: torch.bmm(aprob_coo, av)),
+            # the window-parallel SpMM on the transposes: dB = A^T G on the
+            # Amazon replica, the attention's dV = P^T G
+            "spmm_At128": (lambda: spmm_cuda(plan.bwd, b),
+                           lambda: spmm_plain(plan.bwd, b),
+                           lambda: torch.sparse.mm(csr_t, b)),
+            "spmm_At32": (lambda: spmm_cuda(plan.bwd, b32),
+                          lambda: spmm_plain(plan.bwd, b32),
+                          lambda: torch.sparse.mm(csr_t, b32)),
+            "spmm_batched_At": (lambda: spmm_batched_cuda(aprob_t_blk, ag),
+                                lambda: spmm_batched_plain(aprob_t_blk, ag),
+                                lambda: torch.bmm(aprob_t_coo, ag)),
             "sddmm_batched": (
                 lambda: sddmm_batched_cuda(ablk, aq, ak),
                 lambda: sddmm_batched_plain(ablk, aq, ak),
@@ -1226,18 +1347,24 @@ def main() -> None:
             print(f"  {name}: kernel {ms[name][0]:.4f} ms, plain "
                   f"{ms[name][1]:.4f} ms, library {ms[name][2]} ms")
         # The transpose SpMM (dB, dK) on Aᵀ, whose hub columns of A are
-        # hub windows, window-parallel against block-parallel.
+        # hub windows, window-parallel (timed above) against block-parallel,
+        # and its bound.
         for n_cols, bb in ((128, b), (32, b32)):
-            t_win = cuda_ms(lambda: spmm_cuda(plan.bwd, bb))
+            t_win, _, t_lib = ms[f"spmm_At{n_cols}"]
             t_bal = cuda_ms(lambda: spmm_balanced_cuda(
                 bplan.bwd, bb, schedule=bplan.bwd_sched))
+            t_bound = bound(read_once(plan.bwd.vals, plan.bwd.cols,
+                                      plan.bwd.win_ptr, bb)
+                            + bb.numel() * 4, 2 * nnz_all * n_cols)[0]
             print(f"  transpose SpMM on A^T, N={n_cols}: window-parallel "
-                  f"{t_win:.4f} ms, balanced (split_blk=1) {t_bal:.4f} ms")
-            e2e[f"spmm_transpose_n{n_cols}"] = {"cuda_ms": t_win,
-                                                "balanced_ms": t_bal}
+                  f"{t_win:.4f} ms, balanced (split_blk=1) {t_bal:.4f} ms, "
+                  f"torch.sparse.mm {t_lib:.4f} ms; bound {t_bound:.4f} ms")
+            e2e[f"spmm_transpose_n{n_cols}"] = {
+                "cuda_ms": t_win, "balanced_ms": t_bal, "library_ms": t_lib,
+                "bound_ms": t_bound}
         # The attention backward's dV = P^T @ G on A^T, whose global-key
         # windows hold up to 2,048 K-blocks: head grid against balanced.
-        t_win = cuda_ms(lambda: spmm_batched_cuda(aprob_t_blk, ag))
+        t_win, _, t_lib = ms["spmm_batched_At"]
         t_bal = {split: cuda_ms(lambda: spmm_balanced_cuda(
             aprob_t_blk, ag, schedule=aplan.bwd.schedule(split)))
             for split in (0, 1, 8, 32)}
@@ -1248,9 +1375,11 @@ def main() -> None:
         print(f"  attention dV on A^T, H={ATTN_HEADS}, N={ATTN_DIM}: head "
               f"grid {t_win:.4f} ms, balanced " + ", ".join(
                   f"split_blk={k_} {v_:.4f} ms" for k_, v_ in t_bal.items())
-              + f"; bound {dv_bound[0]:.4f} ms ({dv_bound[1]})")
+              + f", torch.bmm {t_lib:.4f} ms; bound {dv_bound[0]:.4f} ms "
+              f"({dv_bound[1]})")
         e2e["attention_dv_transpose"] = {"cuda_batched_ms": t_win,
                                          "balanced_ms": t_bal,
+                                         "library_ms": t_lib,
                                          "bound_ms": dv_bound[0]}
         sweep = {}
         for split in (0, 1, 8, 32):
@@ -1387,6 +1516,11 @@ def main() -> None:
     # for the balanced kernels the schedule arrays they read (the run plan
     # of the run-carried SpMM and attention); never the balanced kernels'
     # own scratch partials.
+    def split_ids(blocked, n_cols):
+        n_tile = min(128, max(32, -(-n_cols // 32) * 32))
+        return window_plan("chip_smoke", blocked.win_ptr, SPLIT_BLK,
+                           n_tile).split_ids
+
     bal_plans = {name: run_plan("chip_smoke", bsched, bblk.num_windows, r_)
                  for name, r_ in (("spmm_balanced", SPMM_RUN),
                                   ("attention_balanced", ATTN_RUN))}
@@ -1423,6 +1557,17 @@ def main() -> None:
                                     ablk.block_win) + aprobs.numel() * 4),
         "attention_h12": (read_once(aq, ak, av, ablk.mask, ablk.cols,
                                     ablk.win_ptr) + av.numel() * 4),
+        # the window-parallel SpMM on the transposes, with its window plan
+        "spmm_At128": (read_once(plan.bwd.vals, plan.bwd.cols,
+                                 plan.bwd.win_ptr, b, split_ids(plan.bwd, 128))
+                       + m * 128 * 4),
+        "spmm_At32": (read_once(plan.bwd.vals, plan.bwd.cols,
+                                plan.bwd.win_ptr, b32, split_ids(plan.bwd, 32))
+                      + m * 32 * 4),
+        "spmm_batched_At": (read_once(aprobs_t, aplan.bwd.cols,
+                                      aplan.bwd.win_ptr, ag,
+                                      split_ids(aplan.bwd, ATTN_DIM))
+                            + ag.numel() * 4),
     }
     # Operations on the true nonzeros only: the padded and masked-off
     # slots of a block are the format's, not the function's.
@@ -1432,7 +1577,9 @@ def main() -> None:
              "attention": 2 * nnz * (32 + 32),
              "spmm_batched": 2 * annz * hd,
              "sddmm_batched": 2 * annz * hd,
-             "attention_h12": 2 * annz * 2 * hd}
+             "attention_h12": 2 * annz * 2 * hd,
+             "spmm_At128": 2 * nnz * 128, "spmm_At32": 2 * nnz * 32,
+             "spmm_batched_At": 2 * annz * hd}
     for name in ("spmm", "sddmm", "attention"):
         flops[f"{name}_balanced"] = flops[name]
     for name in ("spmm_noncoalesced", "spmm_staged"):
@@ -1462,14 +1609,34 @@ def main() -> None:
                             edge_entries=pl.entries)
     for name in ("spmm_noncoalesced", "spmm_staged"):
         shapes[name] = shapes["spmm"]
+    for n_cols, key in ((128, "At_n128"), (32, "At_n32")):
+        shapes[f"spmm_At{n_cols}"] = dict(
+            shapes["spmm"], N=n_cols, NNZP=int(plan.bwd.vals.shape[0]),
+            operand="A^T", window_plan=windows[key])
+    shapes["spmm_batched_At"] = dict(
+        shapes["spmm_batched"], NNZP=int(aplan.bwd.vals.shape[0]),
+        operand="A^T (dV = P^T G)", window_plan=windows["attention_At_n64"])
 
     def measured(name):
-        b_ms, b_by = bound(nbytes[name], flops[name])
         kernel_ms, plain_ms, library_ms = ms[name]
-        return {"shape": shapes[name], "max_abs_err": err[name],
-                "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "bytes": nbytes[name], "flops": flops[name]}
+        row = {"shape": shapes[name], "max_abs_err": err[name],
+               "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bytes": nbytes[name],
+               "flops": flops[name]}
+        if name.startswith("attention") and "balanced" not in name:
+            # the fused attention's products run on the tensor cores, three
+            # TF32 products per multiply (3xTF32); beside that bound, the
+            # one at the fp32 rate of the CUDA cores
+            b_ms, b_by = bound(nbytes[name], TF32_PRODUCTS * flops[name],
+                               TF32_FLOPS_PER_S)
+            row.update(bound_peak="TF32 tensor cores, 495 TFLOP/s, 3 "
+                       "products per multiply",
+                       bound_fp32_ms=bound(nbytes[name], flops[name])[0],
+                       bound_fp32_by=bound(nbytes[name], flops[name])[1])
+        else:
+            b_ms, b_by = bound(nbytes[name], flops[name])
+        row.update(bound_ms=b_ms, bound_by=b_by)
+        return row
 
     rows = []
     for name, (route, impl, source, replaces) in KERNELS.items():
@@ -1482,6 +1649,13 @@ def main() -> None:
             # the fused kernel on the multi-head attention path, beside its
             # one-head (AGNN) numbers above
             row["h12"] = measured("attention_h12")
+        if name == "spmm":
+            # the transpose SpMM (dB) of the train steps, on A^T
+            row["At"] = {"n128": measured("spmm_At128"),
+                         "n32": measured("spmm_At32")}
+        if name == "spmm_batched":
+            # the attention backward's dV on the pattern's transpose
+            row["At"] = measured("spmm_batched_At")
         rows.append(row)
     for name, n_launch in launches.items():
         if n_launch == 0:

@@ -4,10 +4,13 @@ and its plain version, plus the staged composition ``attention_cuda_staged``.
 Counterpart of ``repro.kernels.attention_pallas.attention_pallas``, which
 launches ``_fused_attn_kernel``: SDDMM → row softmax → SpMM in one pass
 per (head, window), the scores never reaching device memory, one launch
-for every head.  ``attention_cuda`` launches the hand-written kernel on
-CUDA tensors and counts each launch in ``attention_cuda.launches``; on CPU
-tensors it runs :func:`attention_plain`, the same function in three passes
-(plain SDDMM → ``sparse_softmax`` → plain SpMM).
+for every head.  Both products run on the tensor cores (``mma.sync``
+m16n8k8 in 3xTF32, the window's rows on the n side), so ``DV`` is at most
+128 (the accumulator lives in registers).  ``attention_cuda`` launches the
+hand-written kernel on CUDA tensors and counts each launch in
+``attention_cuda.launches``; on CPU tensors it runs
+:func:`attention_plain`, the same function in three passes (plain SDDMM →
+``sparse_softmax`` → plain SpMM).
 
 ``attention_cuda_staged`` is the counterpart of
 ``attention_pallas_staged``: the batched SDDMM kernel → ``sparse_softmax``
@@ -33,6 +36,21 @@ from .sddmm_batched_cuda import sddmm_batched_cuda
 from .spmm_batched_cuda import spmm_batched_cuda
 
 __all__ = ["attention_cuda", "attention_plain", "attention_cuda_staged"]
+
+# Chunks of 32 vectors a warp walks: 8 windows a warp for the Amazon
+# replica's A (1.1 chunks a window), 2 for the 12-head attention pattern
+# (4.3 chunks a window).
+CHUNKS_PER_WARP = 9
+
+
+def windows_per_warp(num_windows: int, nnzp: int, heads: int) -> int:
+    """Windows each warp of the kernel walks: about ``CHUNKS_PER_WARP``
+    chunks of 32 vectors (a warp's prefetch runs across its windows, which
+    pays where windows are short), at most 16, and at least 2,048 warps in
+    all."""
+    chunks = max(nnzp, 1) / 32 / max(num_windows, 1)
+    wpw = round(CHUNKS_PER_WARP / max(chunks, 1.0))
+    return max(1, min(16, wpw, num_windows * heads // 2048))
 
 
 def attention_plain(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
@@ -85,6 +103,7 @@ def attention_cuda(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
         blocked.win_ptr.data_ptr(), blocked.cols.data_ptr(), qs.data_ptr(),
         k.data_ptr(), v.data_ptr(), blocked.mask.data_ptr(), out.data_ptr(),
         m, d, dv, blocked.num_windows, h, vsz, k_blk,
+        windows_per_warp(blocked.num_windows, blocked.cols.shape[0], h),
         _checks.head_stride(qs, 2), _checks.head_stride(k, 2),
         _checks.head_stride(v, 2),
         torch.cuda.current_stream(q.device).cuda_stream)

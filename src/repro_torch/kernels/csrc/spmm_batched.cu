@@ -17,25 +17,29 @@
 // copy, the reference's "(1, ...) slice" rule.  Per (head, window, column)
 // the accumulation order is spmm.cu's, so this launch is bitwise-equal to
 // H launches of spmm.cu, as the reference promises for its batched grid.
-// The pattern (win_ptr, cols) is shared by the heads.  A window of Aᵀ with
-// thousands of blocks (the global keys of a strided attention pattern) is
-// walked by one thread block alone, as in spmm.cu: the block-parallel
-// spmm_balanced.cu is the route for such skew.
+// The pattern (win_ptr, cols) and the window plan are shared by the
+// heads.  A window of Aᵀ with thousands of blocks (the global keys of a
+// strided attention pattern) is cut into slices over a thread-block
+// cluster, as in spmm.cu.
 #include "spmm_window.cuh"
 
 // win_ptr (W + 1,) int32, cols (NNZP,) int32, vals (NNZP, V) f32 with
 // heads vals_hstride elements apart (0: shared), b (K, N) f32 row-major
-// with heads b_hstride apart (0: shared), c (H, M, N) f32.  n_tile threads
-// per block, a multiple of 32 up to 1024; H at most 65,535.
+// with heads b_hstride apart (0: shared), c (H, M, N) f32, split_ids and
+// the block shape as in spmm.cu; H at most 65,535.
 extern "C" int spmm_batched_f32(const void* win_ptr, const void* cols,
                                 const void* vals, const void* b, void* c,
-                                int m, int n, int num_windows, int heads,
-                                int v, int k_blk, int n_tile,
+                                const void* split_ids, int m, int n,
+                                int num_windows, int heads, int v, int k_blk,
+                                int n_tile, int groups, int cluster,
+                                int split_blk, int num_long, int num_medium,
                                 int64_t vals_hstride, int64_t b_hstride,
                                 void* stream) {
-  return repro::launch_spmm_window(win_ptr, cols, vals, b, c, m, n,
+  return repro::launch_spmm_window(win_ptr, cols, vals, b, c, split_ids, m, n,
                                    num_windows, heads, v, k_blk, n_tile,
-                                   vals_hstride, b_hstride, stream);
+                                   groups, cluster, split_blk, num_long,
+                                   num_medium, vals_hstride, b_hstride,
+                                   stream);
 }
 
 REPRO_ERROR_STRING(spmm_batched_error_string)

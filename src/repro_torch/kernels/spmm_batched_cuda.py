@@ -24,6 +24,7 @@ from repro_torch.core.format import BlockedMEBCRS
 from repro_torch.core.spmm import _spmm_blocked_impl
 
 from . import _build, _checks
+from ._window import MAX_THREADS, SPLIT_BLK, window_plan
 from .spmm_cuda import spmm_cuda
 
 __all__ = ["spmm_batched_cuda", "spmm_batched_plain"]
@@ -37,8 +38,8 @@ def spmm_batched_plain(blocked: BlockedMEBCRS, b: torch.Tensor) -> torch.Tensor:
 def spmm_batched_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
                       n_blk: int = 128) -> torch.Tensor:
     """``C[h] (M, N) = A[h] @ B[h]`` over ``blocked`` in fp32 for every head
-    in one launch; ``n_blk`` is the column tile (threads per block, a
-    multiple of 32 up to 1024)."""
+    in one launch; ``n_blk`` as in
+    :func:`~repro_torch.kernels.spmm_cuda.spmm_cuda`."""
     op = "spmm_batched_cuda"
     _checks.forward_inputs(op, vals=blocked.vals, b=b)
     h, batched = _checks.heads(op, vals=(blocked.vals, 2), b=(b, 2))
@@ -55,21 +56,25 @@ def spmm_batched_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
         raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
     if b.shape[-2] != k:
         raise ValueError(f"{op}: b must be ([H,] {k}, N), got {tuple(b.shape)}")
-    if not (n_blk % 32 == 0 and 32 <= n_blk <= 1024):
+    if not (n_blk % 32 == 0 and 32 <= n_blk <= MAX_THREADS):
         raise ValueError(f"{op}: n_blk={n_blk} must be a multiple of 32 in "
-                         "[32, 1024]")
+                         f"[32, {MAX_THREADS}]")
     n = b.shape[-1]
     n_tile = min(n_blk, max(32, -(-n // 32) * 32))
-    if (max(m, n) > _checks.int32_max or -(-n // n_tile) > 65535
-            or h > 65535):
+    # one head's B (K x N) and vals (NNZP x V) are indexed in 32 bits
+    if (max(m, n, k * n, blocked.vals.shape[-2] * v) > _checks.int32_max
+            or -(-n // n_tile) > 65535 or h > 65535):
         raise ValueError(f"{op}: shape too large for the kernel's grid")
     c = torch.empty((h, m, n), dtype=torch.float32, device=b.device)
     if m == 0 or n == 0:
         return c
+    plan = window_plan(op, blocked.win_ptr, SPLIT_BLK, n_tile)
     err = _build.library("spmm_batched").spmm_batched_f32(
         blocked.win_ptr.data_ptr(), blocked.cols.data_ptr(),
-        blocked.vals.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
-        blocked.num_windows, h, v, blocked.k_blk, n_tile,
+        blocked.vals.data_ptr(), b.data_ptr(), c.data_ptr(),
+        plan.split_ids.data_ptr(), m, n, plan.num_windows, h, v,
+        blocked.k_blk, n_tile, plan.groups, plan.cluster, plan.split_blk,
+        plan.num_long, plan.num_medium,
         _checks.head_stride(blocked.vals, 2), _checks.head_stride(b, 2),
         torch.cuda.current_stream(b.device).cuda_stream)
     _build.check_launch("spmm_batched", err)

@@ -3,10 +3,13 @@
 Each kernel against its plain PyTorch version on the card (the balanced
 ones over split schedules, with one and two heads, and the run-carried
 SpMM and attention over runs that cut a hub window, each against a second
-launch for the same bits), the head-grid kernels and the non-coalesced
-SpMM bitwise against the one-head launches they stand for, the launch
-counters, the refusals of the wrappers, and gradients of a train step and
-of multi-head attention against the plain ``blocked`` impl.  They skip
+launch for the same bits; the window-parallel SpMM with windows split over
+slice groups and thread-block clusters; the tensor-core attention at the
+edge widths), the head-grid kernels and the non-coalesced SpMM bitwise
+against the one-head launches they stand for (the non-coalesced SpMM on
+the windows the SpMM does not split), the launch counters, the refusals
+of the wrappers, and gradients of a train step and of multi-head
+attention against the plain ``blocked`` impl.  They skip
 on a host without a CUDA device; on one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
@@ -29,6 +32,7 @@ from repro_torch.kernels import (attention_balanced_cuda,
                                  spmm_noncoalesced_cuda, spmm_plain,
                                  spmm_staged_cuda, spmm_staged_plain)
 from repro_torch.kernels._combine import run_plan
+from repro_torch.kernels._window import SPLIT_BLK
 from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
 from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
 from repro_torch.models import gnn
@@ -287,8 +291,16 @@ def test_spmm_baselines_on_card(device, case):
     a = _matrix(rng, m, k, density, empty)
     blocked = block_format(from_dense(a, vector_size=v), k_blk, device=device)
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(device)
-    # the Fig. 15 baseline keeps spmm.cu's per-output order
-    assert torch.equal(spmm_noncoalesced_cuda(blocked, b), spmm_cuda(blocked, b))
+    # the Fig. 15 baseline keeps spmm.cu's per-output order on the windows
+    # spmm.cu walks unsplit; spmm.cu sums a longer window by slices
+    out, ref = spmm_noncoalesced_cuda(blocked, b), spmm_cuda(blocked, b)
+    unsplit = (torch.diff(blocked.win_ptr.long()) <= SPLIT_BLK
+               ).repeat_interleave(v)[:m]
+    assert torch.equal(out[unsplit], ref[unsplit])
+    plain = spmm_plain(blocked, b)
+    for got in (out, ref):
+        torch.testing.assert_close(got[~unsplit], plain[~unsplit], rtol=RTOL,
+                                   atol=ATOL)
     torch.testing.assert_close(spmm_staged_cuda(blocked, b),
                                spmm_staged_plain(blocked, b), rtol=RTOL,
                                atol=ATOL)
@@ -328,3 +340,89 @@ def test_multi_head_attention_gradients_on_card_match_blocked(device, impl):
         grads[name] = [t.grad for t in leaves]
     for got, want in zip(grads[impl], grads["blocked"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# (M, K, density, V, k_blk, N): windows longer than SPLIT_BLK K-blocks, cut
+# into slices over the groups of a block (medium: 75 K-blocks), of a
+# cluster of 4 (300 K-blocks at N = 128; 1,125 at N = 32, over 16 groups a
+# block) and of 16 blocks (1,125 K-blocks at N = 128), at V = 16 and
+# k_blk = 4, and at k_blk = 3 with a ragged column tile; short windows
+# beside them in every case
+WINDOW_CASES = [(24, 600, 0.6, 8, 8, 128), (24, 2400, 0.6, 8, 8, 128),
+                (16, 9000, 0.95, 8, 8, 128), (16, 9000, 0.95, 8, 8, 32),
+                (40, 3000, 0.3, 16, 4, 64), (40, 1200, 0.5, 8, 3, 20)]
+
+
+# A long window's row is a sum of up to 9,000 products; an fp32 sum of n
+# terms is off the exact one by up to about sqrt(n) 2^-24 sum|a b| (the
+# probabilistic bound of Higham and Mary, SIAM J. Sci. Comput. 41(5),
+# 2019), in the plain version as in the kernel, beyond RTOL/ATOL where the
+# terms cancel.  The rows of split windows are held to an fp64 product
+# within 3 times that bound (chip_smoke.py's check of hub windows), the
+# other rows to the plain version.
+HUB_LAMBDA = 3.0
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[3]}-kblk{c[4]}-N{c[5]}")
+def test_window_spmm_splits_long_windows_on_card(device, case):
+    """Rows of split windows against fp64, the others against the plain
+    version; the same bits on a second launch, and the head grid
+    bitwise-equal to one-head launches."""
+    m, k, density, v, k_blk, n = case
+    rng = np.random.default_rng(m + k + n)
+    a = _matrix(rng, m, k, 0.02)
+    a[8:16] = _matrix(rng, 8, k, density)      # one long window
+    blocked = block_format(from_dense(a, vector_size=v), k_blk, device=device)
+    per_win = torch.diff(blocked.win_ptr.long())
+    assert int(per_win.max()) > SPLIT_BLK
+    b = torch.from_numpy(rng.standard_normal((2, k, n)).astype(np.float32)).to(device)
+    out = spmm_cuda(blocked, b[0])
+    assert torch.equal(out, spmm_cuda(blocked, b[0]))
+    split = (per_win > SPLIT_BLK).repeat_interleave(v)[:m]
+    torch.testing.assert_close(out[~split], spmm_plain(blocked, b[0])[~split],
+                               rtol=RTOL, atol=ATOL)
+    a64, b64 = torch.from_numpy(a).to(device).double(), b[0].double()
+    terms = (per_win * k_blk).double().repeat_interleave(v)[:m, None]
+    limit = ATOL + HUB_LAMBDA * terms.sqrt() * 2.0 ** -24 * (a64.abs() @ b64.abs())
+    assert bool(((out.double() - a64 @ b64).abs() <= limit)[split].all())
+    heads = spmm_batched_cuda(blocked, b)
+    assert torch.equal(heads, torch.stack([spmm_cuda(blocked, b[i])
+                                           for i in range(2)]))
+
+
+# (M, K, density, V, k_blk, D, DV): the tensor-core attention's edge widths
+# (D and DV not multiples of 8 or of 4, zero-padded in shared memory; V = 16
+# as two n8 tiles; DV up to 128) and a window longer than one chunk
+ATTN_WIDTHS = [(45, 60, 0.3, 8, 8, 7, 5), (64, 64, 0.3, 8, 4, 9, 65),
+               (40, 90, 0.4, 8, 3, 33, 16), (50, 61, 0.25, 16, 4, 9, 16),
+               (77, 77, 0.2, 16, 8, 64, 128), (16, 400, 0.5, 8, 8, 64, 64)]
+
+
+@pytest.mark.parametrize("case", ATTN_WIDTHS, ids=lambda c: f"D{c[5]}-DV{c[6]}-V{c[3]}")
+def test_tensor_core_attention_at_edge_widths_on_card(device, case):
+    m, k, density, v, k_blk, d, dv = case
+    rng = np.random.default_rng(m + d + dv)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density),
+                                      vector_size=v), k_blk, device=device)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    q, kk, vv = t(3, m, d), t(k, d), t(3, k, dv)
+    scale = torch.tensor(0.6, device=device)
+    out = attention_cuda(blocked, q, kk, vv, scale=scale)
+    assert torch.equal(out, attention_cuda(blocked, q, kk, vv, scale=scale))
+    assert torch.equal(out, torch.stack([attention_cuda(
+        blocked, q[i], kk, vv[i], scale=scale) for i in range(3)]))
+    torch.testing.assert_close(out, attention_plain(blocked, q, kk, vv, scale),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_attention_refuses_value_widths_above_128(device):
+    blocked = block_format(from_dense(np.eye(16, dtype=np.float32)), 8,
+                           device=device)
+    x = torch.ones(16, 8, device=device)
+    with pytest.raises(RuntimeError, match="attention kernel launch failed"):
+        attention_cuda(blocked, x, x, torch.ones(16, 129, device=device))
+    attention_cuda(blocked, x, x, x)  # no error left behind
+    torch.cuda.synchronize()
