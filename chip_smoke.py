@@ -10,7 +10,11 @@ a non-zero exit at the first phase that fails:
   2. build: ``nvcc`` compiles ``src/repro_torch/kernels/csrc/*.cu`` for
      sm_90a, one process per source, all started together; ``-Xptxas
      -v``'s register, shared-memory and spill lines;
-  3. each kernel against its plain PyTorch version on the card: (a) on
+  3. each kernel against its plain PyTorch version on the card (the bf16
+     and int8 variants of the window SpMM and the bf16 ones of the SDDMM
+     and the fused attention within one bf16 ulp, at least 99% of the
+     entries bitwise equal, on the edge cases and on the Amazon replica's
+     A and Aᵀ at N = 128 and 32, hub rows of Aᵀ against fp64): (a) on
      edge cases, the balanced kernels over schedules split at
      split_blk in {0, 1, 3} with one and two heads, shared and per-head
      operands, and the all-empty matrix (no balanced SDDMM launch), the
@@ -55,6 +59,14 @@ a non-zero exit at the first phase that fails:
      ``sparse_attention_staged`` on the ``cuda`` plan against ``blocked``,
      and three value-projection SGD steps on each, with the launch
      counters against the derived counts;
+     4e. the precision axis: three train steps of GCN and AGNN on ``cuda``
+     in bf16 end to end and of GCN under an int8 plan on fp32 masters,
+     the first loss against the ``blocked`` route's step at the same
+     precision and against the fp32 ``cuda`` step, a finite falling loss,
+     and the launch counters of each variant against the derived counts;
+     4f. the fused attention over value bands (DV 129 and 256, one launch
+     a band) and past its shared memory (D = 720 fp32, through the SDDMM
+     and SpMM kernels) on the Amazon replica, against its plain version;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
      never calls), the window-parallel SpMM also on the transposes (the
@@ -96,6 +108,18 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # probabilistic bound of a recursive fp32 sum (Higham and Mary, SIAM J.
 # Sci. Comput. 41(5), 2019).
 HUB_OF_MEDIAN, HUB_LAMBDA = 4, 3.0
+# bf16 outputs: kernel and plain version sum in fp32 and round once, so
+# every entry is within one bf16 ulp (plus 1e-6 of the largest entry) and
+# at least 99% of the entries are bitwise equal.
+ULP_RTOL, ULP_ATOL_OF_MAX, BITWISE_SHARE = 2.0 ** -7, 1e-6, 0.99
+# The first train step's loss at bf16 or under an int8 plan: against the
+# blocked route at the same precision, and against the fp32 cuda step.
+NARROW_LOSS_RTOL, NARROW_VS_FP32_RTOL = 1e-2, 2e-2
+# Its gradients against the blocked route's at the same precision: the two
+# routes round the same fp32 sums, taken in another order, to bf16 at each
+# of five layers, so an entry may move by a few bf16 ulps of the model's
+# largest gradient entry (an SpMM that returned zeros moves them by all).
+NARROW_GRAD_ULPS = 4
 # End to end: fp32 sums re-ordered over five layers.
 E2E_RTOL, E2E_ATOL = 1e-4, 1e-4
 # Training, first step against impl="blocked": each gradient is an fp32
@@ -159,7 +183,23 @@ KERNELS = {  # name: (route, impl that launches it, source, TPU kernel)
     "sddmm_batched": ("cuda", "cuda_batched",
                       "src/repro_torch/kernels/csrc/sddmm_batched.cu",
                       "src/repro/kernels/sddmm_pallas.py:171"),
+    # the precision variants of rows 1, 6 and 9 (the reference's bf16
+    # paths, and its int8 `quantized` SpMM, spmm_pallas.py:150)
+    "spmm_bf16": ("cuda", "cuda", "src/repro_torch/kernels/csrc/spmm.cu",
+                  "src/repro/kernels/spmm_pallas.py:110"),
+    "spmm_int8": ("cuda", "cuda", "src/repro_torch/kernels/csrc/spmm.cu",
+                  "src/repro/kernels/spmm_pallas.py:110"),
+    "sddmm_bf16": ("cuda", "cuda", "src/repro_torch/kernels/csrc/sddmm.cu",
+                   "src/repro/kernels/sddmm_pallas.py:49"),
+    "attention_bf16": ("cuda", "cuda",
+                       "src/repro_torch/kernels/csrc/attention.cu",
+                       "src/repro/kernels/attention_pallas.py:58"),
 }
+# The launch counter of each entry: the wrapper, and for the three
+# wrappers with precision variants the variant's count.
+VARIANT_OF = {"spmm": "fp32", "sddmm": "fp32", "attention": "fp32",
+              "spmm_bf16": "bf16", "spmm_int8": "int8", "sddmm_bf16": "bf16",
+              "attention_bf16": "bf16"}
 
 
 def phase(name: str) -> None:
@@ -522,6 +562,138 @@ def check_hub_windows(label: str, blocked, vals, b, out, ref) -> float:
     return err
 
 
+def one_ulp(label: str, out, ref, show: bool = True) -> float:
+    """Fail unless the bf16 ``out`` is within one bf16 ulp of ``ref`` (plus
+    1e-6 of its largest entry) on every entry and bitwise-equal on at
+    least 99% of them; returns the max abs error."""
+    import torch
+
+    if out.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        raise SystemExit(f"FAIL {label}: dtypes {out.dtype}, {ref.dtype} "
+                         "(bf16 expected)")
+    scale = ref.float().abs().max().item() if ref.numel() else 0.0
+    err = compare(label, out.float(), ref.float(), ULP_RTOL,
+                  ULP_ATOL_OF_MAX * max(scale, 1e-30), show=False)
+    share = (out == ref).float().mean().item() if out.numel() else 1.0
+    ok = share >= BITWISE_SHARE
+    if show or not ok:
+        print(f"  {'ok  ' if ok else 'FAIL'} {label}: max abs err "
+              f"{err:.3e} (output scale {scale:.3e}), {share:.5f} of the "
+              f"entries bitwise equal (one bf16 ulp, >= {BITWISE_SHARE})",
+              flush=True)
+    if not ok:
+        raise SystemExit(f"FAIL {label}")
+    return err
+
+
+def check_narrow_hub_windows(label: str, blocked, b, out, ref) -> float:
+    """The bf16 or int8 window SpMM on a transpose: ``out`` (bf16) within
+    one ulp of ``ref`` (its plain version) on the rows of ordinary
+    windows, and on the rows of hub windows within the running-sum bound
+    of the fp64 product of the (dequantized) values, plus the final
+    rounding to bf16 (half an ulp, 2^-8 of the value).  Returns the max
+    abs error of the ordinary rows."""
+    import torch
+
+    from repro_torch.core.spmm import dequantized
+
+    kb, v = blocked.k_blk, blocked.vector_size
+    nb, m = blocked.num_blocks, blocked.shape[0]
+    per_win = torch.diff(blocked.win_ptr.long())
+    hub_win = per_win > HUB_OF_MEDIAN * per_win.median()
+    hub_row = hub_win.repeat_interleave(v)[:m]
+    err = one_ulp(f"{label}, {int((~hub_win).sum())} ordinary windows "
+                  "against the plain version", out[~hub_row], ref[~hub_row])
+    win = blocked.block_win.long()
+    sel = torch.nonzero(hub_win[win]).squeeze(1)
+    cols = blocked.cols.long().reshape(nb, kb)[sel]
+    vals4 = dequantized(blocked).vals.reshape(nb, kb, v)[sel].double()
+    gb = b[cols].double()
+    exact = torch.zeros((blocked.num_windows, v, b.shape[-1]),
+                        dtype=torch.float64, device=b.device)
+    absum = torch.zeros_like(exact)
+    exact.index_add_(0, win[sel], torch.einsum("bkv,bkn->bvn", vals4, gb))
+    absum.index_add_(0, win[sel], torch.einsum("bkv,bkn->bvn", vals4.abs(),
+                                               gb.abs()))
+    n = (per_win * kb).double().sqrt()[:, None, None]
+    limit = KERNEL_ATOL + HUB_LAMBDA * n * 2.0 ** -24 * absum
+    exact, limit = (t.reshape(-1, b.shape[-1])[:m][hub_row]
+                    for t in (exact, limit))
+    limit = limit + 2.0 ** -8 * (exact.abs() + limit)
+    diff = (out[hub_row].double() - exact).abs()
+    ratio = (diff / limit).max().item() if diff.numel() else 0.0
+    if not bool(torch.isfinite(out).all()) or ratio > 1.0:
+        raise SystemExit(f"FAIL {label}: hub rows off the fp64 product by "
+                         f"{diff.max().item():.3e}, {ratio:.3f} x the bound")
+    print(f"  ok   {label}, {int(hub_win.sum())} hub windows against fp64: "
+          f"max abs err {diff.max().item():.3e}, at most {ratio:.3f} x the "
+          f"running-sum bound plus half a bf16 ulp; the plain version is "
+          f"off fp64 by {(ref[hub_row].double() - exact).abs().max().item():.3e}",
+          flush=True)
+    return err
+
+
+def check_narrow_edge(rng) -> None:
+    """Phase 3a for the precision variants: the bf16 and int8 window SpMM
+    (bf16 B; int8 also with fp32 B, an fp32 result), the bf16 SDDMM and
+    the bf16 fused attention against their plain versions, each also
+    against a second launch."""
+    import torch
+
+    from repro_torch.core.format import block_format, from_dense
+    from repro_torch.core.quantize import quantize_format
+    from repro_torch.core.sddmm import with_values
+    from repro_torch.kernels import (attention_cuda, attention_plain,
+                                     sddmm_cuda, sddmm_plain, spmm_cuda,
+                                     spmm_plain)
+    from repro_torch.kernels._window import SPLIT_BLK
+
+    bf16 = torch.bfloat16
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(DEVICE)
+
+    beta = torch.tensor(0.8, device=DEVICE)
+    for label, a, v, k_blk, n, f, dv in kernel_cases(rng):
+        blocked = block_format(from_dense(a, vector_size=v), k_blk,
+                               device=DEVICE)
+        m, k = a.shape
+        b, q, kk, vv = t(k, n), t(m, f), t(k, f), t(k, dv)
+        b16, q16, kk16, vv16 = (x.to(bf16) for x in (b, q, kk, vv))
+        errs = []
+        for var, bv in (("bf16", with_values(blocked, blocked.vals.to(bf16))),
+                        ("int8", quantize_format(blocked))):
+            out = spmm_cuda(bv, b16)
+            bitwise(f"spmm {var} [{label}], second launch", out,
+                    spmm_cuda(bv, b16))
+            errs.append(one_ulp(f"spmm {var} [{label}]", out,
+                                spmm_plain(bv, b16), show=False))
+        # int8 values with fp32 B: an fp32 result, held like the fp32 SpMM
+        # on the windows it does not split
+        per_win = torch.diff(blocked.win_ptr.long())
+        rows = (per_win <= SPLIT_BLK).repeat_interleave(v)[:m]
+        q8 = quantize_format(blocked)
+        errs.append(compare(f"spmm int8, fp32 B [{label}]",
+                            spmm_cuda(q8, b)[rows], spmm_plain(q8, b)[rows],
+                            KERNEL_RTOL, KERNEL_ATOL, show=False))
+        errs.append(one_ulp(f"sddmm bf16 [{label}, F={f}]",
+                            sddmm_cuda(blocked, q16, kk16),
+                            sddmm_plain(blocked, q16, kk16), show=False))
+        out = attention_cuda(blocked, q16, kk16, vv16, scale=beta)
+        bitwise(f"attention bf16 [{label}], second launch", out,
+                attention_cuda(blocked, q16, kk16, vv16, scale=beta))
+        errs.append(one_ulp(f"attention bf16 [{label}, D={f}, DV={dv}]", out,
+                            attention_plain(blocked, q16, kk16, vv16, beta),
+                            show=False))
+        print(f"  ok   bf16/int8 variants [{label}]: spmm bf16 and int8, "
+              "sddmm and attention bf16 within one bf16 ulp of their plain "
+              "versions with >= 99% of the entries bitwise equal, int8 with "
+              "fp32 B at the fp32 tolerance; the same bits on a second "
+              f"launch; max abs err {max(errs):.3e}", flush=True)
+    torch.cuda.synchronize()
+
+
 def bitwise(label: str, out, ref) -> None:
     """Fail unless ``out`` and ``ref`` are the same bits."""
     import torch
@@ -669,6 +841,7 @@ def main() -> None:
     from repro_torch.core.autodiff import (ad_plan, attention_ad, sddmm_ad,
                                            spmm_ad)
     from repro_torch.core.format import from_coo
+    from repro_torch.core.quantize import quantize_format
     from repro_torch.kernels import (_build, attention_balanced_cuda,
                                      attention_balanced_plain, attention_cuda,
                                      attention_plain, sddmm_balanced_cuda,
@@ -683,6 +856,7 @@ def main() -> None:
     from repro_torch.core.sddmm import attention, with_values
     from repro_torch.kernels._combine import run_plan
     from repro_torch.kernels._window import SPLIT_BLK, window_plan
+    from repro_torch.kernels.attention_cuda import rings_fit, value_bands
     from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
     from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
     from repro_torch.core.softmax import sparse_softmax
@@ -705,14 +879,21 @@ def main() -> None:
                 "spmm_noncoalesced": spmm_noncoalesced_cuda,
                 "spmm_batched": spmm_batched_cuda,
                 "spmm_staged": spmm_staged_cuda,
-                "sddmm_batched": sddmm_batched_cuda}
+                "sddmm_batched": sddmm_batched_cuda,
+                "spmm_bf16": spmm_cuda, "spmm_int8": spmm_cuda,
+                "sddmm_bf16": sddmm_cuda, "attention_bf16": attention_cuda}
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+            for var in getattr(fn, "variant_launches", {}):
+                fn.variant_launches[var] = 0
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        # a wrapper with precision variants counts each entry's variant
+        return {name: (fn.variant_launches[VARIANT_OF[name]]
+                       if name in VARIANT_OF else fn.launches)
+                for name, fn in wrappers.items()}
 
     def expect(**nonzero):
         return {name: nonzero.get(name, 0) for name in wrappers}
@@ -741,6 +922,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
     check_kernels_edge(rng)
     check_head_grids_edge(rng)
+    check_narrow_edge(np.random.default_rng(2))
 
     phase("3b. kernels against their plain versions: main-path shapes")
     t0 = time.time()
@@ -810,6 +992,51 @@ def main() -> None:
             f"spmm [Amazon A^T, N={n_cols}]", plan.bwd, plan.bwd.vals[None],
             bb[None], out[None], spmm_plain(plan.bwd, bb)[None])
     del out, a_out
+    # The precision variants on A and A^T: bf16 values and B, and int8
+    # values (per-K-block scales) with bf16 B, at N = 128 and 32; bf16
+    # SDDMM and fused attention at F = D = DV = 32.  Each within one bf16
+    # ulp of its plain version (hub rows of A^T against fp64), the same
+    # bits on a second launch, and the same bits as the fp32 kernel on the
+    # operands widened to fp32, rounded to bf16 (both take every column's
+    # products in one order: this holds the two-columns-a-thread mapping
+    # of bf16 B to the fp32 kernel's one column a thread).
+    bf16 = torch.bfloat16
+    b16, b32_16 = b.to(bf16), b32.to(bf16)
+    h32_16, v32_16 = h32.to(bf16), v32.to(bf16)
+    narrow = {"A": {"bf16": with_values(blk, blk.vals.to(bf16)),
+                    "int8": quantize_format(blk)},
+              "A^T": {"bf16": with_values(plan.bwd, plan.bwd.vals.to(bf16)),
+                      "int8": quantize_format(plan.bwd)}}
+    for dirn, views in narrow.items():
+        for var, bv in views.items():
+            for n_cols, bb in ((128, b16), (32, b32_16)):
+                tag = f"spmm {var} [Amazon {dirn}, N={n_cols}]"
+                out = spmm_cuda(bv, bb)
+                bitwise(f"{tag}, second launch", out, spmm_cuda(bv, bb))
+                wide = (bv if var == "int8"
+                        else with_values(bv, bv.vals.float()))
+                bitwise(f"{tag} vs the fp32 kernel, rounded", out,
+                        spmm_cuda(wide, bb.float()).to(bf16))
+                ref = spmm_plain(bv, bb)
+                if dirn == "A":
+                    e_ = one_ulp(tag, out, ref)
+                else:
+                    e_ = check_narrow_hub_windows(tag, bv, bb, out, ref)
+                err[f"spmm_{var}_{dirn.replace('^T', 't')}{n_cols}"] = e_
+    err["spmm_bf16"], err["spmm_int8"] = (err["spmm_bf16_A128"],
+                                          err["spmm_int8_A128"])
+    out = sddmm_cuda(blk, h32_16, h32_16)
+    bitwise("sddmm bf16 [Amazon, F=32], second launch", out,
+            sddmm_cuda(blk, h32_16, h32_16))
+    err["sddmm_bf16"] = one_ulp("sddmm bf16 [Amazon, F=32]", out,
+                                sddmm_plain(blk, h32_16, h32_16))
+    out = attention_cuda(blk, h32_16, h32_16, v32_16, scale=beta)
+    bitwise("attention bf16 [Amazon, D=DV=32, scale=beta], second launch",
+            out, attention_cuda(blk, h32_16, h32_16, v32_16, scale=beta))
+    err["attention_bf16"] = one_ulp(
+        "attention bf16 [Amazon, D=DV=32, scale=beta]", out,
+        attention_plain(blk, h32_16, h32_16, v32_16, beta))
+    del out, ref
     # The balanced kernels on A and A^T.  The run-carried SpMM and
     # attention at split_blk 0 / 1 / 3, with one head (the main path's
     # operands) and two (per-head vals, B, Q and V, shared K), each also
@@ -1240,6 +1467,120 @@ def main() -> None:
                              "launches_per_step": step}
     del dq, dq_ref
 
+    phase(f"4e. precision: {TRAIN_STEPS} steps of GCN and AGNN in bf16 and "
+          "of GCN under an int8 plan, on cuda")
+    t0 = time.time()
+    fmt16 = from_coo(g.rows, g.cols, g.vals, (m, m), vector_size=8,
+                     dtype=bf16)
+    plan16 = ad_plan(fmt16, impl="cuda", k_blk=8, device=DEVICE)
+    plan8 = ad_plan(fmt, impl="cuda", k_blk=8, device=DEVICE,
+                    precision="int8")
+    print(f"  bf16 format + plan {time.time() - t0:.1f} s on the host; the "
+          "int8 plan shares the fp32 plan's arrays and quantizes A's values "
+          "per K-block at each forward SpMM")
+    x16 = x.to(bf16)
+    modes = {  # name: (model, parameter dtype, adjacency, features)
+        "gcn_bf16": ("gcn", bf16, plan16, x16),
+        "agnn_bf16": ("agnn", bf16, plan16, x16),
+        "gcn_int8": ("gcn", torch.float32, plan8, x),
+    }
+
+    def narrow_expect(name):
+        # The fp32 step's counts (4b) on the variants each mode runs: in
+        # bf16 every launch is a bf16 one; under an int8 plan the forward
+        # SpMMs are int8 and the transpose SpMMs (dB) bf16.
+        if name == "gcn_bf16":
+            return expect(spmm_bf16=2 * n_layers - 1)
+        if name == "agnn_bf16":
+            return expect(attention_bf16=n_layers, sddmm_bf16=2 * n_layers,
+                          spmm_bf16=3 * n_layers)
+        return expect(spmm_int8=n_layers, spmm_bf16=n_layers - 1)
+
+    def make_narrow(model, dtype, impl):
+        cfg = dataclasses.replace(cfgs[model], impl=impl, dtype=dtype)
+        net = (GCN if model == "gcn" else AGNN)(cfg, device=DEVICE,
+                                                seed=0 if model == "gcn" else 1)
+        return net, make_gnn_train_step(cfg, net, lr=TRAIN_LR)
+
+    narrow_nets = {}
+    for name, (model, dtype, adj, xx) in modes.items():
+        ref_net, ref_step = make_narrow(model, dtype, "blocked")
+        ref_loss = ref_step(adj, xx, labels, train_mask)[0].item()
+        ref_grads = [p_.grad.float() for p_ in ref_net.parameters()]
+        del ref_net, ref_step
+        grad_tol = NARROW_GRAD_ULPS * 2.0 ** -7 * max(
+            gr.abs().max().item() for gr in ref_grads)
+        net, step = make_narrow(model, dtype, "cuda")
+        narrow_nets[name] = (net, step, adj, xx)
+        losses = []
+        for i in range(TRAIN_STEPS):
+            reset_counts()
+            loss, _ = step(adj, xx, labels, train_mask)
+            torch.cuda.synchronize()
+            got, want = counts(), narrow_expect(name)
+            if got != want:
+                raise SystemExit(f"FAIL train {name}/cuda step {i}: launch "
+                                 f"counts {got} != {want}")
+            for k_name in launches:
+                launches[k_name] += got[k_name]
+            losses.append(loss.item())
+            if i == 0:
+                for j, (p_, want_g) in enumerate(zip(net.parameters(),
+                                                     ref_grads)):
+                    compare(f"train {name}/cuda: step-1 grad of parameter "
+                            f"{j} {tuple(p_.shape)} vs blocked at the same "
+                            "precision", p_.grad.float(), want_g, 0.0,
+                            grad_tol)
+        del ref_grads
+        fp32_loss = train[f"{model}_cuda"]["losses"][0]
+        compare(f"train {name}/cuda: step-1 loss vs blocked at the same "
+                "precision", torch.tensor(losses[0]), torch.tensor(ref_loss),
+                NARROW_LOSS_RTOL, 0.0)
+        compare(f"train {name}/cuda: step-1 loss vs the fp32 cuda step",
+                torch.tensor(losses[0]), torch.tensor(fp32_loss),
+                NARROW_VS_FP32_RTOL, 0.0)
+        print(f"  {name}/cuda: losses {losses} (blocked {ref_loss}, fp32 "
+              f"cuda {fp32_loss}); launches per step {got}")
+        if not (all(map(math.isfinite, losses))
+                and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
+            raise SystemExit(f"FAIL train {name}/cuda: losses {losses} are "
+                             "not finite and decreasing")
+        if not all(p_.dtype == dtype for p_ in net.parameters()):
+            raise SystemExit(f"FAIL train {name}/cuda: parameters left "
+                             f"{dtype}")
+        train[f"{name}_cuda"] = {"losses": losses, "launches_per_step": got,
+                                 "blocked_step1_loss": ref_loss,
+                                 "fp32_step1_loss": fp32_loss}
+
+    phase("4f. fused attention over value bands and past its shared memory "
+          "(Amazon A)")
+    wide = {}
+    for d_, dv_, dtype in ((32, 129, torch.float32), (32, 256, torch.float32),
+                           (32, 256, bf16), (720, 32, torch.float32)):
+        qq = unit_rows(rng, m, d_).to(device=DEVICE, dtype=dtype)
+        vv = torch.from_numpy(rng.standard_normal((m, dv_)).astype(
+            np.float32)).to(device=DEVICE, dtype=dtype)
+        tag = f"attention [Amazon, D={d_}, DV={dv_}, {dtype}]"
+        fits = rings_fit(8, d_, dtype)
+        reset_counts()
+        out = attention_cuda(blk, qq, qq, vv, scale=beta)
+        torch.cuda.synchronize()
+        got = counts()
+        var = "" if dtype == torch.float32 else "_bf16"
+        want = (expect(**{"attention" + var: len(value_bands(dv_))}) if fits
+                else expect(**{"sddmm" + var: 1, "spmm" + var: 1}))
+        if got != want:
+            raise SystemExit(f"FAIL {tag}: launch counts {got} != {want}")
+        ref = attention_plain(blk, qq, qq, vv, beta)
+        e_ = (one_ulp(tag, out, ref) if dtype == bf16 else
+              compare(tag, out, ref, KERNEL_RTOL, KERNEL_ATOL))
+        route = (f"{len(value_bands(dv_))} band launch(es)" if fits
+                 else "the SDDMM and SpMM kernels (rings past shared memory)")
+        print(f"  {tag}: {route}")
+        wide[f"d{d_}_dv{dv_}_{dtype}"] = {"max_abs_err": e_, "route": route}
+    del qq, vv, out, ref
+    torch.cuda.synchronize()
+
     phase("5. timing (CUDA events around back-to-back calls, median of runs)")
     csr = torch.sparse_coo_tensor(
         torch.from_numpy(np.stack([g.rows, g.cols])),
@@ -1340,12 +1681,51 @@ def main() -> None:
                     aq[None], ak[None], av[None], attn_mask=amask,
                     scale=att["scale"])),
         }
-        ms = {}
+        # The precision variants (rows 1, 6, 9) at the same shapes; their
+        # yardsticks take the bf16 CSR (the int8 SpMM and the attention have
+        # none).
+        blk16, q8 = narrow["A"]["bf16"], narrow["A"]["int8"]
+        at16 = narrow["A^T"]["bf16"]
+        csr16, csr_t16, pattern16 = (
+            torch.sparse_csr_tensor(c_.crow_indices(), c_.col_indices(),
+                                    c_.values().to(bf16), (m, m))
+            for c_ in (csr, csr_t, pattern))
+        timed.update({
+            "spmm_bf16": (lambda: spmm_cuda(blk16, b16),
+                          lambda: spmm_plain(blk16, b16),
+                          lambda: torch.sparse.mm(csr16, b16)),
+            "spmm_int8": (lambda: spmm_cuda(q8, b16),
+                          lambda: spmm_plain(q8, b16), None),
+            "spmm_bf16_At128": (lambda: spmm_cuda(at16, b16),
+                                lambda: spmm_plain(at16, b16),
+                                lambda: torch.sparse.mm(csr_t16, b16)),
+            "spmm_bf16_At32": (lambda: spmm_cuda(at16, b32_16),
+                               lambda: spmm_plain(at16, b32_16),
+                               lambda: torch.sparse.mm(csr_t16, b32_16)),
+            "sddmm_bf16": (lambda: sddmm_cuda(blk, h32_16, h32_16),
+                           lambda: sddmm_plain(blk, h32_16, h32_16),
+                           lambda: torch.sparse.sampled_addmm(
+                               pattern16, h32_16, h32_16.T, beta=0.0)),
+            "attention_bf16": (
+                lambda: attention_cuda(blk, h32_16, h32_16, v32_16,
+                                       scale=beta),
+                lambda: attention_plain(blk, h32_16, h32_16, v32_16, beta),
+                None),
+        })
+        ms, lib_errors = {}, {}
         for name, (kern, plain_fn, lib_fn) in timed.items():
+            lib_ms = None
+            if lib_fn is not None:
+                try:
+                    lib_ms = cuda_ms(lib_fn)
+                except (RuntimeError, NotImplementedError) as exc:
+                    lib_errors[name] = str(exc).strip().splitlines()[0][:240]
             ms[name] = (cuda_ms(kern), cuda_ms(plain_fn, reps=3, batch=3),
-                        None if lib_fn is None else cuda_ms(lib_fn))
+                        lib_ms)
             print(f"  {name}: kernel {ms[name][0]:.4f} ms, plain "
-                  f"{ms[name][1]:.4f} ms, library {ms[name][2]} ms")
+                  f"{ms[name][1]:.4f} ms, library {ms[name][2]} ms"
+                  + (f" (refused: {lib_errors[name]})"
+                     if name in lib_errors else ""))
         # The transpose SpMM (dB, dK) on Aᵀ, whose hub columns of A are
         # hub windows, window-parallel (timed above) against block-parallel,
         # and its bound.
@@ -1458,6 +1838,20 @@ def main() -> None:
         train[f"{model}_{impl}"].update(step_ms=t_step, peak_bytes=peak)
         print(f"  train step {model}/{impl}: {t_step:.3f} ms, peak memory "
               f"{peak / 2**30:.3f} GiB")
+    # the precision modes on cuda: a train step and a forward each
+    for name, (net, step, adj, xx) in narrow_nets.items():
+        torch.cuda.reset_peak_memory_stats()
+        t_step = cuda_ms(lambda: step(adj, xx, labels, train_mask), reps=3,
+                         batch=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        train[f"{name}_cuda"].update(step_ms=t_step, peak_bytes=peak)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t_fwd = cuda_ms(lambda: net(adj, xx), batch=2, warmup=1)
+        e2e[f"{name}_forward"] = {"ms": t_fwd,
+                                  "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"  {name}/cuda: train step {t_step:.3f} ms (peak memory "
+              f"{peak / 2**30:.3f} GiB), forward {t_fwd:.3f} ms")
 
     # Multi-head attention: a forward of each route, and one
     # value-projection SGD step (loss, dloss/dW, update) of each.
@@ -1501,6 +1895,13 @@ def main() -> None:
         print(f"  train step {model}/{impl}:")
         train[f"{model}_{impl}"].update(profile_run(
             lambda: step(adjs[impl], x, labels, train_mask)))
+    for name, (net, step, adj, xx) in narrow_nets.items():
+        print(f"  train step {name}/cuda:")
+        train[f"{name}_cuda"].update(profile_run(
+            lambda: step(adj, xx, labels, train_mask)))
+        print(f"  forward {name}/cuda:")
+        with torch.inference_mode():
+            e2e[f"{name}_forward"].update(profile_run(lambda: net(adj, xx)))
     for name, (run, _) in attn_fwd.items():
         print(f"  attention forward {name}:")
         with torch.inference_mode():
@@ -1568,6 +1969,24 @@ def main() -> None:
                                       aplan.bwd.win_ptr, ag,
                                       split_ids(aplan.bwd, ATTN_DIM))
                             + ag.numel() * 4),
+        # the precision variants: 2-byte values, B, Q, K, V and outputs;
+        # int8 values at one byte with one fp32 scale per K-block
+        "spmm_bf16": (read_once(blk16.vals, blk.cols, blk.win_ptr, b16)
+                      + m * 128 * 2),
+        "spmm_int8": (read_once(q8.vals, q8.scales, blk.cols, blk.win_ptr,
+                                b16) + m * 128 * 2),
+        "spmm_bf16_At128": (read_once(at16.vals, plan.bwd.cols,
+                                      plan.bwd.win_ptr, b16,
+                                      split_ids(plan.bwd, 128))
+                            + m * 128 * 2),
+        "spmm_bf16_At32": (read_once(at16.vals, plan.bwd.cols,
+                                     plan.bwd.win_ptr, b32_16,
+                                     split_ids(plan.bwd, 32))
+                           + m * 32 * 2),
+        "sddmm_bf16": (read_once(h32_16, h32_16, blk.mask, blk.cols,
+                                 blk.block_win) + nnzp * v * 2),
+        "attention_bf16": (read_once(h32_16, h32_16, v32_16, beta, blk.mask,
+                                     blk.cols, blk.win_ptr) + m * 32 * 2),
     }
     # Operations on the true nonzeros only: the padded and masked-off
     # slots of a block are the format's, not the function's.
@@ -1582,8 +2001,18 @@ def main() -> None:
              "spmm_batched_At": 2 * annz * hd}
     for name in ("spmm", "sddmm", "attention"):
         flops[f"{name}_balanced"] = flops[name]
-    for name in ("spmm_noncoalesced", "spmm_staged"):
+    for name in ("spmm_noncoalesced", "spmm_staged", "spmm_bf16",
+                 "spmm_int8"):
         flops[name] = flops["spmm"]
+    flops.update(spmm_bf16_At128=flops["spmm_At128"],
+                 spmm_bf16_At32=flops["spmm_At32"], sddmm_bf16=flops["sddmm"],
+                 attention_bf16=flops["attention"])
+    # Tensor-core operations of the fused attention at the TF32 rate: three
+    # TF32 products per multiply for fp32 operands (3xTF32); for bf16 ones
+    # one for the scores (exact) and two for P·V (P split, V exact).
+    tc_flops = {"attention": TF32_PRODUCTS * flops["attention"],
+                "attention_h12": TF32_PRODUCTS * flops["attention_h12"],
+                "attention_bf16": 2 * nnz * 32 * 1 + 2 * nnz * 32 * 2}
     shapes = {
         "spmm": {"M": m, "K": m, "N": 128, "NNZP": nnzp, "nnz": nnz, "V": v,
                  "k_blk": 8},
@@ -1616,6 +2045,15 @@ def main() -> None:
     shapes["spmm_batched_At"] = dict(
         shapes["spmm_batched"], NNZP=int(aplan.bwd.vals.shape[0]),
         operand="A^T (dV = P^T G)", window_plan=windows["attention_At_n64"])
+    shapes.update(
+        spmm_bf16=dict(shapes["spmm"], dtypes="bf16 vals, B and C"),
+        spmm_int8=dict(shapes["spmm"], dtypes="int8 vals with fp32 per-K-block "
+                       "scales, bf16 B and C"),
+        sddmm_bf16=dict(shapes["sddmm"], dtypes="bf16 Q, K and S"),
+        attention_bf16=dict(shapes["attention"], dtypes="bf16 Q, K, V, out"))
+    for n_cols in (128, 32):
+        shapes[f"spmm_bf16_At{n_cols}"] = dict(
+            shapes[f"spmm_At{n_cols}"], dtypes="bf16 vals, B and C")
 
     def measured(name):
         kernel_ms, plain_ms, library_ms = ms[name]
@@ -1623,19 +2061,22 @@ def main() -> None:
                "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bytes": nbytes[name],
                "flops": flops[name]}
-        if name.startswith("attention") and "balanced" not in name:
-            # the fused attention's products run on the tensor cores, three
-            # TF32 products per multiply (3xTF32); beside that bound, the
-            # one at the fp32 rate of the CUDA cores
-            b_ms, b_by = bound(nbytes[name], TF32_PRODUCTS * flops[name],
+        if name in tc_flops:
+            # the fused attention's products run on the tensor cores (see
+            # tc_flops); beside that bound, the one at the fp32 rate of the
+            # CUDA cores
+            b_ms, b_by = bound(nbytes[name], tc_flops[name],
                                TF32_FLOPS_PER_S)
-            row.update(bound_peak="TF32 tensor cores, 495 TFLOP/s, 3 "
-                       "products per multiply",
+            row.update(bound_peak="TF32 tensor cores, 495 TFLOP/s, "
+                       f"{tc_flops[name] / flops[name]:.1f} products per "
+                       "multiply",
                        bound_fp32_ms=bound(nbytes[name], flops[name])[0],
                        bound_fp32_by=bound(nbytes[name], flops[name])[1])
         else:
             b_ms, b_by = bound(nbytes[name], flops[name])
         row.update(bound_ms=b_ms, bound_by=b_by)
+        if name in lib_errors:
+            row["library_error"] = lib_errors[name]
         return row
 
     rows = []
@@ -1656,6 +2097,10 @@ def main() -> None:
         if name == "spmm_batched":
             # the attention backward's dV on the pattern's transpose
             row["At"] = measured("spmm_batched_At")
+        if name == "spmm_bf16":
+            # the transpose SpMM (dB) of the bf16 and int8-plan train steps
+            row["At"] = {"n128": measured("spmm_bf16_At128"),
+                         "n32": measured("spmm_bf16_At32")}
         rows.append(row)
     for name, n_launch in launches.items():
         if n_launch == 0:
@@ -1663,6 +2108,7 @@ def main() -> None:
 
     print(json.dumps({"end_to_end": e2e, "training": train,
                       "sparse_attention": attn_result,
+                      "attention_wide": wide,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))

@@ -28,6 +28,14 @@ that no input needs launches nothing (``ctx.needs_input_grad``).
 :func:`attention_ad` runs the single-pass kernel forward and recomputes
 the scores backward (FlashAttention-style), so no score tensor is kept.
 
+The precision axis (DESIGN.md §13): operands in bf16 run the kernels'
+bf16 variants as they are (``precision=None``).  A plan built with
+``precision="bf16"`` casts fp32 masters to bf16 at every op; one built
+with ``"int8"`` quantizes the forward SpMM's values per K-block at each
+call (B at bf16) and runs every other op, the backward included, at
+bf16 (:func:`_dense_precision`).  Gradients are straight-through and come
+back in the masters' dtypes.
+
 Operands follow the batched convention: each may carry a leading head
 dimension, a 2-D operand being shared by every head.  The ``cuda`` route
 then runs the head-grid kernels (``cuda_batched``), one launch for all
@@ -39,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +55,9 @@ import torch
 from . import dispatch as _dispatch
 from .format import (MEBCRS, BlockedMEBCRS, Schedule, block_format,
                      resolve_device)
+from .quantize import cast_precision, validate_precision
 from .sddmm import with_values
+from .spmm import apply_precision
 from .softmax import sparse_softmax
 
 __all__ = ["ADPlan", "ad_plan", "spmm_ad", "sddmm_ad", "attention_ad"]
@@ -65,6 +75,10 @@ class ADPlan:
     # Block-parallel schedules of A and Aᵀ (impl="cuda_balanced").
     fwd_sched: Schedule | None = None
     bwd_sched: Schedule | None = None
+    # Precision level of every op on the plan (None: operand dtypes as
+    # given); "int8" quantizes the forward SpMM's values, every other op
+    # runs at bf16.
+    precision: Optional[str] = None
 
     @property
     def vals(self) -> torch.Tensor:
@@ -123,8 +137,16 @@ def _blocked_perm(blocked_a: BlockedMEBCRS,
 _PLAN_IMPLS = ("blocked", "cuda", "cuda_balanced")
 
 
+def _dense_precision(precision: Optional[str]) -> Optional[str]:
+    """The precision of every op but the forward SpMM's values: int8
+    applies only there (per-K-block scales); its gradient path, SDDMM and
+    attention run bf16, straight-through to the masters."""
+    return "bf16" if precision == "int8" else precision
+
+
 def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
-            n_blk: int = 128, split_blk: int = 1, device=None) -> ADPlan:
+            n_blk: int = 128, split_blk: int = 1, device=None,
+            precision: Optional[str] = None) -> ADPlan:
     """Build (and memoize on ``fmt``) the plan, on ``device`` (the card
     unless ``device`` says otherwise).
 
@@ -136,9 +158,17 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     ``n_blk`` is the column tile of the SpMM kernels in both directions;
     the JAX plan's separate transpose tile waits for the tuner (ROADMAP.md
     queue 1 item 11).  Its ``f_blk`` has no counterpart: the port's SDDMM
-    kernels walk the whole feature dimension in one pass.
+    kernels walk the whole feature dimension in one pass.  ``precision``
+    (``None``, ``"fp32"``, ``"bf16"``, ``"int8"``) fixes the level of every
+    op on the plan and is checked against the impl's ``precisions``;
+    plans of one pattern at several levels share their arrays.
     """
     device = resolve_device(device)
+    validate_precision(precision)
+    if precision is not None:
+        _dispatch.require("spmm", impl, precision=precision)
+        _dispatch.require("sddmm", impl,
+                          precision=_dense_precision(precision))
     if impl not in _PLAN_IMPLS:
         raise NotImplementedError(
             f"ad_plan(impl={impl!r}): the port builds plans for "
@@ -152,6 +182,13 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     if memo is None:
         memo = {}
         object.__setattr__(fmt, "_ad_plans", memo)
+    if precision is not None:
+        if key + (precision,) not in memo:
+            base = ad_plan(fmt, impl=impl, k_blk=k_blk, n_blk=n_blk,
+                           split_blk=split_blk, device=device)
+            memo[key + (precision,)] = dataclasses.replace(
+                base, precision=precision)
+        return memo[key + (precision,)]
     if key in memo:
         return memo[key]
 
@@ -200,28 +237,36 @@ def _head_impl(op: str, impl: str, *operands) -> str:
     return name
 
 
-def _run_spmm(impl: str, plan: ADPlan, vals, b, *, transposed: bool):
-    """``A⟨vals⟩ @ B`` (or ``Aᵀ⟨vals⟩ @ B`` on ``plan.bwd``); ``vals`` are
-    already masked and in that direction's layout."""
+def _run_spmm(impl: str, plan: ADPlan, vals, b, *, transposed: bool,
+              precision: Optional[str] = None):
+    """``A⟨vals⟩ @ B`` (or ``Aᵀ⟨vals⟩ @ B`` on ``plan.bwd``) at
+    ``precision``; ``vals`` are already masked and in that direction's
+    layout."""
     blocked = plan.bwd if transposed else plan.fwd
     kwargs = {"k_blk": blocked.k_blk, "n_blk": plan.n_blk}
     if impl == "cuda_balanced":
         # this direction's own schedule: Aᵀ's skew differs from A's
         kwargs["schedule"] = plan.bwd_sched if transposed else plan.fwd_sched
-    return _dispatch.dispatch("spmm", _head_impl("spmm", impl, vals, b),
-                              with_values(blocked, vals.contiguous()),
-                              b.contiguous(), **kwargs)
+    name = _head_impl("spmm", impl, vals, b)
+    _dispatch.require("spmm", name, precision=precision)
+    blocked, b = apply_precision(with_values(blocked, vals.contiguous()), b,
+                                 precision)
+    return _dispatch.dispatch("spmm", name, blocked, b.contiguous(), **kwargs)
 
 
-def _run_sddmm(impl: str, plan: ADPlan, q, k):
-    """``mask ⊙ (Q Kᵀ)`` in the forward layout (SDDMM samples A's
-    pattern, so it walks the forward schedule)."""
+def _run_sddmm(impl: str, plan: ADPlan, q, k,
+               precision: Optional[str] = None):
+    """``mask ⊙ (Q Kᵀ)`` in the forward layout at ``precision`` (SDDMM
+    samples A's pattern, so it walks the forward schedule)."""
     kwargs = {"k_blk": plan.fwd.k_blk}
     if impl == "cuda_balanced":
         kwargs["schedule"] = plan.fwd_sched
-    return _dispatch.dispatch("sddmm", _head_impl("sddmm", impl, q, k),
-                              plan.fwd, q.contiguous(), k.contiguous(),
-                              **kwargs)
+    name = _head_impl("sddmm", impl, q, k)
+    precision = _dense_precision(precision)
+    _dispatch.require("sddmm", name, precision=precision)
+    q, k = cast_precision(precision, q, k)
+    return _dispatch.dispatch("sddmm", name, plan.fwd, q.contiguous(),
+                              k.contiguous(), **kwargs)
 
 
 def _sum_heads(grad, operand):
@@ -232,17 +277,24 @@ def _sum_heads(grad, operand):
     return grad
 
 
+def _as(grad, operand):
+    """A gradient in its operand's (master) dtype."""
+    return None if grad is None else grad.to(operand.dtype)
+
+
 def _spmm_vjp(impl: str, plan: ADPlan, vals, b, g, need_vals: bool,
               need_b: bool):
-    """``(dVals, dB)`` of ``C = A⟨vals⟩ @ B`` for the cotangent ``g``; a
-    gradient nobody needs is ``None`` and launches nothing."""
+    """``(dVals, dB)`` of ``C = A⟨vals⟩ @ B`` for the cotangent ``g``, at
+    the plan's dense precision (never quantized) and in the operands'
+    dtypes; a gradient nobody needs is ``None`` and launches nothing."""
+    prec = _dense_precision(plan.precision)
     dvals = db = None
     if need_b:      # dB = Aᵀ G — transpose SpMM through the registry
         db = _run_spmm(impl, plan, plan.transpose_vals(vals * plan.fwd.mask),
-                       g, transposed=True)
+                       g, transposed=True, precision=prec)
     if need_vals:   # dVals = mask ⊙ SDDMM(G, B) (the kernels mask)
-        dvals = _run_sddmm(impl, plan, g, b)
-    return _sum_heads(dvals, vals), _sum_heads(db, b)
+        dvals = _run_sddmm(impl, plan, g, b, precision=prec)
+    return _as(_sum_heads(dvals, vals), vals), _as(_sum_heads(db, b), b)
 
 
 class _SpmmAD(torch.autograd.Function):
@@ -252,7 +304,7 @@ class _SpmmAD(torch.autograd.Function):
         ctx.save_for_backward(vals, b)
         # masked entries are structural zeros
         return _run_spmm(impl, plan, vals * plan.fwd.mask, b,
-                         transposed=False)
+                         transposed=False, precision=plan.precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -267,37 +319,44 @@ class _SddmmAD(torch.autograd.Function):
     def forward(ctx, impl, plan, q, k):
         ctx.impl, ctx.plan = impl, plan
         ctx.save_for_backward(q, k)
-        return _run_sddmm(impl, plan, q, k)
+        return _run_sddmm(impl, plan, q, k, precision=plan.precision)
 
     @staticmethod
     def backward(ctx, g):
         q, k = ctx.saved_tensors
         impl, plan = ctx.impl, ctx.plan
+        prec = _dense_precision(plan.precision)  # never quantize cotangents
         gm = g * plan.fwd.mask
         dq = dk = None
         if ctx.needs_input_grad[2]:     # dQ = A⟨g⟩ @ K
-            dq = _run_spmm(impl, plan, gm, k, transposed=False)
+            dq = _run_spmm(impl, plan, gm, k, transposed=False,
+                           precision=prec)
         if ctx.needs_input_grad[3]:     # dK = Aᵀ⟨g⟩ @ Q
             dk = _run_spmm(impl, plan, plan.transpose_vals(gm), q,
-                           transposed=True)
-        return None, None, _sum_heads(dq, q), _sum_heads(dk, k)
+                           transposed=True, precision=prec)
+        return (None, None, _as(_sum_heads(dq, q), q),
+                _as(_sum_heads(dk, k), k))
 
 
 def _attention_kernel(impl: str, plan: ADPlan, q, k, v, scale):
-    """The single-pass kernel of ``impl``: window-parallel for ``cuda``,
-    over the forward schedule for ``cuda_balanced``."""
-    if impl == "cuda_balanced":
-        return _dispatch.dispatch(
-            "attention", _head_impl("attention", impl, q, k, v), plan.fwd, q,
-            k, v, scale=scale, k_blk=plan.fwd.k_blk, schedule=plan.fwd_sched)
-    return _dispatch.dispatch(
-        "attention", _head_impl("attention", "cuda_fused_attn", q, k, v),
-        plan.fwd, q, k, v, scale=scale, k_blk=plan.fwd.k_blk)
+    """The single-pass kernel of ``impl`` at the plan's precision:
+    window-parallel for ``cuda``, over the forward schedule for
+    ``cuda_balanced``."""
+    extra = {"schedule": plan.fwd_sched} if impl == "cuda_balanced" else {}
+    name = _head_impl("attention", "cuda_fused_attn" if impl == "cuda"
+                      else impl, q, k, v)
+    _dispatch.require("attention", name, precision=plan.precision)
+    q, k, v = cast_precision(plan.precision, q, k, v)
+    return _dispatch.dispatch("attention", name, plan.fwd, q, k, v,
+                              scale=scale, k_blk=plan.fwd.k_blk, **extra)
 
 
 def _softmax_probs(impl: str, plan: ADPlan, q, k, scale):
-    """The staged composition's scores → probabilities, differentiable."""
+    """The staged composition's scores → probabilities, differentiable.
+    The scaled scores take the type the reference promotes bf16 scores
+    times an fp32 scale to (fp32)."""
     scores = _SddmmAD.apply(impl, plan, q, k)
+    scores = scores.to(torch.promote_types(scores.dtype, scale.dtype))
     return sparse_softmax(plan.fwd, scores * scale)
 
 
@@ -329,7 +388,8 @@ class _AttentionAD(torch.autograd.Function):
         grads = [None, None, None]
         if need_p:
             wanted = [t for t in leaves if t.requires_grad]
-            got = iter(torch.autograd.grad(probs, wanted, dprobs))
+            got = iter(torch.autograd.grad(probs, wanted,
+                                           dprobs.to(probs.dtype)))
             grads = [next(got) if t.requires_grad else None for t in leaves]
         dq, dk, dscale = grads
         return None, None, dq, dk, dv, dscale
@@ -378,11 +438,15 @@ def attention_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor,
     (``"cuda_fused_attn"``) and ``"cuda_balanced"`` its block-parallel
     version over the forward schedule; both keep the scores out of device
     memory and recompute them backward.  ``"blocked"`` runs the staged
-    SDDMM → sparse softmax → SpMM composition.
+    SDDMM → sparse softmax → SpMM composition.  Attention has no int8
+    level: an int8 plan runs all of it, the recompute backward included,
+    at bf16.
     """
     impl = impl or plan.impl
     _dispatch.require("spmm", impl, differentiable=True)
     _dispatch.require("sddmm", impl, differentiable=True)
+    if plan.precision == "int8":
+        plan = dataclasses.replace(plan, precision="bf16")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)

@@ -36,7 +36,13 @@ Capability flags, enforced by :func:`require`:
                   adjacency as an ``ADPlan``;
   batched         the impl takes operands with a leading head dimension
                   (a 2-D operand is shared by every head) and serves every
-                  head in one pass: one launch for a kernel impl.
+                  head in one pass: one launch for a kernel impl;
+
+plus the ``precisions`` tuple (DESIGN.md §13): the precision levels the
+impl runs at, a subset of ``("fp32", "bf16", "int8")``; every impl
+defaults to fp32 only.  The entry points check it with :func:`require`
+and cast (or quantize) the operands once before the call, so an impl
+sees only operands already at its precision.
 
 A **call log** records every dispatch: ``record_calls()`` yields a list
 that accumulates ``(op, impl)`` pairs while the context is active.
@@ -48,7 +54,7 @@ import contextlib
 import dataclasses
 import importlib
 import threading
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 __all__ = ["OpImpl", "register", "get", "impls", "require", "dispatch",
            "record_calls"]
@@ -63,6 +69,7 @@ class OpImpl:
     fn: Callable
     differentiable: bool = False
     batched: bool = False
+    precisions: Tuple[str, ...] = ("fp32",)
 
 
 _REGISTRY: Dict[Tuple[str, str], OpImpl] = {}
@@ -111,10 +118,19 @@ def impls(op: str) -> Tuple[str, ...]:
 
 
 def require(op: str, impl: str, *, differentiable: bool = False,
-            batched: bool = False) -> OpImpl:
-    """Resolve ``(op, impl)`` and enforce the capability flags, raising a
-    ``ValueError`` that lists the impls that have the missing one."""
+            batched: bool = False,
+            precision: Optional[str] = None) -> OpImpl:
+    """Resolve ``(op, impl)`` and enforce the capability flags and the
+    precision level, raising a ``ValueError`` that lists the impls that
+    have the missing one."""
     entry = get(op, impl)
+    if precision is not None and precision not in entry.precisions:
+        ok = [n for n in impls(op)
+              if precision in _REGISTRY[(op, n)].precisions]
+        raise ValueError(
+            f"impl {impl!r} of op {op!r} does not support precision "
+            f"{precision!r} (supports: {', '.join(entry.precisions)}); "
+            f"impls with {precision!r}: {', '.join(ok) or '(none)'}")
     for flag, wanted, text in (
             ("differentiable", differentiable, "is not differentiable"),
             ("batched", batched, "has no native batched path")):

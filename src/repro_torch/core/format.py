@@ -28,7 +28,7 @@ requested device, the card unless the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +63,8 @@ def resolve_device(device) -> torch.device:
 
 def _to_device(obj, fields, device):
     return dataclasses.replace(
-        obj, **{f: getattr(obj, f).to(device) for f in fields})
+        obj, **{f: getattr(obj, f).to(device) for f in fields
+                if getattr(obj, f) is not None})
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -125,6 +126,9 @@ class BlockedMEBCRS:
       block_win (NB,) int32       output window of each K-block
       win_ptr   (W + 1,) int32    window ``w`` owns K-blocks
                                   ``[win_ptr[w], win_ptr[w+1])``
+      scales    (NB,) fp32 or None  per-K-block dequantization scales,
+                                  set with int8 ``vals`` by
+                                  :func:`~repro_torch.core.quantize.quantize_format`
     For the all-empty matrix a single dummy zero block exists so the
     arrays are never empty, but no window owns it (``win_ptr[-1] == 0``).
     """
@@ -137,8 +141,9 @@ class BlockedMEBCRS:
     shape: Tuple[int, int]
     vector_size: int
     k_blk: int
+    scales: Optional[torch.Tensor] = None
 
-    _TENSORS = ("vals", "cols", "mask", "block_win", "win_ptr")
+    _TENSORS = ("vals", "cols", "mask", "block_win", "win_ptr", "scales")
 
     @property
     def num_blocks(self) -> int:
@@ -314,6 +319,8 @@ def to_coo(fmt) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         values = fmt.values
     rows = win.astype(np.int64) * v + r_idx
     cols = col_of_vec.cpu().numpy()[t_idx].astype(np.int64)
+    if values.dtype == torch.bfloat16:
+        values = values.float()
     vals = values.cpu().numpy()[t_idx, r_idx]
     return rows, cols, vals
 

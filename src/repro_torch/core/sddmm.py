@@ -6,7 +6,10 @@ through :func:`with_values` with no re-translation (the paper's "output
 splitting for subsequent SpMM", §3.4, at format level).
 
 Also the ``attention`` entry point (SDDMM → sparse softmax → SpMM) and
-its plain ``blocked`` implementation.
+its plain ``blocked`` implementation.  ``precision=`` (``"fp32"`` or
+``"bf16"``) casts the dense operands before the impl runs
+(:func:`~repro_torch.core.quantize.cast_precision`); the impls accumulate
+in fp32 and return Q's (SDDMM) or V's (attention) dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from . import dispatch as _dispatch
 from .format import BlockedMEBCRS, block_format, to_coo
+from .quantize import cast_precision
 from .softmax import sparse_softmax
 from .spmm import _optional, _spmm_blocked_impl
 
@@ -75,13 +79,16 @@ def sddmm_coo(rows: torch.Tensor, cols: torch.Tensor, q: torch.Tensor,
 
 def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
           k_blk: int = 8, f_blk: int | None = None,
-          split_blk: int | None = None, schedule=None):
+          split_blk: int | None = None, schedule=None,
+          precision: str | None = None):
     """SDDMM dispatch through the registry → blocked-layout values.
 
     Compose with SpMM by rebinding the values (:func:`with_values`).
     ``split_blk``/``schedule`` go to the block-parallel ``cuda_balanced``
-    kernel.
+    kernel; ``precision`` (``"fp32"``/``"bf16"``) casts Q and K first.
     """
+    _dispatch.require("sddmm", impl, precision=precision)
+    q, k = cast_precision(precision, q, k)
     return _dispatch.dispatch("sddmm", impl, fmt, q, k, k_blk=k_blk,
                               **_optional(f_blk=f_blk, split_blk=split_blk,
                                           schedule=schedule))
@@ -89,11 +96,15 @@ def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
 
 def attention(fmt, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               impl: str = "blocked", *, scale=None, k_blk: int = 8,
-              split_blk: int | None = None, schedule=None):
+              split_blk: int | None = None, schedule=None,
+              precision: str | None = None):
     """Sparse attention ``softmax_sparse(scale · mask ⊙ QKᵀ) @ V`` through
     the registry (``dispatch.impls("attention")``).  ``scale`` defaults to
     ``1/sqrt(F)`` and may be a 0-d tensor; ``split_blk``/``schedule`` go to
-    the block-parallel ``cuda_balanced`` kernel."""
+    the block-parallel ``cuda_balanced`` kernel; ``precision``
+    (``"fp32"``/``"bf16"``) casts Q, K and V first."""
+    _dispatch.require("attention", impl, precision=precision)
+    q, k, v = cast_precision(precision, q, k, v)
     return _dispatch.dispatch("attention", impl, fmt, q, k, v, k_blk=k_blk,
                               **_optional(scale=scale, split_blk=split_blk,
                                           schedule=schedule))
@@ -142,7 +153,9 @@ def _attention_blocked_adapter(fmt, q, k, v, *, scale=None, k_blk: int = 8):
 
 
 _dispatch.register("sddmm", "blocked", _sddmm_blocked_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16"))
 _dispatch.register("sddmm", "coo", _sddmm_coo_adapter)
 _dispatch.register("attention", "blocked", _attention_blocked_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16"))

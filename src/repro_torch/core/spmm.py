@@ -11,16 +11,27 @@ dispatch registry:
     :mod:`repro_torch.kernels.ops`): the hand-written kernels of
     ``kernels/csrc/spmm.cu`` and ``spmm_balanced.cu``.
   * ``coo_segment``: element-wise scatter-add SpMM, an independent oracle.
+
+The precision axis (DESIGN.md §13): ``precision=`` on :func:`spmm` casts
+the operands (``bf16``) or quantizes the values per K-block (``int8``,
+B at bf16) before the impl runs (:func:`apply_precision`, the kernels'
+policy); a view that carries int8 values and ``scales`` is dequantized
+by every plain path, which then computes what the kernel computes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from . import dispatch as _dispatch
 from .format import BlockedMEBCRS, block_format, to_coo
+from .quantize import (dequantize_block_values, quantize_block_values,
+                       validate_precision)
 
-__all__ = ["spmm", "spmm_blocked", "spmm_coo_segment", "spmm_dense_ref"]
+__all__ = ["spmm", "spmm_blocked", "spmm_coo_segment", "spmm_dense_ref",
+           "apply_precision", "dequantized"]
 
 
 def spmm_dense_ref(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -28,7 +39,49 @@ def spmm_dense_ref(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a_dense.float() @ b.float()).to(b.dtype)
 
 
+def _quantized(blocked: BlockedMEBCRS) -> bool:
+    return blocked.scales is not None and blocked.vals.dtype == torch.int8
+
+
+def dequantized(blocked: BlockedMEBCRS) -> BlockedMEBCRS:
+    """``blocked`` with int8 values and ``scales`` turned into fp32 values
+    (``q · scale`` per K-block); any other view as it is."""
+    if not _quantized(blocked):
+        return blocked
+    return dataclasses.replace(
+        blocked, vals=dequantize_block_values(blocked.vals, blocked.scales),
+        scales=None)
+
+
+def apply_precision(blocked: BlockedMEBCRS, b: torch.Tensor,
+                    precision: str | None):
+    """The kernels' precision policy for one SpMM: ``(blocked, b)`` with
+    ``fp32``/``bf16`` casting B and float values, ``int8`` quantizing the
+    values per K-block (unless the view already is) and casting B to bf16;
+    ``None`` leaves both as given.  The counterpart of the reference's
+    ``spmm_pallas._apply_precision``."""
+    validate_precision(precision)
+    vals, scales = blocked.vals, blocked.scales
+    quantized = _quantized(blocked)
+    if precision == "int8" and not quantized:
+        vals, scales = quantize_block_values(vals, blocked.k_blk)
+        quantized = True
+    if precision in ("bf16", "int8"):
+        b = b.to(torch.bfloat16)
+        if not quantized:
+            vals = vals.to(torch.bfloat16)
+    elif precision == "fp32":
+        b = b.float()
+        if not quantized:
+            vals = vals.float()
+    if vals is not blocked.vals:
+        blocked = dataclasses.replace(blocked, vals=vals,
+                                      scales=scales if quantized else None)
+    return blocked, b
+
+
 def _spmm_blocked_impl(blocked: BlockedMEBCRS, b: torch.Tensor) -> torch.Tensor:
+    blocked = dequantized(blocked)
     vals = blocked.vals
     batched = vals.dim() == 3 or b.dim() == 3
     vals3 = vals if vals.dim() == 3 else vals[None]
@@ -81,18 +134,25 @@ def _optional(**kwargs) -> dict:
 
 def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
          n_blk: int | None = None, split_blk: int | None = None,
-         schedule=None) -> torch.Tensor:
+         schedule=None, precision: str | None = None) -> torch.Tensor:
     """SpMM dispatch through the registry (``dispatch.impls("spmm")``).
 
     ``fmt`` is the canonical :class:`~repro_torch.core.format.MEBCRS`
     (blocked on ``b``'s device with ``k_blk``) or a ``BlockedMEBCRS``;
     ``n_blk`` sets the column tile of the ``cuda*`` kernels;
     ``split_blk``/``schedule`` parameterize the block-parallel
-    ``cuda_balanced`` kernel (DESIGN.md §11).
+    ``cuda_balanced`` kernel (DESIGN.md §11).  ``precision`` (``"fp32"``,
+    ``"bf16"``, ``"int8"``; ``None`` = operand dtypes as given) is checked
+    against the impl's ``precisions``; the result is in B's dtype after
+    the cast (bf16 for bf16 and int8).
     """
-    return _dispatch.dispatch("spmm", impl, fmt, b, k_blk=k_blk,
-                              **_optional(n_blk=n_blk, split_blk=split_blk,
-                                          schedule=schedule))
+    _dispatch.require("spmm", impl, precision=precision)
+    if precision is not None:
+        blocked = (fmt if isinstance(fmt, BlockedMEBCRS)
+                   else block_format(fmt, k_blk, device=b.device))
+        fmt, b = apply_precision(blocked, b, precision)
+    kwargs = _optional(n_blk=n_blk, split_blk=split_blk, schedule=schedule)
+    return _dispatch.dispatch("spmm", impl, fmt, b, k_blk=k_blk, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -116,5 +176,6 @@ def _spmm_coo_adapter(fmt, b, *, k_blk: int = 8, n_blk: int | None = None):
 
 
 _dispatch.register("spmm", "blocked", _spmm_blocked_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16", "int8"))
 _dispatch.register("spmm", "coo_segment", _spmm_coo_adapter)

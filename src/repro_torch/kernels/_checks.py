@@ -2,9 +2,12 @@
 
 A wrapper runs its plain PyTorch version when every tensor lies on the
 CPU, launches its kernel when every tensor lies on one CUDA device, and
-raises on anything the kernel does not take: another dtype than float32
-(the kernels never cast), non-contiguous tensors, non-int32 indices, or
-mixed devices.
+raises on anything the kernel does not take: a combination of dtypes that
+is not one of its variants (the kernels never cast), non-contiguous
+tensors, non-int32 indices, or mixed devices.  Every wrapper takes
+float32; the window SpMM, the SDDMM and the fused attention also take
+bfloat16 operands, and the SpMM int8 values with fp32 per-K-block scales
+(DESIGN.md §13).
 """
 
 from __future__ import annotations
@@ -14,20 +17,45 @@ import torch
 from repro_torch.core.autodiff import forward_only
 
 __all__ = ["on_cpu", "forward_inputs", "kernel_inputs", "heads",
-           "head_stride", "int32_max"]
+           "head_stride", "int32_max", "dtype_code", "variant"]
 
 int32_max = 2**31 - 1
 
+# Element types of the kernels' C entry points.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-def forward_inputs(op: str, **tensors: torch.Tensor) -> None:
-    """Raise ``TypeError`` unless every tensor is float32, and
-    ``RuntimeError`` if one needs a gradient (:func:`forward_only`): a
+
+def dtype_code(t: torch.Tensor) -> int:
+    """The C entry points' code of ``t``'s element type (0 float32,
+    1 bfloat16, 2 int8)."""
+    return _DTYPE_CODES[t.dtype]
+
+
+def variant(t: torch.Tensor) -> str:
+    """The precision variant a launch on ``t`` (values, Q or V) runs."""
+    return {torch.float32: "fp32", torch.bfloat16: "bf16",
+            torch.int8: "int8"}[t.dtype]
+
+
+def forward_inputs(op: str, variants=None, **tensors: torch.Tensor) -> None:
+    """Raise ``TypeError`` unless the tensors' dtypes, in keyword order,
+    are one of ``variants`` (tuples of dtypes; by default all float32),
+    and ``RuntimeError`` if one needs a gradient (:func:`forward_only`): a
     launch would silently cut the graph.  The autograd Functions of
     ``core/autodiff.py`` call the wrappers with gradients off."""
-    for label, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: {label} is {t.dtype}; this kernel takes "
-                            "float32 only and never casts")
+    got = tuple(t.dtype for t in tensors.values())
+    if variants is None:
+        for label, t in tensors.items():
+            if t.dtype != torch.float32:
+                raise TypeError(
+                    f"{op}: {label} is {t.dtype}; this kernel takes float32 "
+                    "only and never casts (its bf16/int8 variants are "
+                    "ROADMAP.md queue 2)")
+    elif got not in variants:
+        names = ", ".join(f"{k}={t.dtype}" for k, t in tensors.items())
+        raise TypeError(f"{op}: {names} is not one of the kernel's variants "
+                        f"{[tuple(str(d) for d in v) for v in variants]}; it "
+                        "never casts")
     forward_only(op, **tensors)
 
 

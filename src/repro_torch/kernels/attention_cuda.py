@@ -5,12 +5,21 @@ Counterpart of ``repro.kernels.attention_pallas.attention_pallas``, which
 launches ``_fused_attn_kernel``: SDDMM → row softmax → SpMM in one pass
 per (head, window), the scores never reaching device memory, one launch
 for every head.  Both products run on the tensor cores (``mma.sync``
-m16n8k8 in 3xTF32, the window's rows on the n side), so ``DV`` is at most
-128 (the accumulator lives in registers).  ``attention_cuda`` launches the
+m16n8k8 in 3xTF32, the window's rows on the n side).  Q, K and V are all
+float32 or all bfloat16 (the reference's bf16 path: fp32 scores, softmax
+and sums, one rounding of the output).  ``attention_cuda`` launches the
 hand-written kernel on CUDA tensors and counts each launch in
 ``attention_cuda.launches``; on CPU tensors it runs
 :func:`attention_plain`, the same function in three passes (plain SDDMM →
-``sparse_softmax`` → plain SpMM).
+``sparse_softmax`` → plain SpMM, in fp32).
+
+The accumulator of a launch lives in registers, so a launch covers a band
+of at most ``DV_BAND`` = 128 value columns: a wider V takes one launch per
+band (:func:`value_bands`), each recomputing the scores.  A D whose K and
+Q rings do not fit the card's shared memory (above about 712 fp32 or 1,420
+bf16 columns at V = 8) runs the composition of the SDDMM and SpMM kernels
+instead (:func:`rings_fit`): scores through device memory, in fp32, which
+launches those kernels (and counts there) and not this one.
 
 ``attention_cuda_staged`` is the counterpart of
 ``attention_pallas_staged``: the batched SDDMM kernel → ``sparse_softmax``
@@ -35,7 +44,28 @@ from . import _build, _checks
 from .sddmm_batched_cuda import sddmm_batched_cuda
 from .spmm_batched_cuda import spmm_batched_cuda
 
-__all__ = ["attention_cuda", "attention_plain", "attention_cuda_staged"]
+__all__ = ["attention_cuda", "attention_plain", "attention_cuda_staged",
+           "VARIANTS", "DV_BAND", "value_bands", "rings_fit"]
+
+# (Q, K, V) dtypes of the kernel's variants; the output comes in V's
+VARIANTS = ((torch.float32,) * 3, (torch.bfloat16,) * 3)
+DV_BAND = 128           # value columns of one launch (registers)
+SMEM_OPTIN = 232448     # shared memory a block may opt in to on sm_90
+
+
+def value_bands(dv: int) -> list:
+    """The ``(first column, width)`` bands of ``DV_BAND`` columns or fewer
+    that cover ``dv`` value columns, one launch each."""
+    return [(c, min(DV_BAND, dv - c)) for c in range(0, dv, DV_BAND)]
+
+
+def rings_fit(vsz: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel's K and Q rings (and P, the mask and barriers)
+    for window size ``vsz`` and width ``d`` of ``dtype`` fit one block's
+    shared memory (the kernel library states its layout's bytes)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return (_build.library("attention").attention_smem_bytes(vsz, d, elt)
+            <= SMEM_OPTIN)
 
 # Chunks of 32 vectors a warp walks: 8 windows a warp for the Amazon
 # replica's A (1.1 chunks a window), 2 for the 12-head attention pattern
@@ -55,24 +85,42 @@ def windows_per_warp(num_windows: int, nnzp: int, heads: int) -> int:
 
 def attention_plain(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, scale=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel."""
-    return attention_staged(blocked, q, k, v, scale)
+    """Plain PyTorch version of the kernel.  For bf16 operands it takes the
+    kernel's arithmetic: Q scaled in fp32 and rounded to bf16, then the
+    scores, the softmax, P and P·V in fp32, and one rounding of the
+    output to bf16."""
+    if q.dtype == torch.float32:
+        return attention_staged(blocked, q, k, v, scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = (q.float() * scale).to(q.dtype)
+    return attention_staged(blocked, qs.float(), k.float(), v.float(),
+                            1.0).to(v.dtype)
 
 
 def attention_cuda(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, *, scale=None) -> torch.Tensor:
     """``softmax_rows(scale · mask ⊙ Q Kᵀ) @ V`` over ``blocked``'s pattern:
     ``q ([H,] M, D)``, ``k ([H,] Mc, D)``, ``v ([H,] Mc, DV)`` →
-    ``([H,] M, DV)``, fp32, one launch for every head.
+    ``([H,] M, DV)`` in V's dtype (fp32 or bf16 operands), one launch for
+    every head and band of ``DV_BAND`` value columns.
 
     ``scale`` (default ``1/sqrt(D)``) is one scalar for every head and may
     be a 0-d tensor such as AGNN's learned β; it is folded into Q before
-    the launch, as the reference does, and never read back to the host.
+    the launch, in fp32 and rounded to Q's dtype, as the reference does,
+    and never read back to the host.
     """
     op = "attention_cuda"
-    scale_t = {"scale": scale} if isinstance(scale, torch.Tensor) else {}
-    _checks.forward_inputs(op, q=q, k=k, v=v, **scale_t)
+    if isinstance(scale, torch.Tensor):
+        _checks.forward_inputs(op, tuple(x + (scale.dtype,) for x in VARIANTS),
+                               q=q, k=k, v=v, scale=scale)
+    else:
+        _checks.forward_inputs(op, VARIANTS, q=q, k=k, v=v)
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2), v=(v, 2))
+    if batched and v.dtype != torch.float32:
+        raise TypeError(f"{op}: the bf16 variant takes one head (2-D q, k, "
+                        "v); bf16 over heads is ROADMAP.md queue 2, with "
+                        "the multi-head bf16 attention path")
     tensors = dict(win_ptr=blocked.win_ptr, cols=blocked.cols,
                    mask=blocked.mask, q=q, k=k, v=v)
     if _checks.on_cpu(op, **tensors):
@@ -96,23 +144,32 @@ def attention_cuda(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
     qs = (q.float() * scale).to(q.dtype)
     _checks.kernel_inputs(op, {"win_ptr": blocked.win_ptr, "cols": blocked.cols},
                           {"mask": blocked.mask, "q": qs, "k": k, "v": v})
-    out = torch.empty((h, m, dv), dtype=torch.float32, device=q.device)
+    if not rings_fit(vsz, d, q.dtype):
+        # scores and probabilities in fp32 whatever the operands' dtype
+        return attention_cuda_staged(blocked, qs.float(), k.float(),
+                                     v.float(), scale=1.0).to(v.dtype)
+    out = torch.empty((h, m, dv), dtype=v.dtype, device=q.device)
     if m == 0 or dv == 0:
         return out if batched else out[0]
-    err = _build.library("attention").attention_f32(
-        blocked.win_ptr.data_ptr(), blocked.cols.data_ptr(), qs.data_ptr(),
-        k.data_ptr(), v.data_ptr(), blocked.mask.data_ptr(), out.data_ptr(),
-        m, d, dv, blocked.num_windows, h, vsz, k_blk,
-        windows_per_warp(blocked.num_windows, blocked.cols.shape[0], h),
-        _checks.head_stride(qs, 2), _checks.head_stride(k, 2),
-        _checks.head_stride(v, 2),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check_launch("attention", err)
-    attention_cuda.launches += 1
+    elt = v.element_size()
+    for c0, width in value_bands(dv):
+        err = _build.library("attention").attention_launch(
+            blocked.win_ptr.data_ptr(), blocked.cols.data_ptr(),
+            qs.data_ptr(), k.data_ptr(), v.data_ptr() + c0 * elt,
+            blocked.mask.data_ptr(), out.data_ptr() + c0 * elt, m, d, width,
+            dv, dv, blocked.num_windows, h, vsz, k_blk,
+            windows_per_warp(blocked.num_windows, blocked.cols.shape[0], h),
+            _checks.head_stride(qs, 2), _checks.head_stride(k, 2),
+            _checks.head_stride(v, 2), _checks.dtype_code(v),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check_launch("attention", err)
+        attention_cuda.launches += 1
+        attention_cuda.variant_launches[_checks.variant(v)] += 1
     return out if batched else out[0]
 
 
 attention_cuda.launches = 0
+attention_cuda.variant_launches = {"fp32": 0, "bf16": 0}
 
 
 def attention_cuda_staged(blocked: BlockedMEBCRS, q: torch.Tensor,

@@ -1,11 +1,14 @@
 // Single-pass fused sparse attention over the blocked ME-BCRS pattern:
-// out[h] = softmax_rows(mask * (Q_s[h] @ K[h]^T)) @ Vmat[h], fp32, for H
-// heads in one launch, with Q_s = scale * Q folded in before the launch
-// (one scale for every head).  Q, K and Vmat are each either per head or
-// shared by every head.
+// out[h] = softmax_rows(mask * (Q_s[h] @ K[h]^T)) @ Vmat[h] for H heads in
+// one launch, with Q_s = scale * Q folded in before the launch (one scale
+// for every head); Q, K, Vmat and out all fp32 or all bf16, the scores,
+// the softmax and the sums in fp32.  Q, K and Vmat are each either per
+// head or shared by every head.  One launch covers a band of at most 128
+// columns of Vmat and out (their rows ldv and ldo elements apart); the
+// wrapper launches once per band.
 //
 // Replaces: src/repro/kernels/attention_pallas.py, _fused_attn_kernel
-// (launched through attention_pallas).
+// (launched through attention_pallas), with its bf16 variant.
 //
 // Bound on the card: bytes.  Each input read once and the output written
 // once is Q (M x D) + K, Vmat (Mc x D, Mc x DV), each per distinct head, +
@@ -54,7 +57,15 @@
 // tf32(x - big), and a . b is taken as big.big + big.small + small.big
 // with fp32 accumulators (3xTF32; big.big and the small products in two,
 // so two chains of dependent mma run side by side): plain TF32 keeps
-// about 10 mantissa bits, the split about 21.  The exponentials take the
+// about 10 mantissa bits, the split about 21.
+// bf16 (the reference's bf16 path): K, Q and Vmat rows are staged in
+// shared memory and registers at 2 bytes a value, half the fp32 rings,
+// and widened to fp32 at the fragment loads.  A bf16 value is exact in
+// TF32 (its small part is 0), so S = K . Q^T takes one TF32 product
+// (big.big, exact products, fp32 sums) and P . Vmat two (P's big and
+// small parts against Vmat's big part); P stays fp32, as the reference's
+// body upcasts Vmat, not P.  The result is rounded to bf16 once, at the
+// store (round to nearest even).  The exponentials take the
 // hardware's ex2 (__expf: 2 + 1.16 |x| ulp, so only probabilities far below
 // a row's largest, which add little to it, see more than a few ulp).
 // The reference updates m and l once per K-block; here they are updated
@@ -68,6 +79,10 @@
 // arithmetic depends neither on the head nor on the windows walked
 // before it, so H heads in one launch give bitwise the output of H
 // one-head launches.
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -79,25 +94,41 @@ constexpr int kMaxWindowsPerWarp = 16;  // win_ptr entries: a lane each
 using repro::cp_async16;
 using repro::cp_async4;
 
-// Shared memory of the one warp of a block, in floats: K rows of two
-// chunks, Q rows of two windows, P^T, mask bytes of two chunks, the two
-// chunks' mbarriers (a multiple of 4 floats in all, every part 16-byte
-// aligned).  The row stride of K and Q is D padded to a multiple of 8,
-// + 4: the fragment loads then hit 32 distinct banks.
+// Shared memory of the one warp of a block, in bytes: K rows of two
+// chunks and Q rows of two windows (elements of T), P^T (floats), mask
+// bytes of two chunks, the two chunks' mbarriers (a multiple of 16 bytes
+// in all, every part 16-byte aligned).  The row stride of K and Q, dp
+// elements, is D padded to a multiple of 8, + 16 bytes: the fragment
+// loads then hit distinct banks.
 struct Layout {
   int dp, k, q, p, mask, bar, total;
 };
 
-__host__ __device__ __forceinline__ Layout layout(int vsz, int d) {
+__host__ __device__ __forceinline__ Layout layout(int vsz, int d, int elt) {
   Layout s;
-  s.dp = (d + 7) / 8 * 8 + 4;
+  s.dp = (d + 7) / 8 * 8 + 16 / elt;
   s.k = 0;
-  s.q = s.k + 2 * kChunk * s.dp;
-  s.p = s.q + 2 * vsz * s.dp;
-  s.mask = s.p + vsz * kPStride;
-  s.bar = s.mask + 2 * kChunk * vsz / 4;  // two mbarriers, 8 bytes each
-  s.total = s.bar + 4;
+  s.q = s.k + 2 * kChunk * s.dp * elt;
+  s.p = s.q + 2 * vsz * s.dp * elt;
+  s.mask = s.p + 4 * vsz * kPStride;
+  s.bar = s.mask + 2 * kChunk * vsz;  // two mbarriers, 8 bytes each
+  s.total = s.bar + 16;
   return s;
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -106,13 +137,19 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// An mma operand fragment of N fp32 values split into TF32 big and small.
-template <int N>
+// An mma operand fragment of N fp32 values split into TF32 big and small;
+// kExact: values that TF32 holds exactly (widened bf16), whose small part
+// is 0 and is never used.
+template <int N, bool kExact = false>
 struct Frag {
   uint32_t big[N], small[N];
   __device__ __forceinline__ void set(int i, float x) {
-    big[i] = to_tf32(x);
-    small[i] = to_tf32(x - __uint_as_float(big[i]));
+    if constexpr (kExact) {
+      big[i] = __float_as_uint(x);
+    } else {
+      big[i] = to_tf32(x);
+      small[i] = to_tf32(x - __uint_as_float(big[i]));
+    }
   }
 };
 
@@ -125,38 +162,49 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // a . b in 3xTF32: big.big into hi, big.small + small.big into lo.  Two
-// accumulators make two chains of dependent mma instead of one.
+// accumulators make two chains of dependent mma instead of one.  A product
+// with an exact operand's small part is 0 and is not taken.
+template <bool kAExact, bool kBExact>
 __device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4],
-                                           const Frag<4>& a,
-                                           const Frag<2>& b) {
-  mma_tf32(lo, a.big, b.small);
-  mma_tf32(lo, a.small, b.big);
+                                           const Frag<4, kAExact>& a,
+                                           const Frag<2, kBExact>& b) {
+  if constexpr (!kBExact) mma_tf32(lo, a.big, b.small);
+  if constexpr (!kAExact) mma_tf32(lo, a.small, b.big);
   mma_tf32(hi, a.big, b.big);
 }
 
-// Copies `rows` rows of `width` floats, row r from src + idx(r) * width,
+// Copies `rows` rows of `width` elements, row r from src + idx(r) * width,
 // into dst with row stride `stride`, skipping rows >= valid: 16 bytes at a
-// time when vec, else 4.  idx is a lane's column id broadcast by shuffle,
-// so every lane runs the same number of iterations.
-template <typename Idx>
-__device__ __forceinline__ void copy_rows(float* dst, int stride,
-                                          const float* src, int width,
-                                          int rows, int valid, bool vec,
-                                          int lane, Idx idx) {
+// time when vec, else one element at a time (cp.async of 4 bytes for fp32,
+// a plain load for bf16, which the barrier before the chunk is used orders
+// as it orders the copies).  idx is a lane's column id broadcast by
+// shuffle, so every lane runs the same number of iterations.
+template <typename T, typename Idx>
+__device__ __forceinline__ void copy_rows(T* dst, int stride, const T* src,
+                                          int width, int rows, int valid,
+                                          bool vec, int lane, Idx idx) {
+  constexpr int kPer16 = 16 / sizeof(T);
   if (vec) {
-    const int segs = width / 4;
+    const int segs = width / kPer16;
     for (int i = lane; i < rows * segs; i += 32) {
       const int r = i / segs, s = i - r * segs;
       const int64_t row = idx(r);
       if (r < valid) {
-        cp_async16(dst + r * stride + 4 * s, src + row * width + 4 * s);
+        cp_async16(dst + r * stride + kPer16 * s,
+                   src + row * width + kPer16 * s);
       }
     }
   } else {
     for (int i = lane; i < rows * width; i += 32) {
       const int r = i / width, e = i - r * width;
       const int64_t row = idx(r);
-      if (r < valid) cp_async4(dst + r * stride + e, src + row * width + e);
+      if (r < valid) {
+        if constexpr (sizeof(T) == 4) {
+          cp_async4(dst + r * stride + e, src + row * width + e);
+        } else {
+          dst[r * stride + e] = src[row * width + e];
+        }
+      }
     }
   }
 }
@@ -198,36 +246,40 @@ struct Pos {
   int64_t t0;  // first vector of the chunk
 };
 
-// V: window rows (8 or 16, one or two n8 tiles); MT: m16 tiles of DV
-// (DV <= 16 * MT), two per band of 32 columns.
-template <int V, int MT>
+// V: window rows (8 or 16, one or two n8 tiles); MT: m16 tiles of the
+// band's DV columns (DV <= 16 * MT), two per group of 32 columns; T: the
+// element type of Q, K, Vmat and out.
+template <int V, int MT, typename T>
 __global__ void __launch_bounds__(32)
 attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
-                 const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ vmat,
-                 const uint8_t* __restrict__ mask, float* __restrict__ out,
-                 int m, int d, int dv, int k_blk, int num_windows, int wpw,
-                 int64_t q_hstride, int64_t k_hstride, int64_t v_hstride) {
+                 const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ vmat,
+                 const uint8_t* __restrict__ mask, T* __restrict__ out,
+                 int m, int d, int dv, int ldv, int ldo, int k_blk,
+                 int num_windows, int wpw, int64_t q_hstride,
+                 int64_t k_hstride, int64_t v_hstride) {
   constexpr int NT = V / 8;
   constexpr int BANDS = (MT + 1) / 2;
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool kExact = !std::is_same<T, float>::value;  // bf16 operands
+  constexpr int kElt = sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int gid = lane >> 2, tig = lane & 3;
   const int64_t h = blockIdx.y;
   q += h * q_hstride;
   k += h * k_hstride;
   vmat += h * v_hstride;
-  out += h * static_cast<int64_t>(m) * dv;
-  const Layout L = layout(V, d);
-  float* s_k = smem + L.k;
-  float* s_q = smem + L.q;
-  float* s_p = smem + L.p;
+  out += h * static_cast<int64_t>(m) * ldo;
+  const Layout L = layout(V, d, kElt);
+  T* s_k = reinterpret_cast<T*>(smem + L.k);
+  T* s_q = reinterpret_cast<T*>(smem + L.q);
+  float* s_p = reinterpret_cast<float*>(smem + L.p);
   uint32_t* s_mask = reinterpret_cast<uint32_t*>(smem + L.mask);
   uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem + L.bar);
   // Every slot a chunk does not fill (padding columns, rows past a
   // window's last vector) holds finite values: zeros, or an earlier
   // chunk's rows, multiplied by p = 0.
-  for (int i = lane; i < L.bar / 4; i += 32) {
+  for (int i = lane; i < L.bar / 16; i += 32) {
     reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   if (lane == 0) {
@@ -251,9 +303,11 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
   auto aligned16 = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
-  const bool kvec = d % 4 == 0 && aligned16(k);
-  const bool qvec = d % 4 == 0 && aligned16(q);
-  const bool vvec = dv % 4 == 0 && aligned16(vmat);
+  const bool kvec = d % (16 / kElt) == 0 && aligned16(k);
+  const bool qvec = d % (16 / kElt) == 0 && aligned16(q);
+  // four neighbouring columns of Vmat in one load (16 bytes fp32, 8 bf16)
+  const bool vvec = dv % 4 == 0 && ldv % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(vmat) & (4 * kElt - 1)) == 0;
   const bool bulk = kvec && qvec;
   unsigned parity = 0;  // bit sl: the phase of slot sl's mbarrier
 
@@ -262,7 +316,7 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
     if (lo(w) == lo(w + 1)) {
       for (int i = lane; i < V * dv; i += 32) {
         const int64_t row = static_cast<int64_t>(w) * V + i / dv;
-        if (row < m) out[row * dv + i % dv] = 0.f;
+        if (row < m) out[row * ldo + i % dv] = narrow<T>(0.f);
       }
     }
   }
@@ -290,21 +344,22 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
     const bool first = p.t0 == lo(p.w);
     const int64_t row0 = static_cast<int64_t>(p.w) * V;
     const int valid = m - row0 < V ? static_cast<int>(m - row0) : V;
-    float* dk = s_k + sl * kChunk * L.dp;
-    float* dq = s_q + qs * V * L.dp;
+    T* dk = s_k + sl * kChunk * L.dp;
+    T* dq = s_q + qs * V * L.dp;
     if (bulk) {  // lane r copies row r of K (and of Q)
       // order this warp's reads of the slot before the copies' writes
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       if (lane == 0) {
-        mbar_expect(s_bar + sl, 4u * d * (cnt + (first ? valid : 0)));
+        mbar_expect(s_bar + sl, 1u * kElt * d * (cnt + (first ? valid : 0)));
       }
       __syncwarp();
       if (lane < cnt) {
-        bulk_copy(dk + lane * L.dp, k + static_cast<int64_t>(col) * d, 4 * d,
-                  s_bar + sl);
+        bulk_copy(dk + lane * L.dp, k + static_cast<int64_t>(col) * d,
+                  kElt * d, s_bar + sl);
       }
       if (first && lane < valid) {
-        bulk_copy(dq + lane * L.dp, q + (row0 + lane) * d, 4 * d, s_bar + sl);
+        bulk_copy(dq + lane * L.dp, q + (row0 + lane) * d, kElt * d,
+                  s_bar + sl);
       }
     } else {
       auto gathered = [&](int r) {
@@ -361,19 +416,27 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
       for (int h2 = 0; h2 < 2; ++h2) {
         const int r = ks * 8 + tig + 4 * h2;
         const int c = __shfl_sync(repro::kFullMask, col, r);
-        const float* row = vmat + static_cast<int64_t>(c) * dv;
+        const T* row = vmat + static_cast<int64_t>(c) * ldv;
 #pragma unroll
         for (int b = 0; b < BANDS; ++b) {
           const int c0 = 32 * b + 4 * gid;
           float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
           if (r < cnt && c0 < dv) {
             if (vvec) {
-              x = __ldg(reinterpret_cast<const float4*>(row + c0));
+              if constexpr (kExact) {  // four bf16: the top halves of fp32s
+                const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + c0));
+                x = make_float4(__uint_as_float(u.x << 16),
+                                __uint_as_float(u.x & 0xffff0000u),
+                                __uint_as_float(u.y << 16),
+                                __uint_as_float(u.y & 0xffff0000u));
+              } else {
+                x = __ldg(reinterpret_cast<const float4*>(row + c0));
+              }
             } else {
-              x.x = __ldg(row + c0);
-              if (c0 + 1 < dv) x.y = __ldg(row + c0 + 1);
-              if (c0 + 2 < dv) x.z = __ldg(row + c0 + 2);
-              if (c0 + 3 < dv) x.w = __ldg(row + c0 + 3);
+              x.x = widen(row[c0]);
+              if (c0 + 1 < dv) x.y = widen(row[c0 + 1]);
+              if (c0 + 2 < dv) x.z = widen(row[c0 + 2]);
+              if (c0 + 3 < dv) x.w = widen(row[c0 + 3]);
             }
           }
           vf[ks][h2][b] = x;
@@ -385,8 +448,8 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
   // One chunk: scores, online softmax, output (see the header).
   auto compute = [&](Pos p, int sl, int qs) {
     const int cnt = count(p);
-    const float* sk = s_k + sl * kChunk * L.dp;
-    const float* sq = s_q + qs * V * L.dp;
+    const T* sk = s_k + sl * kChunk * L.dp;
+    const T* sq = s_q + qs * V * L.dp;
     const uint8_t* sm = reinterpret_cast<const uint8_t*>(
         s_mask + sl * kChunk * (V / 4));
     // S^T in two parts, big.big and the small products
@@ -401,21 +464,21 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
     }
     for (int ks = 0; ks < d8; ++ks) {
       const int c0 = ks * 8 + tig;
-      Frag<2> bq[NT];
+      Frag<2, kExact> bq[NT];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const float* qr = sq + (nt * 8 + gid) * L.dp;
-        bq[nt].set(0, qr[c0]);
-        bq[nt].set(1, qr[c0 + 4]);
+        const T* qr = sq + (nt * 8 + gid) * L.dp;
+        bq[nt].set(0, widen(qr[c0]));
+        bq[nt].set(1, widen(qr[c0 + 4]));
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const float* kr = sk + (mt * 16 + gid) * L.dp;
-        Frag<4> a;
-        a.set(0, kr[c0]);
-        a.set(1, kr[8 * L.dp + c0]);
-        a.set(2, kr[c0 + 4]);
-        a.set(3, kr[8 * L.dp + c0 + 4]);
+        const T* kr = sk + (mt * 16 + gid) * L.dp;
+        Frag<4, kExact> a;
+        a.set(0, widen(kr[c0]));
+        a.set(1, widen(kr[8 * L.dp + c0]));
+        a.set(2, widen(kr[c0 + 4]));
+        a.set(3, widen(kr[8 * L.dp + c0 + 4]));
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           mma_3xtf32(sc[nt][mt], sc_lo[nt][mt], a, bq[nt]);
@@ -490,7 +553,7 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
         if (32 * (mt / 2) + 2 * (mt % 2) < dv) {
           const float4& x0 = vf[ks][0][mt / 2];
           const float4& x1 = vf[ks][1][mt / 2];
-          Frag<4> a;
+          Frag<4, kExact> a;
           a.set(0, mt % 2 ? x0.z : x0.x);
           a.set(1, mt % 2 ? x0.w : x0.y);
           a.set(2, mt % 2 ? x1.z : x1.x);
@@ -519,7 +582,8 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
               const int c = 32 * (mt / 2) + 4 * gid + 2 * (mt % 2) + hh;
               const int i = e + 2 * hh;
               if (c < dv) {
-                out[row * dv + c] = (acc[nt][mt][i] + acc_lo[nt][mt][i]) / den;
+                out[row * ldo + c] =
+                    narrow<T>((acc[nt][mt][i] + acc_lo[nt][mt][i]) / den);
               }
             }
           }
@@ -567,15 +631,15 @@ attention_kernel(const int* __restrict__ win_ptr, const int* __restrict__ cols,
   }
 }
 
-template <int V, int MT>
-cudaError_t launch_mt(const int* win_ptr, const int* cols, const float* q,
-                      const float* k, const float* vmat, const uint8_t* mask,
-                      float* out, int m, int d, int dv, int num_windows,
+template <int V, int MT, typename T>
+cudaError_t launch_mt(const int* win_ptr, const int* cols, const T* q,
+                      const T* k, const T* vmat, const uint8_t* mask, T* out,
+                      int m, int d, int dv, int ldv, int ldo, int num_windows,
                       int heads, int k_blk, int wpw, int64_t q_hstride,
                       int64_t k_hstride, int64_t v_hstride,
                       cudaStream_t stream) {
-  const size_t smem = sizeof(float) * layout(V, d).total;
-  const auto fn = attention_kernel<V, MT>;
+  const size_t smem = layout(V, d, sizeof(T)).total;
+  const auto fn = attention_kernel<V, MT, T>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -585,74 +649,75 @@ cudaError_t launch_mt(const int* win_ptr, const int* cols, const float* q,
   if (wpw < 1 || wpw > kMaxWindowsPerWarp) return cudaErrorInvalidValue;
   const dim3 grid((num_windows + wpw - 1) / wpw, heads);
   fn<<<grid, 32, smem, stream>>>(win_ptr, cols, q, k, vmat, mask, out, m, d,
-                                 dv, k_blk, num_windows, wpw, q_hstride,
-                                 k_hstride, v_hstride);
+                                 dv, ldv, ldo, k_blk, num_windows, wpw,
+                                 q_hstride, k_hstride, v_hstride);
   return cudaGetLastError();
 }
 
-template <int V>
-cudaError_t launch(const int* win_ptr, const int* cols, const float* q,
-                   const float* k, const float* vmat, const uint8_t* mask,
-                   float* out, int m, int d, int dv, int num_windows,
-                   int heads, int k_blk, int wpw, int64_t q_hstride,
-                   int64_t k_hstride,
-                   int64_t v_hstride, cudaStream_t stream) {
+template <int V, typename T>
+cudaError_t launch(const void* win_ptr, const void* cols, const void* q,
+                   const void* k, const void* vmat, const void* mask,
+                   void* out, int m, int d, int dv, int ldv, int ldo,
+                   int num_windows, int heads, int k_blk, int wpw,
+                   int64_t q_hstride, int64_t k_hstride, int64_t v_hstride,
+                   cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(mask) & 3) != 0) {
     return cudaErrorMisalignedAddress;  // mask bytes are copied 4 at a time
   }
-  if (dv <= 32) {
-    return launch_mt<V, 2>(win_ptr, cols, q, k, vmat, mask, out, m, d, dv,
-                           num_windows, heads, k_blk, wpw, q_hstride,
-                           k_hstride,
-                           v_hstride, stream);
-  }
-  if (dv <= 64) {
-    return launch_mt<V, 4>(win_ptr, cols, q, k, vmat, mask, out, m, d, dv,
-                           num_windows, heads, k_blk, wpw, q_hstride,
-                           k_hstride,
-                           v_hstride, stream);
-  }
-  if (dv <= 128) {
-    return launch_mt<V, 8>(win_ptr, cols, q, k, vmat, mask, out, m, d, dv,
-                           num_windows, heads, k_blk, wpw, q_hstride,
-                           k_hstride,
-                           v_hstride, stream);
-  }
-  return cudaErrorInvalidValue;  // the accumulator lives in registers
+  auto run = [&](auto mt) {
+    return launch_mt<V, decltype(mt)::value, T>(
+        static_cast<const int*>(win_ptr), static_cast<const int*>(cols),
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(vmat), static_cast<const uint8_t*>(mask),
+        static_cast<T*>(out), m, d, dv, ldv, ldo, num_windows, heads, k_blk,
+        wpw, q_hstride, k_hstride, v_hstride, stream);
+  };
+  if (dv <= 32) return run(std::integral_constant<int, 2>{});
+  if (dv <= 64) return run(std::integral_constant<int, 4>{});
+  if (dv <= 128) return run(std::integral_constant<int, 8>{});
+  return cudaErrorInvalidValue;  // a band's accumulator lives in registers
 }
 
 }  // namespace
 
-// win_ptr (W + 1,) int32, cols (NNZP,) int32, q (M, D) f32 already scaled,
-// k (Mc, D) f32, vmat (Mc, DV) f32, each with heads q_hstride, k_hstride,
-// v_hstride elements apart (0: shared by every head), mask (NNZP, V) bool,
-// out (H, M, DV) f32; each warp walks wpw (1 to 16) consecutive windows.
-// DV at most 128, H at most 65,535.
-extern "C" int attention_f32(const void* win_ptr, const void* cols,
-                             const void* q, const void* k, const void* vmat,
-                             const void* mask, void* out, int m, int d, int dv,
-                             int num_windows, int heads, int v, int k_blk,
-                             int wpw,
-                             int64_t q_hstride, int64_t k_hstride,
-                             int64_t v_hstride, void* stream) {
-  const auto* wp = static_cast<const int*>(win_ptr);
-  const auto* cl = static_cast<const int*>(cols);
-  const auto* qq = static_cast<const float*>(q);
-  const auto* kk = static_cast<const float*>(k);
-  const auto* vv = static_cast<const float*>(vmat);
-  const auto* mk = static_cast<const uint8_t*>(mask);
-  auto* o = static_cast<float*>(out);
+// win_ptr (W + 1,) int32, cols (NNZP,) int32, q (M, D) already scaled,
+// k (Mc, D), vmat (Mc, ...) and out (H, M, ...) all of type `type` (0 f32,
+// 1 bf16), q, k, vmat with heads q_hstride, k_hstride, v_hstride elements
+// apart (0: shared by every head), mask (NNZP, V) bool.  The launch covers
+// dv (at most 128) columns of vmat and out, whose rows are ldv and ldo
+// elements apart (vmat and out point at the band's first column); each
+// warp walks wpw (1 to 16) consecutive windows.  H at most 65,535.
+extern "C" int attention_launch(const void* win_ptr, const void* cols,
+                                const void* q, const void* k, const void* vmat,
+                                const void* mask, void* out, int m, int d,
+                                int dv, int ldv, int ldo, int num_windows,
+                                int heads, int v, int k_blk, int wpw,
+                                int64_t q_hstride, int64_t k_hstride,
+                                int64_t v_hstride, int type, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  switch (v) {
-    case 8:
-      return launch<8>(wp, cl, qq, kk, vv, mk, o, m, d, dv, num_windows, heads,
-                       k_blk, wpw, q_hstride, k_hstride, v_hstride, st);
-    case 16:
-      return launch<16>(wp, cl, qq, kk, vv, mk, o, m, d, dv, num_windows, heads,
-                        k_blk, wpw, q_hstride, k_hstride, v_hstride, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  auto by_v = [&](auto t) {
+    using T = decltype(t);
+    if (v == 8) {
+      return launch<8, T>(win_ptr, cols, q, k, vmat, mask, out, m, d, dv, ldv,
+                          ldo, num_windows, heads, k_blk, wpw, q_hstride,
+                          k_hstride, v_hstride, st);
+    }
+    if (v == 16) {
+      return launch<16, T>(win_ptr, cols, q, k, vmat, mask, out, m, d, dv,
+                           ldv, ldo, num_windows, heads, k_blk, wpw,
+                           q_hstride, k_hstride, v_hstride, st);
+    }
+    return cudaErrorInvalidValue;
+  };
+  if (type == 0) return by_v(float{});
+  if (type == 1) return by_v(__nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+// Bytes of shared memory a launch needs for V = v, D = d and elements of
+// elt bytes (the wrapper routes a D whose rings do not fit elsewhere).
+extern "C" int attention_smem_bytes(int v, int d, int elt) {
+  return layout(v, d, elt).total;
 }
 
 REPRO_ERROR_STRING(attention_error_string)

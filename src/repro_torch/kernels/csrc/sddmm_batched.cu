@@ -34,7 +34,7 @@ extern "C" int sddmm_batched_f32(const void* block_win, const void* cols,
                                  int num_blocks, int heads, int v, int k_blk,
                                  int64_t q_hstride, int64_t k_hstride,
                                  void* stream) {
-  return repro::launch_sddmm_rows(block_win, cols, q, k, mask, out, m, f,
+  return repro::launch_sddmm_rows<float>(block_win, cols, q, k, mask, out, m, f,
                                   num_blocks, heads, v, k_blk, q_hstride,
                                   k_hstride, stream);
 }

@@ -1,7 +1,7 @@
 // The row-parallel SDDMM kernel, shared by sddmm.cu (one head) and
 // sddmm_batched.cu (a grid of H heads): S[h] = mask * (Q[h] @ K[h]^T),
-// fp32, written in the blocked (NNZP, V) layout that the following SpMM
-// reads.
+// written in the blocked (NNZP, V) layout that the following SpMM reads,
+// templated on the element type T of Q, K and S (float or bf16).
 //
 // Design: one thread per sampled row t (a nonzero vector of the blocked
 // view), 128 rows per thread block, rows on gridDim.x and heads on
@@ -27,7 +27,14 @@
 //     False, so it writes zeros.
 // The mask arrives as one byte per element (torch.bool), a quarter of the
 // reference's f32 copy; the arithmetic is the same.
+// bf16 (the reference's bf16 path): Q and K are widened to fp32 as they
+// are read (16-byte loads of 8 values when F is a multiple of 8), the
+// dots are fp32, and S is rounded to bf16 once, at the store.
 #pragma once
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -35,25 +42,57 @@ namespace repro {
 
 constexpr int kSddmmThreads = 128;
 
-template <int V, bool kVec4>
+// The 8 bf16 values of a 16-byte word, widened to fp32 (a bf16 is the top
+// half of the fp32 with the same value).
+__device__ __forceinline__ void widen8(const uint4 u, float (&x)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[2 * j] = __uint_as_float(w[j] << 16);
+    x[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <int V, bool kVec, typename T>
 __global__ void __launch_bounds__(kSddmmThreads)
 sddmm_rows_kernel(const int* __restrict__ block_win, const int* __restrict__ cols,
-                  const float* __restrict__ q, const float* __restrict__ k,
-                  const uint8_t* __restrict__ mask, float* __restrict__ out,
+                  const T* __restrict__ q, const T* __restrict__ k,
+                  const uint8_t* __restrict__ mask, T* __restrict__ out,
                   int m, int f, int k_blk, int64_t nnzp, int64_t q_hstride,
                   int64_t k_hstride) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kSddmmThreads + threadIdx.x;
   if (t >= nnzp) return;
   const int64_t h = blockIdx.y;
-  const float* qh = q + h * q_hstride;
+  const T* qh = q + h * q_hstride;
   const int64_t row0 = static_cast<int64_t>(block_win[t / k_blk]) * V;
-  const float* krow = k + h * k_hstride + static_cast<int64_t>(cols[t]) * f;
+  const T* krow = k + h * k_hstride + static_cast<int64_t>(cols[t]) * f;
 
   float acc[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) acc[v] = 0.f;
 
-  if constexpr (kVec4) {
+  if constexpr (kVec && !std::is_same<T, float>::value) {
+    // 8 bf16 features per 16-byte load, in feature order
+    for (int d = 0; d < f; d += 8) {
+      float kv[8];
+      widen8(__ldg(reinterpret_cast<const uint4*>(krow + d)), kv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (row0 + v < m) {
+          float qv[8];
+          widen8(__ldg(reinterpret_cast<const uint4*>(qh + (row0 + v) * f + d)),
+                 qv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[v] = fmaf(kv[j], qv[j], acc[v]);
+        }
+      }
+    }
+  } else if constexpr (kVec) {
 #pragma unroll 2
     for (int d = 0; d < f; d += 4) {
       const float4 kv = __ldg(reinterpret_cast<const float4*>(krow + d));
@@ -71,76 +110,86 @@ sddmm_rows_kernel(const int* __restrict__ block_win, const int* __restrict__ col
     }
   } else {
     for (int d = 0; d < f; ++d) {
-      const float kv = __ldg(krow + d);
+      const float kv = widen(krow[d]);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        if (row0 + v < m) acc[v] = fmaf(kv, __ldg(qh + (row0 + v) * f + d), acc[v]);
+        if (row0 + v < m) acc[v] = fmaf(kv, widen(qh[(row0 + v) * f + d]), acc[v]);
       }
     }
   }
 
   const uint8_t* mk = mask + t * V;
-  float* o = out + h * nnzp * V + t * V;
+  T* o = out + h * nnzp * V + t * V;
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-  for (int v = 0; v < V; v += 4) {
-    const float4 r = make_float4(acc[v] * (mk[v] ? 1.f : 0.f),
-                                 acc[v + 1] * (mk[v + 1] ? 1.f : 0.f),
-                                 acc[v + 2] * (mk[v + 2] ? 1.f : 0.f),
-                                 acc[v + 3] * (mk[v + 3] ? 1.f : 0.f));
-    *reinterpret_cast<float4*>(o + v) = r;
+    for (int v = 0; v < V; v += 4) {
+      const float4 r = make_float4(acc[v] * (mk[v] ? 1.f : 0.f),
+                                   acc[v + 1] * (mk[v + 1] ? 1.f : 0.f),
+                                   acc[v + 2] * (mk[v + 2] ? 1.f : 0.f),
+                                   acc[v + 3] * (mk[v + 3] ? 1.f : 0.f));
+      *reinterpret_cast<float4*>(o + v) = r;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      o[v] = __float2bfloat16_rn(acc[v] * (mk[v] ? 1.f : 0.f));
+    }
   }
 }
 
-template <int V>
+template <int V, typename T>
 cudaError_t launch_sddmm_rows_v(const int* block_win, const int* cols,
-                                const float* q, const float* k,
-                                const uint8_t* mask, float* out, int m, int f,
-                                int num_blocks, int heads, int k_blk,
-                                int64_t q_hstride, int64_t k_hstride,
-                                cudaStream_t stream) {
+                                const T* q, const T* k, const uint8_t* mask,
+                                T* out, int m, int f, int num_blocks,
+                                int heads, int k_blk, int64_t q_hstride,
+                                int64_t k_hstride, cudaStream_t stream) {
   const int64_t nnzp = static_cast<int64_t>(num_blocks) * k_blk;
   const dim3 grid(static_cast<unsigned>((nnzp + kSddmmThreads - 1) / kSddmmThreads),
                   heads);
   // 16-byte loads need every head's rows 16-byte aligned: F a multiple of
-  // 4 makes every row and every head stride so once the base pointers are.
-  const bool vec4 = f % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(k) % 16 == 0;
-  if (vec4) {
-    sddmm_rows_kernel<V, true><<<grid, kSddmmThreads, 0, stream>>>(
+  // 16 / sizeof(T) makes every row and every head stride so once the base
+  // pointers are.
+  const bool vec = f % (16 / sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0;
+  if (vec) {
+    sddmm_rows_kernel<V, true, T><<<grid, kSddmmThreads, 0, stream>>>(
         block_win, cols, q, k, mask, out, m, f, k_blk, nnzp, q_hstride,
         k_hstride);
   } else {
-    sddmm_rows_kernel<V, false><<<grid, kSddmmThreads, 0, stream>>>(
+    sddmm_rows_kernel<V, false, T><<<grid, kSddmmThreads, 0, stream>>>(
         block_win, cols, q, k, mask, out, m, f, k_blk, nnzp, q_hstride,
         k_hstride);
   }
   return cudaGetLastError();
 }
 
-// block_win (NB,) int32, cols (NB * k_blk,) int32, q (M, F) f32 with heads
-// q_hstride elements apart (0: shared), k (Mc, F) f32 with heads k_hstride
+// block_win (NB,) int32, cols (NB * k_blk,) int32, q (M, F) T with heads
+// q_hstride elements apart (0: shared), k (Mc, F) T with heads k_hstride
 // apart (0: shared), mask (NB * k_blk, V) bool, out (heads, NB * k_blk, V)
-// f32 with 16-byte alignment (a fresh allocation).  heads at most 65,535.
-inline cudaError_t launch_sddmm_rows(const void* block_win, const void* cols,
-                                     const void* q, const void* k,
-                                     const void* mask, void* out, int m, int f,
-                                     int num_blocks, int heads, int v,
-                                     int k_blk, int64_t q_hstride,
-                                     int64_t k_hstride, void* stream) {
+// T with 16-byte alignment (a fresh allocation).  heads at most 65,535.
+template <typename T>
+cudaError_t launch_sddmm_rows(const void* block_win, const void* cols,
+                              const void* q, const void* k, const void* mask,
+                              void* out, int m, int f, int num_blocks,
+                              int heads, int v, int k_blk, int64_t q_hstride,
+                              int64_t k_hstride, void* stream) {
   const auto* bw = static_cast<const int*>(block_win);
   const auto* cl = static_cast<const int*>(cols);
-  const auto* qq = static_cast<const float*>(q);
-  const auto* kk = static_cast<const float*>(k);
+  const auto* qq = static_cast<const T*>(q);
+  const auto* kk = static_cast<const T*>(k);
   const auto* mk = static_cast<const uint8_t*>(mask);
-  auto* o = static_cast<float*>(out);
+  auto* o = static_cast<T*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (v) {
     case 8:
-      return launch_sddmm_rows_v<8>(bw, cl, qq, kk, mk, o, m, f, num_blocks,
-                                    heads, k_blk, q_hstride, k_hstride, st);
+      return launch_sddmm_rows_v<8, T>(bw, cl, qq, kk, mk, o, m, f,
+                                       num_blocks, heads, k_blk, q_hstride,
+                                       k_hstride, st);
     case 16:
-      return launch_sddmm_rows_v<16>(bw, cl, qq, kk, mk, o, m, f, num_blocks,
-                                     heads, k_blk, q_hstride, k_hstride, st);
+      return launch_sddmm_rows_v<16, T>(bw, cl, qq, kk, mk, o, m, f,
+                                        num_blocks, heads, k_blk, q_hstride,
+                                        k_hstride, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -26,20 +26,24 @@
 // win_ptr (W + 1,) int32, cols (NNZP,) int32, vals (NNZP, V) f32 with
 // heads vals_hstride elements apart (0: shared), b (K, N) f32 row-major
 // with heads b_hstride apart (0: shared), c (H, M, N) f32, split_ids and
-// the block shape as in spmm.cu; H at most 65,535.
-extern "C" int spmm_batched_f32(const void* win_ptr, const void* cols,
-                                const void* vals, const void* b, void* c,
-                                const void* split_ids, int m, int n,
-                                int num_windows, int heads, int v, int k_blk,
-                                int n_tile, int groups, int cluster,
-                                int split_blk, int num_long, int num_medium,
-                                int64_t vals_hstride, int64_t b_hstride,
-                                void* stream) {
-  return repro::launch_spmm_window(win_ptr, cols, vals, b, c, split_ids, m, n,
-                                   num_windows, heads, v, k_blk, n_tile,
-                                   groups, cluster, split_blk, num_long,
-                                   num_medium, vals_hstride, b_hstride,
-                                   stream);
+// the block shape as in spmm.cu; H at most 65,535; wide != 0 indexes one
+// head's B and vals in 64 bits.  The bf16 and int8 variants of spmm.cu
+// are not instantiated here: the multi-head attention path runs fp32.
+extern "C" int spmm_batched_launch(const void* win_ptr, const void* cols,
+                                   const void* vals, const void* b, void* c,
+                                   const void* split_ids, int m, int n,
+                                   int num_windows, int heads, int v,
+                                   int k_blk, int n_tile, int groups,
+                                   int cluster, int split_blk, int num_long,
+                                   int num_medium, int64_t vals_hstride,
+                                   int64_t b_hstride, int wide, void* stream) {
+  auto run = [&](auto idx) {
+    return repro::launch_spmm_window<float, float, decltype(idx)>(
+        win_ptr, cols, vals, nullptr, b, c, split_ids, m, n, num_windows,
+        heads, v, k_blk, n_tile, groups, cluster, split_blk, num_long,
+        num_medium, vals_hstride, b_hstride, stream);
+  };
+  return wide ? run(int64_t{}) : run(int{});
 }
 
 REPRO_ERROR_STRING(spmm_batched_error_string)

@@ -1,10 +1,13 @@
 // The window-parallel SpMM kernel, shared by spmm.cu (one head) and
 // spmm_batched.cu (a grid of H heads):
-// C[h] (M, N) = A[h] (M, K) @ B[h] (K, N), fp32.
+// C[h] (M, N) = A[h] (M, K) @ B[h] (K, N), templated on the value type Tv
+// (float, bf16, or int8 with one fp32 scale per K-block), B's type Tb
+// (float or bf16, also C's) and the index type of one head's B and vals.
 //
-// Design.  A thread block is G slice groups of n_tile threads; each thread
-// owns one output column of the tile and keeps V running sums in
-// registers, so C is written once and never read.  A group walks a range
+// Design.  A thread block is G slice groups, each one column tile of
+// n_tile columns; each thread owns kCols adjacent output columns of the
+// tile (kCols = 2 for bf16 B, see below, else 1) and keeps kCols * V
+// running sums in registers, so C is written once and never read.  A group walks a range
 // of one window's vectors in chunks of 32: each of its warps streams the
 // chunks' column ids and (32, V) values through a ring of three chunks in
 // shared memory of its own, each copied by cp.async through L1 two chunks
@@ -58,11 +61,34 @@
 //     no window and is never visited.
 //   * The ragged last column tile is masked; rows >= M of the last window
 //     are not written.  One head's B (K x N) and vals (NNZP x V) are
-//     indexed in 32 bits (the wrappers check both below 2^31), which
-//     keeps the 8 gathers in flight in fewer registers.
+//     indexed in 32 bits (Idx = int), which keeps the 8 gathers in flight
+//     in fewer registers; the wrappers choose the 64-bit instantiation
+//     (Idx = int64_t) only when one of them reaches 2^31 elements.
+//   * Two columns a thread (bf16 B, a plan without split windows and a
+//     tile of at least 64 columns): a thread reads its two columns of a B
+//     row with one 32-bit load (two 16-bit loads where a pair is not
+//     4-byte aligned: odd N, or the last column of a ragged tile), so a
+//     warp still reads a 128-byte row segment with one instruction, and
+//     each value read from the ring (and each bf16 value unpacked) serves
+//     two products.  Every column's running sum takes the same products in
+//     the same order as with one column a thread, so the results are the
+//     same bits.  A split plan keeps one column a thread: half the threads
+//     would walk each hub window's slices, twice the chain each (on an
+//     H100, Amazon's transpose at N = 128 took 2.6 ms against 1.0).
+//   * Precision (the reference's bf16 and int8 paths): every operand is
+//     widened to fp32 as it is read, the products and every sum are fp32,
+//     and C is rounded to Tb once, at the store (round to nearest even).
+//     An int8 value is dequantized to q * scale[t / k_blk] in fp32 (t its
+//     vector) once a chunk lands, by the ring's threads into an fp32 slot
+//     of the ring: each vector's scale is copied into the ring beside its
+//     values.  bf16 and int8 values fill the ring's chunks at 2 and 1
+//     bytes per value.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -75,12 +101,77 @@ constexpr int kSpmmUnroll = 8;        // B gathers in flight per thread
 
 // A ring of three chunks, one per warp (or one per block, see
 // kBlockRing): the one being summed, the next (landed) and the one after
-// (in flight).
-template <int V>
+// (in flight).  vals comes first and is a multiple of 16 bytes; chunk(ci)
+// is what the products of chunk ci read.
+template <int V, typename Tv>
 struct WindowRing {
-  float vals[3][kSpmmChunk * V];
+  Tv vals[3][kSpmmChunk * V];
   int cols[3][kSpmmChunk];
+  __device__ __forceinline__ const Tv* chunk(int ci) const {
+    return vals[ci % 3];
+  }
 };
+// int8 values: each vector's K-block scale rides the ring beside it, and
+// a landed chunk is dequantized once, by the ring's threads, into fp32
+// (two chunks' worth: the one being summed and the next), so the products
+// read fp32 as for float values instead of every thread converting.
+template <int V>
+struct WindowRing<V, int8_t> {
+  int8_t vals[3][kSpmmChunk * V];
+  int cols[3][kSpmmChunk];
+  float scl[3][kSpmmChunk];
+  float deq[2][kSpmmChunk * V];
+  __device__ __forceinline__ const float* chunk(int ci) const {
+    return deq[ci % 2];
+  }
+  // q * scale in fp32 for the `cnt` vectors of landed chunk ci
+  __device__ __forceinline__ void dequantize(int ci, int cnt, int tid,
+                                             int nthr) {
+    for (int i = tid; i < cnt * V; i += nthr) {
+      deq[ci % 2][i] = static_cast<float>(vals[ci % 3][i]) * scl[ci % 3][i / V];
+    }
+  }
+};
+
+// An element of B (or C) widened to fp32, and an fp32 sum rounded to Tb.
+__device__ __forceinline__ float load_b(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_b(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// This thread's kCols elements of one B row at p, widened to fp32: for two
+// bf16 columns one 32-bit load when `pair` (the pair is 4-byte aligned and
+// both columns exist), else a 16-bit load per column that exists (`has2`
+// for the second).
+template <int kCols, typename Tb>
+__device__ __forceinline__ void load_cols(const Tb* p, bool pair, bool has2,
+                                          float (&x)[kCols]) {
+  if constexpr (kCols == 1) {
+    x[0] = load_b(p);
+  } else {
+    static_assert(kCols == 2 && std::is_same<Tb, __nv_bfloat16>::value,
+                  "two columns a thread are for bf16 B");
+    if (pair) {  // a bf16 is the top half of the fp32 with the same value
+      const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
+      x[0] = __uint_as_float(u << 16);
+      x[1] = __uint_as_float(u & 0xffff0000u);
+    } else {
+      x[0] = load_b(p);
+      x[1] = has2 ? load_b(p + 1) : 0.f;
+    }
+  }
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // First K-block of slice s of a window of `len` blocks from k_lo, cut
 // into ns slices.
@@ -90,86 +181,163 @@ __device__ __forceinline__ int slice_start(int k_lo, int len, int ns, int s) {
 
 // cp.async of the column ids and values of the chunk of `cnt` vectors at
 // t0 into one ring slot, by the `nthr` threads of the ring (thread tid),
-// through L1.
-template <int V>
+// through L1: the values 16 bytes at a time when vec16 (every chunk's
+// values then start and end on 16 bytes), else a float at a time, or for
+// narrower values by plain loads (the barrier before the chunk is summed
+// orders them as it orders the copies).
+template <int V, typename Tv, typename Idx>
 __device__ __forceinline__ void issue_chunk(int t0, int cnt, int tid,
                                             int nthr, const int* cols,
-                                            const float* vh, bool vec16,
-                                            int* sc, float* sv) {
+                                            const Tv* vh, bool vec16,
+                                            int* sc, Tv* sv) {
   for (int i = tid; i < cnt; i += nthr) cp_async4(sc + i, cols + t0 + i);
-  const float* src = vh + t0 * V;
-  if (vec16) {
-    for (int i = tid; i < cnt * (V / 4); i += nthr) {
-      cp_async16_ca(sv + 4 * i, src + 4 * i);
+  const Tv* src = vh + static_cast<Idx>(t0) * V;
+  constexpr int kPer16 = 16 / sizeof(Tv);
+  if (vec16) {  // cnt * V is then a multiple of kPer16
+    for (int i = tid; i < cnt * V / kPer16; i += nthr) {
+      cp_async16_ca(sv + kPer16 * i, src + kPer16 * i);
     }
-  } else {
+  } else if constexpr (sizeof(Tv) == 4) {
     for (int i = tid; i < cnt * V; i += nthr) cp_async4(sv + i, src + i);
+  } else {
+    for (int i = tid; i < cnt * V; i += nthr) sv[i] = src[i];
   }
 }
 
-// acc[v] += vals[v] * bv for the V values of one vector in shared memory.
-template <int V>
-__device__ __forceinline__ void fma_vector(float (&acc)[V], const float* vals,
-                                           float bv) {
+// acc[c * V + v] += vals[v] * bv[c] for the V values of one vector in
+// shared memory and this thread's kCols columns: each value is read once.
+template <int V, int kCols>
+__device__ __forceinline__ void fma_value(float (&acc)[kCols * V], int v,
+                                          float a, const float (&bv)[kCols]) {
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    acc[c * V + v] = fmaf(a, bv[c], acc[c * V + v]);
+  }
+}
+
+template <int V, int kCols>
+__device__ __forceinline__ void fma_vector(float (&acc)[kCols * V],
+                                           const float* vals,
+                                           const float (&bv)[kCols]) {
   const float4* a4 = reinterpret_cast<const float4*>(vals);
 #pragma unroll
   for (int q = 0; q < V / 4; ++q) {
     const float4 a = a4[q];
-    acc[4 * q] = fmaf(a.x, bv, acc[4 * q]);
-    acc[4 * q + 1] = fmaf(a.y, bv, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(a.z, bv, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(a.w, bv, acc[4 * q + 3]);
+    fma_value<V, kCols>(acc, 4 * q, a.x, bv);
+    fma_value<V, kCols>(acc, 4 * q + 1, a.y, bv);
+    fma_value<V, kCols>(acc, 4 * q + 2, a.z, bv);
+    fma_value<V, kCols>(acc, 4 * q + 3, a.w, bv);
+  }
+}
+
+template <int V, int kCols>
+__device__ __forceinline__ void fma_vector(float (&acc)[kCols * V],
+                                           const __nv_bfloat16* vals,
+                                           const float (&bv)[kCols]) {
+  // a bf16 is the top half of the fp32 with the same value
+  const uint4* a8 = reinterpret_cast<const uint4*>(vals);
+#pragma unroll
+  for (int q = 0; q < V / 8; ++q) {
+    const uint4 u = a8[q];
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      fma_value<V, kCols>(acc, 8 * q + 2 * j, __uint_as_float(w[j] << 16), bv);
+      fma_value<V, kCols>(acc, 8 * q + 2 * j + 1,
+                          __uint_as_float(w[j] & 0xffff0000u), bv);
+    }
+  }
+}
+
+// cp.async of the K-block scale of each of the chunk's `cnt` vectors at t0
+// (int8 values) into the ring slot's scales.
+__device__ __forceinline__ void issue_scales(int t0, int cnt, int tid,
+                                             int nthr, int k_blk,
+                                             const float* scales, float* ss) {
+  for (int i = tid; i < cnt; i += nthr) {
+    cp_async4(ss + i, scales + (t0 + i) / k_blk);
   }
 }
 
 // A group walks slices [s_lo, s_hi) of the window of `len` K-blocks at
 // k_lo cut into ns slices and adds each slice's running sums into part
 // (kFold; without it, one slice whose sum becomes part); this thread takes
-// its column, the chunks through its warp's ring, or with kBlockRing (a
-// block of one group) through the block's.
-template <int V, bool kFold, bool kBlockRing>
+// its kCols columns from col (pair, has2: see load_cols), the chunks
+// through its warp's ring, or with kBlockRing (a block of one group)
+// through the block's.
+template <int V, bool kFold, bool kBlockRing, int kCols, typename Tv,
+          typename Tb, typename Idx>
 __device__ __forceinline__ void walk_slices(
     int k_lo, int len, int ns, int s_lo, int s_hi, int k_blk,
-    const int* __restrict__ cols, const float* __restrict__ vh,
-    const float* __restrict__ bh, int n, int col, bool active,
-    WindowRing<V>& ring, float (&part)[V]) {
+    const int* __restrict__ cols, const Tv* __restrict__ vh,
+    const float* __restrict__ scales, const Tb* __restrict__ bh, int n,
+    int col, bool active, bool pair, bool has2, WindowRing<V, Tv>& ring,
+    float (&part)[kCols * V]) {
   const int tid = kBlockRing ? threadIdx.x : threadIdx.x & 31;
   const int nthr = kBlockRing ? blockDim.x : 32;
   const int t_lo = slice_start(k_lo, len, ns, s_lo) * k_blk;
   const int t_hi = slice_start(k_lo, len, ns, s_hi) * k_blk;
   const int nchunks = (t_hi - t_lo + kSpmmChunk - 1) / kSpmmChunk;
-  const bool vec16 = (reinterpret_cast<uintptr_t>(vh) & 15) == 0;
+  // chunks start at K-block boundaries (or 32 vectors after one), so the
+  // values of every chunk are 16-byte aligned when a K-block's are
+  const bool vec16 = (reinterpret_cast<uintptr_t>(vh) & 15) == 0 &&
+                     (k_blk * V * sizeof(Tv)) % 16 == 0;
   auto chunk_len = [&](int t0) { return min(t_hi - t0, kSpmmChunk); };
   auto issue = [&](int ci) {
     const int t0 = t_lo + ci * kSpmmChunk;
-    issue_chunk<V>(t0, chunk_len(t0), tid, nthr, cols, vh, vec16,
-                   ring.cols[ci % 3], ring.vals[ci % 3]);
+    issue_chunk<V, Tv, Idx>(t0, chunk_len(t0), tid, nthr, cols, vh, vec16,
+                            ring.cols[ci % 3], ring.vals[ci % 3]);
+    if constexpr (std::is_same<Tv, int8_t>::value) {
+      issue_scales(t0, chunk_len(t0), tid, nthr, k_blk, scales,
+                   ring.scl[ci % 3]);
+    }
   };
+  auto ring_sync = [] {
+    if (kBlockRing) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
+  };
+  constexpr bool kInt8 = std::is_same<Tv, int8_t>::value;
   if (nchunks > 0) issue(0);
   if (nchunks > 1) issue(1);
   cp_async_commit();
+  if constexpr (kInt8) {  // chunk 0 in fp32 before the loop
+    if (nchunks > 0) {
+      cp_async_wait_all();
+      ring_sync();
+      ring.dequantize(0, chunk_len(t_lo), tid, nthr);
+    }
+  }
 
-  float acc[V];
+  constexpr int kSums = kCols * V;
+  float acc[kSums];
 #pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int v = 0; v < kSums; ++v) acc[v] = 0.f;
   int s = s_lo;
   int fold_at = slice_start(k_lo, len, ns, s + 1) * k_blk;
   for (int ci = 0; ci < nchunks; ++ci) {
     // Chunks ci and ci + 1 have landed and the ring's threads are done
     // with chunk ci - 1: its slot takes chunk ci + 2, in flight while ci
     // is summed.
+    // (int8: chunk ci's fp32 values, written before the barrier, are
+    // visible; chunk ci + 1 is dequantized into the other fp32 slot, read
+    // last before the barrier.)
     cp_async_wait_all();
-    if (kBlockRing) {
-      __syncthreads();
-    } else {
-      __syncwarp();
-    }
+    ring_sync();
     if (ci + 2 < nchunks) issue(ci + 2);
     cp_async_commit();
+    if constexpr (kInt8) {
+      if (ci + 1 < nchunks) {
+        ring.dequantize(ci + 1, chunk_len(t_lo + (ci + 1) * kSpmmChunk), tid,
+                        nthr);
+      }
+    }
 
     const int t0 = t_lo + ci * kSpmmChunk;
     const int cnt = chunk_len(t0);
-    const float* sv = ring.vals[ci % 3];
+    const auto* sv = ring.chunk(ci);
     const int* sc = ring.cols[ci % 3];
     int r0 = 0;
     while (r0 < cnt) {
@@ -180,24 +348,28 @@ __device__ __forceinline__ void walk_slices(
         // values are read from shared memory one vector at a time, so the
         // registers hold 8 B values, not 8 vectors)
         for (; r + kSpmmUnroll <= r1; r += kSpmmUnroll) {
-          float bv[kSpmmUnroll];
+          float bv[kSpmmUnroll][kCols];
 #pragma unroll
           for (int u = 0; u < kSpmmUnroll; ++u) {
-            bv[u] = __ldg(bh + (sc[r + u] * n + col));
+            load_cols<kCols>(bh + (static_cast<Idx>(sc[r + u]) * n + col),
+                             pair, has2, bv[u]);
           }
 #pragma unroll
           for (int u = 0; u < kSpmmUnroll; ++u) {
-            fma_vector<V>(acc, sv + (r + u) * V, bv[u]);
+            fma_vector<V, kCols>(acc, sv + (r + u) * V, bv[u]);
           }
         }
         for (; r < r1; ++r) {
-          fma_vector<V>(acc, sv + r * V, __ldg(bh + (sc[r] * n + col)));
+          float bv[kCols];
+          load_cols<kCols>(bh + (static_cast<Idx>(sc[r]) * n + col), pair,
+                           has2, bv);
+          fma_vector<V, kCols>(acc, sv + r * V, bv);
         }
       }
       r0 = r1;
       if (kFold && t0 + r1 == fold_at) {  // slice s ends: fold it
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
+        for (int v = 0; v < kSums; ++v) {
           part[v] += acc[v];
           acc[v] = 0.f;
         }
@@ -208,63 +380,82 @@ __device__ __forceinline__ void walk_slices(
   }
   if (!kFold) {  // one slice: its running sum is the result
 #pragma unroll
-    for (int v = 0; v < V; ++v) part[v] = acc[v];
+    for (int v = 0; v < kSums; ++v) part[v] = acc[v];
   }
 }
 
-// Stores the V rows of window w at column col of C (rows < m).
-template <int V>
-__device__ __forceinline__ void store_rows(float* ch, int w, int m, int n,
-                                           int col, const float (&x)[V]) {
+// Stores the V rows of window w at the kCols columns from col of C (rows
+// < m, columns < n).
+template <int V, int kCols, typename Tb>
+__device__ __forceinline__ void store_rows(Tb* ch, int w, int m, int n,
+                                           int col,
+                                           const float (&x)[kCols * V]) {
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int row = w * V + v;
-    if (row < m) ch[static_cast<int64_t>(row) * n + col] = x[v];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (row < m && col + c < n) {
+        ch[static_cast<int64_t>(row) * n + col + c] = from_f32<Tb>(x[c * V + v]);
+      }
+    }
   }
 }
 
 // Arguments of both variants of the kernel.
+template <typename Tv, typename Tb>
 struct WindowArgs {
   const int* win_ptr;
   const int* cols;
-  const float* vals;
-  const float* b;
-  float* c;
+  const Tv* vals;
+  const float* scales;   // (NB,) per-K-block scales of int8 values, else null
+  const Tb* b;
+  Tb* c;
   const int* split_ids;  // the plan's long windows, then its medium ones
   int m, n, num_windows, k_blk, n_tile, groups, cluster, split_blk;
   int num_long, num_medium;
   int64_t vals_hstride, b_hstride;
 };
 
-// One block of G groups of n_tile threads per (task rank, column tile,
-// head); the grid's x is tasks * cluster, clusters along x.  kSplit false:
-// a plan without split windows, every task a pack, in fewer registers;
-// kBlockRing: its block is one group that shares one ring.
-template <int V, bool kSplit, bool kBlockRing>
-__global__ void __launch_bounds__(kSpmmMaxThreads,
-                                  kSplit || V == 16 ? 2 : 3)
-spmm_window_kernel(const WindowArgs a) {
+// One block of G groups of n_tile / kCols threads per (task rank, column
+// tile, head); the grid's x is tasks * cluster, clusters along x.  kSplit
+// false: a plan without split windows, every task a pack, in fewer
+// registers; kBlockRing: its block is one group that shares one ring.
+// Two columns a thread (kCols = 2, never with kSplit) hold twice the sums
+// in half the threads: the register budget a thread doubles where V = 8.
+template <int V, bool kSplit, bool kBlockRing, int kCols, typename Tv,
+          typename Tb, typename Idx>
+__global__ void __launch_bounds__(kSpmmMaxThreads / kCols,
+                                  kCols == 2 ? (V == 16 ? 2 : 4)
+                                             : (kSplit || V == 16 ? 2 : 3))
+spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
   extern __shared__ __align__(16) float smem[];
-  const int g = threadIdx.x / a.n_tile;
-  const int gt = threadIdx.x - g * a.n_tile;
-  const int col = blockIdx.y * a.n_tile + gt;
+  static_assert(kCols == 1 || !kSplit, "a split plan: a column a thread");
+  constexpr int kSums = kCols * V;
+  const int tpg = a.n_tile / kCols;  // threads a group
+  const int g = threadIdx.x / tpg;
+  const int lc = (threadIdx.x - g * tpg) * kCols;  // first column in tile
+  const int col = blockIdx.y * a.n_tile + lc;
   const int64_t h = blockIdx.z;
   const bool active = col < a.n;
-  const float* vh = a.vals + h * a.vals_hstride;
-  const float* bh = a.b + h * a.b_hstride;
-  float* ch = a.c + h * static_cast<int64_t>(a.m) * a.n;
+  const Tv* vh = a.vals + h * a.vals_hstride;
+  const Tb* bh = a.b + h * a.b_hstride;
+  const bool has2 = col + 1 < a.n;
+  const bool pair = kCols == 2 && has2 && a.n % 2 == 0 &&
+                    (reinterpret_cast<uintptr_t>(bh) & 3) == 0;
+  Tb* ch = a.c + h * static_cast<int64_t>(a.m) * a.n;
   const int nwarps = blockDim.x >> 5;
-  auto* rings = reinterpret_cast<WindowRing<V>*>(smem);
-  WindowRing<V>& ring = rings[kBlockRing ? 0 : threadIdx.x >> 5];
+  auto* rings = reinterpret_cast<WindowRing<V, Tv>*>(smem);
+  WindowRing<V, Tv>& ring = rings[kBlockRing ? 0 : threadIdx.x >> 5];
   const int cluster = kSplit ? a.cluster : 1;
   const int task = blockIdx.x / cluster;
   const int rank = blockIdx.x - task * cluster;
   const int num_long = kSplit ? a.num_long : 0;
   const int medium_tasks = kSplit ? (a.num_medium + cluster - 1) / cluster : 0;
 
-  float part[V];
+  float part[kSums];
 #pragma unroll
-  for (int v = 0; v < V; ++v) part[v] = 0.f;
+  for (int v = 0; v < kSums; ++v) part[v] = 0.f;
 
   if (task >= num_long + medium_tasks) {  // a pack: one window per group
     const int w =
@@ -273,9 +464,10 @@ spmm_window_kernel(const WindowArgs a) {
     const int k_lo = a.win_ptr[w];
     const int len = a.win_ptr[w + 1] - k_lo;
     if (kSplit && len > a.split_blk) return;  // its own task
-    walk_slices<V, false, kBlockRing>(k_lo, len, 1, 0, 1, a.k_blk, a.cols,
-                                      vh, bh, a.n, col, active, ring, part);
-    if (active) store_rows<V>(ch, w, a.m, a.n, col, part);
+    walk_slices<V, false, kBlockRing, kCols, Tv, Tb, Idx>(
+        k_lo, len, 1, 0, 1, a.k_blk, a.cols, vh, a.scales, bh, a.n, col,
+        active, pair, has2, ring, part);
+    if (active) store_rows<V, kCols>(ch, w, a.m, a.n, col, part);
     return;
   }
   if constexpr (kSplit) {
@@ -291,29 +483,28 @@ spmm_window_kernel(const WindowArgs a) {
     const int ns = (len + a.split_blk - 1) / a.split_blk;
     const int tg = is_long ? cluster * a.groups : a.groups;
     const int j = is_long ? rank * a.groups + g : g;
-    walk_slices<V, true, false>(k_lo, len, ns,
-                                static_cast<int>((int64_t(j) * ns) / tg),
-                                static_cast<int>((int64_t(j + 1) * ns) / tg),
-                                a.k_blk, a.cols, vh, bh, a.n, col, active,
-                                ring, part);
+    walk_slices<V, true, false, kCols, Tv, Tb, Idx>(
+        k_lo, len, ns, static_cast<int>((int64_t(j) * ns) / tg),
+        static_cast<int>((int64_t(j + 1) * ns) / tg), a.k_blk, a.cols, vh,
+        a.scales, bh, a.n, col, active, pair, has2, ring, part);
 
-    // The block's sum, in group order: thread (g, gt) adds rows v = g,
+    // The block's sum, in group order: thread (g, lc) adds rows v = g,
     // g + G, ... of its column over the groups.
     float* red = reinterpret_cast<float*>(rings + nwarps);  // (G, V, n_tile)
     const int nt = a.n_tile;
 #pragma unroll
-    for (int v = 0; v < V; ++v) red[(g * V + v) * nt + gt] = part[v];
+    for (int v = 0; v < V; ++v) red[(g * V + v) * nt + lc] = part[v];
     __syncthreads();
     for (int v = g; v < V; v += a.groups) {
-      float s = red[v * nt + gt];
-      for (int g2 = 1; g2 < a.groups; ++g2) s += red[(g2 * V + v) * nt + gt];
+      float s = red[v * nt + lc];
+      for (int g2 = 1; g2 < a.groups; ++g2) s += red[(g2 * V + v) * nt + lc];
       if (!is_long) {
         const int row = w * V + v;
         if (active && row < a.m) {
-          ch[static_cast<int64_t>(row) * a.n + col] = s;
+          ch[static_cast<int64_t>(row) * a.n + col] = from_f32<Tb>(s);
         }
       } else {
-        red[v * nt + gt] = s;
+        red[v * nt + lc] = s;
       }
     }
     if (!is_long) return;
@@ -326,13 +517,13 @@ spmm_window_kernel(const WindowArgs a) {
     cl.sync();
     if (rank == 0) {
       for (int v = g; v < V; v += a.groups) {
-        float s = red[v * nt + gt];
+        float s = red[v * nt + lc];
         for (int r = 1; r < cluster; ++r) {
-          s += cl.map_shared_rank(red, r)[v * nt + gt];
+          s += cl.map_shared_rank(red, r)[v * nt + lc];
         }
         const int row = w * V + v;
         if (active && row < a.m) {
-          ch[static_cast<int64_t>(row) * a.n + col] = s;
+          ch[static_cast<int64_t>(row) * a.n + col] = from_f32<Tb>(s);
         }
       }
     }
@@ -341,28 +532,36 @@ spmm_window_kernel(const WindowArgs a) {
 }
 
 // Launches the kernel over `heads` heads on `stream`.  win_ptr (W + 1,)
-// int32, cols (NNZP,) int32, vals (NNZP, V) f32 per head or shared, b
-// (K, N) f32 row-major per head or shared, c (heads, M, N) f32 row-major,
-// split_ids (num_long + num_medium,) int32 or null when both are 0.  A
-// block is `groups` groups of n_tile threads (n_tile a multiple of 32,
-// groups * n_tile at most 512); `cluster` blocks form one cluster.  A
-// cluster size or shared-memory size the card refuses is returned as the
-// launch's error.
-inline cudaError_t launch_spmm_window(
-    const void* win_ptr, const void* cols, const void* vals, const void* b,
-    void* c, const void* split_ids, int m, int n, int num_windows, int heads,
-    int v, int k_blk, int n_tile, int groups, int cluster, int split_blk,
-    int num_long, int num_medium, int64_t vals_hstride, int64_t b_hstride,
-    void* stream) {
+// int32, cols (NNZP,) int32, vals (NNZP, V) Tv per head or shared, scales
+// (NB,) fp32 for int8 values (else unused), b (K, N) Tb row-major per head
+// or shared, c (heads, M, N) Tb row-major, split_ids (num_long +
+// num_medium,) int32 or null when both are 0.  A block is `groups` groups
+// of a tile of n_tile columns (n_tile a multiple of 32, groups * n_tile at
+// most 512), a thread a column, or two for bf16 B in a plan without split
+// windows when n_tile is a multiple of 64 (a group then still fills whole
+// warps); `cluster` blocks form one cluster.  A cluster size or
+// shared-memory size the card refuses is returned as the launch's error.
+template <typename Tv, typename Tb, typename Idx>
+cudaError_t launch_spmm_window(
+    const void* win_ptr, const void* cols, const void* vals,
+    const void* scales, const void* b, void* c, const void* split_ids, int m,
+    int n, int num_windows, int heads, int v, int k_blk, int n_tile,
+    int groups, int cluster, int split_blk, int num_long, int num_medium,
+    int64_t vals_hstride, int64_t b_hstride, void* stream) {
   if (n_tile % 32 != 0 || groups < 1 || groups * n_tile > kSpmmMaxThreads ||
       cluster < 1 || cluster > kSpmmMaxCluster || split_blk < 1 ||
-      (num_long > 0 && cluster < 2)) {
+      (num_long > 0 && cluster < 2) ||
+      (std::is_same<Tv, int8_t>::value && scales == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const bool split = num_long + num_medium > 0;
+  constexpr bool kPairs = std::is_same<Tb, __nv_bfloat16>::value;
+  // columns a thread
+  const int per_thread = kPairs && !split && n_tile % 64 == 0 ? 2 : 1;
+  const int threads = groups * n_tile / per_thread;
   // a plan without split windows and a block of one group of several
   // warps: one ring for the block
-  const bool block_ring = !split && n_tile > 32;
+  const bool block_ring = !split && n_tile / per_thread > 32;
   if (block_ring && groups != 1) return cudaErrorInvalidValue;
   const int64_t medium_tasks = (num_medium + cluster - 1) / cluster;
   const int64_t pack = static_cast<int64_t>(cluster) * groups;
@@ -370,19 +569,20 @@ inline cudaError_t launch_spmm_window(
       num_long + medium_tasks + (num_windows + pack - 1) / pack;
   if (tasks * cluster > 0x7fffffff) return cudaErrorInvalidValue;
 
-  const WindowArgs args{static_cast<const int*>(win_ptr),
-                        static_cast<const int*>(cols),
-                        static_cast<const float*>(vals),
-                        static_cast<const float*>(b),
-                        static_cast<float*>(c),
-                        static_cast<const int*>(split_ids),
-                        m, n, num_windows, k_blk, n_tile, groups, cluster,
-                        split_blk, num_long, num_medium, vals_hstride,
-                        b_hstride};
+  const WindowArgs<Tv, Tb> args{static_cast<const int*>(win_ptr),
+                                static_cast<const int*>(cols),
+                                static_cast<const Tv*>(vals),
+                                static_cast<const float*>(scales),
+                                static_cast<const Tb*>(b),
+                                static_cast<Tb*>(c),
+                                static_cast<const int*>(split_ids),
+                                m, n, num_windows, k_blk, n_tile, groups,
+                                cluster, split_blk, num_long, num_medium,
+                                vals_hstride, b_hstride};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tasks * cluster),
                      (n + n_tile - 1) / n_tile, heads);
-  cfg.blockDim = dim3(groups * n_tile);
+  cfg.blockDim = dim3(threads);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   cfg.attrs = attr;
@@ -397,8 +597,7 @@ inline cudaError_t launch_spmm_window(
   auto run = [&](auto kernel, size_t ring_bytes) {
     // a ring per warp (or one for the block), and for split windows the
     // groups' sums
-    cfg.dynamicSmemBytes = (block_ring ? 1 : groups * n_tile / 32) *
-                               ring_bytes +
+    cfg.dynamicSmemBytes = (block_ring ? 1 : threads / 32) * ring_bytes +
                            (split ? sizeof(float) * groups * v * n_tile : 0);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -411,18 +610,28 @@ inline cudaError_t launch_spmm_window(
     if (err != cudaSuccess) cudaGetLastError();  // leave no sticky error
     return err;
   };
-  if (v == 8) {
-    constexpr size_t ring = sizeof(WindowRing<8>);
-    if (split) return run(spmm_window_kernel<8, true, false>, ring);
-    if (block_ring) return run(spmm_window_kernel<8, false, true>, ring);
-    return run(spmm_window_kernel<8, false, false>, ring);
-  }
-  if (v == 16) {
-    constexpr size_t ring = sizeof(WindowRing<16>);
-    if (split) return run(spmm_window_kernel<16, true, false>, ring);
-    if (block_ring) return run(spmm_window_kernel<16, false, true>, ring);
-    return run(spmm_window_kernel<16, false, false>, ring);
-  }
+  auto lean = [&](auto vt, auto ct) {  // a plan without split windows
+    constexpr int V = decltype(vt)::value;
+    constexpr int C = decltype(ct)::value;
+    constexpr size_t ring = sizeof(WindowRing<V, Tv>);
+    if (block_ring) {
+      return run(spmm_window_kernel<V, false, true, C, Tv, Tb, Idx>, ring);
+    }
+    return run(spmm_window_kernel<V, false, false, C, Tv, Tb, Idx>, ring);
+  };
+  auto by_cols = [&](auto vt) {
+    constexpr int V = decltype(vt)::value;
+    if (split) {
+      return run(spmm_window_kernel<V, true, false, 1, Tv, Tb, Idx>,
+                 sizeof(WindowRing<V, Tv>));
+    }
+    if constexpr (kPairs) {
+      if (per_thread == 2) return lean(vt, std::integral_constant<int, 2>{});
+    }
+    return lean(vt, std::integral_constant<int, 1>{});
+  };
+  if (v == 8) return by_cols(std::integral_constant<int, 8>{});
+  if (v == 16) return by_cols(std::integral_constant<int, 16>{});
   return cudaErrorInvalidValue;
 }
 

@@ -27,7 +27,11 @@ is blocked with ``k_blk`` on the dense operand's device.  The flags follow
 the reference's: ``differentiable`` impls run backward through the
 autograd Functions of ``core/autodiff.py``; ``batched`` impls take a
 leading head dimension in one launch.  The attention ``cuda_staged`` and
-the two SpMM baselines are forward only, as in the reference.
+the two SpMM baselines are forward only, as in the reference.  The
+``precisions`` follow the kernels' variants (DESIGN.md §13): the ``cuda``
+SpMM takes fp32, bf16 and int8, the ``cuda`` SDDMM and the fused
+attention fp32 and bf16, every other impl fp32 (its narrow variants are
+ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -59,16 +63,19 @@ def _ensure_blocked(fmt, k_blk: int, device) -> BlockedMEBCRS:
 
 
 def _spmm_cuda_adapter(fmt, b, *, k_blk: int = 8, n_blk: int = 128):
-    return spmm_cuda(_ensure_blocked(fmt, k_blk, b.device), b, n_blk=n_blk)
+    return spmm_cuda(_ensure_blocked(fmt, k_blk, b.device), b.contiguous(),
+                     n_blk=n_blk)
 
 
 def _sddmm_cuda_adapter(fmt, q, k, *, k_blk: int = 8, f_blk=None):
     del f_blk  # the kernel walks the whole feature dimension in one pass
-    return sddmm_cuda(_ensure_blocked(fmt, k_blk, q.device), q, k)
+    return sddmm_cuda(_ensure_blocked(fmt, k_blk, q.device), q.contiguous(),
+                      k.contiguous())
 
 
 def _attention_cuda_adapter(fmt, q, k, v, *, scale=None, k_blk: int = 8):
-    return attention_cuda(_ensure_blocked(fmt, k_blk, q.device), q, k, v,
+    return attention_cuda(_ensure_blocked(fmt, k_blk, q.device),
+                          q.contiguous(), k.contiguous(), v.contiguous(),
                           scale=scale)
 
 
@@ -118,10 +125,13 @@ def _spmm_noncoalesced_adapter(fmt, b, *, k_blk: int = 8, n_blk=None):
     return spmm_noncoalesced_cuda(_ensure_blocked(fmt, k_blk, b.device), b)
 
 
-_dispatch.register("spmm", "cuda", _spmm_cuda_adapter, differentiable=True)
-_dispatch.register("sddmm", "cuda", _sddmm_cuda_adapter, differentiable=True)
+_dispatch.register("spmm", "cuda", _spmm_cuda_adapter, differentiable=True,
+                   precisions=("fp32", "bf16", "int8"))
+_dispatch.register("sddmm", "cuda", _sddmm_cuda_adapter, differentiable=True,
+                   precisions=("fp32", "bf16"))
 _dispatch.register("attention", "cuda_fused_attn", _attention_cuda_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16"))
 # Head grids: one launch for every head, bitwise-equal to a launch per head.
 _dispatch.register("spmm", "cuda_batched", _spmm_batched_adapter,
                    differentiable=True, batched=True)

@@ -4,7 +4,10 @@ Counterpart of ``repro.kernels.sddmm_pallas.sddmm_pallas``, which launches
 ``_fused_sddmm_kernel``.  ``sddmm_cuda`` launches the hand-written kernel
 on CUDA tensors and counts each launch in ``sddmm_cuda.launches``; on CPU
 tensors it runs :func:`sddmm_plain`, ``core.sddmm.sddmm_blocked``'s
-gather-einsum.
+gather-einsum.  Q and K are both float32 or both bfloat16 (the
+reference's bf16 path): the dots are fp32 and the result comes back in
+Q's dtype.  ``sddmm_cuda.variant_launches`` counts the launches of each
+variant (``"fp32"``, ``"bf16"``) beside the total in ``launches``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ from repro_torch.core.sddmm import _sddmm_blocked_impl
 
 from . import _build, _checks
 
-__all__ = ["sddmm_cuda", "sddmm_plain"]
+__all__ = ["sddmm_cuda", "sddmm_plain", "VARIANTS"]
+
+# (Q, K) dtypes of the kernel's variants; S comes back in Q's
+VARIANTS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16))
 
 
 def sddmm_plain(blocked: BlockedMEBCRS, q: torch.Tensor,
@@ -28,10 +34,11 @@ def sddmm_plain(blocked: BlockedMEBCRS, q: torch.Tensor,
 
 def sddmm_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
                k: torch.Tensor) -> torch.Tensor:
-    """Sampled ``Q (M, F) @ K (Mc, F)ᵀ`` at ``blocked``'s pattern, fp32,
-    returned as blocked-layout values ``(NNZP, V)``."""
+    """Sampled ``Q (M, F) @ K (Mc, F)ᵀ`` at ``blocked``'s pattern (fp32 or
+    bf16 operands, fp32 dots), returned as blocked-layout values
+    ``(NNZP, V)`` in Q's dtype."""
     op = "sddmm_cuda"
-    _checks.forward_inputs(op, q=q, k=k)
+    _checks.forward_inputs(op, VARIANTS, q=q, k=k)
     tensors = dict(block_win=blocked.block_win, cols=blocked.cols,
                    mask=blocked.mask, q=q, k=k)
     if _checks.on_cpu(op, **tensors):
@@ -52,15 +59,17 @@ def sddmm_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     nnzp = blocked.cols.shape[0]
     if max(m, mc, q.shape[1], blocked.num_blocks) > _checks.int32_max:
         raise ValueError(f"{op}: shape too large for the kernel's grid")
-    out = torch.empty((nnzp, v), dtype=torch.float32, device=q.device)
-    err = _build.library("sddmm").sddmm_f32(
+    out = torch.empty((nnzp, v), dtype=q.dtype, device=q.device)
+    err = _build.library("sddmm").sddmm_launch(
         blocked.block_win.data_ptr(), blocked.cols.data_ptr(), q.data_ptr(),
         k.data_ptr(), blocked.mask.data_ptr(), out.data_ptr(), m, q.shape[1],
-        blocked.num_blocks, v, blocked.k_blk,
+        blocked.num_blocks, v, blocked.k_blk, _checks.dtype_code(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("sddmm", err)
     sddmm_cuda.launches += 1
+    sddmm_cuda.variant_launches[_checks.variant(q)] += 1
     return out
 
 
 sddmm_cuda.launches = 0
+sddmm_cuda.variant_launches = {"fp32": 0, "bf16": 0}

@@ -25,7 +25,7 @@ from repro_torch.core.spmm import _spmm_blocked_impl
 
 from . import _build, _checks
 from ._window import MAX_THREADS, SPLIT_BLK, window_plan
-from .spmm_cuda import spmm_cuda
+from .spmm_cuda import spmm_cuda, wide_index
 
 __all__ = ["spmm_batched_cuda", "spmm_batched_plain"]
 
@@ -61,21 +61,21 @@ def spmm_batched_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
                          f"[32, {MAX_THREADS}]")
     n = b.shape[-1]
     n_tile = min(n_blk, max(32, -(-n // 32) * 32))
-    # one head's B (K x N) and vals (NNZP x V) are indexed in 32 bits
-    if (max(m, n, k * n, blocked.vals.shape[-2] * v) > _checks.int32_max
-            or -(-n // n_tile) > 65535 or h > 65535):
+    if (max(m, n) > _checks.int32_max or -(-n // n_tile) > 65535
+            or h > 65535):
         raise ValueError(f"{op}: shape too large for the kernel's grid")
     c = torch.empty((h, m, n), dtype=torch.float32, device=b.device)
     if m == 0 or n == 0:
         return c
     plan = window_plan(op, blocked.win_ptr, SPLIT_BLK, n_tile)
-    err = _build.library("spmm_batched").spmm_batched_f32(
+    err = _build.library("spmm_batched").spmm_batched_launch(
         blocked.win_ptr.data_ptr(), blocked.cols.data_ptr(),
         blocked.vals.data_ptr(), b.data_ptr(), c.data_ptr(),
         plan.split_ids.data_ptr(), m, n, plan.num_windows, h, v,
         blocked.k_blk, n_tile, plan.groups, plan.cluster, plan.split_blk,
         plan.num_long, plan.num_medium,
         _checks.head_stride(blocked.vals, 2), _checks.head_stride(b, 2),
+        int(wide_index(k * n, blocked.vals.shape[-2] * v)),
         torch.cuda.current_stream(b.device).cuda_stream)
     _build.check_launch("spmm_batched", err)
     spmm_batched_cuda.launches += 1

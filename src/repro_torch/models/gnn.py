@@ -24,6 +24,15 @@ Functions whose backward runs the dispatched duality on the same kernels
 plain ``blocked`` impl has a gradient, as in the reference.
 ``gnn_loss`` gives the masked loss and accuracy; :func:`make_train_step`
 the SGD-with-momentum step.
+
+Precision (DESIGN.md §13): ``GNNConfig.dtype = torch.bfloat16`` runs the
+model in bf16 end to end (weights, features and adjacency values in bf16,
+the kernels' bf16 variants), as the reference's ``--dtype bf16``; an
+``ADPlan`` built with ``precision="int8"`` runs fp32 masters with int8
+adjacency values in the forward SpMMs and bf16 everywhere else.  A dense
+product of a bf16 activation and an fp32 weight runs in fp32, the type
+the reference promotes the pair to, and the logits go to fp32 before
+the loss.
 """
 
 from __future__ import annotations
@@ -86,6 +95,13 @@ def _edge_scores(adj: Adjacency, q: torch.Tensor, k: torch.Tensor,
                                     k_blk=adj.k_blk)
 
 
+def _matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` in the promoted type of the pair (a bf16 aggregation under
+    an int8 plan meets fp32 weights), as the reference's ``h @ w``."""
+    dtype = torch.promote_types(h.dtype, w.dtype)
+    return h.to(dtype) @ w.to(dtype)
+
+
 def gcn_forward(params: Dict, adj: Adjacency, x: torch.Tensor,
                 cfg: GNNConfig) -> torch.Tensor:
     """GCN logits; ``params = {"w": [(fan_in, fan_out), ...]}``."""
@@ -93,7 +109,7 @@ def gcn_forward(params: Dict, adj: Adjacency, x: torch.Tensor,
     n_layers = len(params["w"])
     for i, w in enumerate(params["w"]):
         h = _aggregate(adj, h, cfg)             # feature aggregation (SpMM)
-        h = h @ w                               # feature update (dense)
+        h = _matmul(h, w)                       # feature update (dense)
         if i < n_layers - 1:
             h = torch.relu(h)
     return h
@@ -102,7 +118,7 @@ def gcn_forward(params: Dict, adj: Adjacency, x: torch.Tensor,
 def agnn_forward(params: Dict, adj: Adjacency, x: torch.Tensor,
                  cfg: GNNConfig) -> torch.Tensor:
     """AGNN logits; ``params = {"w_in", "beta": [0-d, ...], "w_out"}``."""
-    h = torch.relu(x @ params["w_in"])
+    h = torch.relu(_matmul(x, params["w_in"]))
     for beta in params["beta"]:
         hn = h / torch.clamp(torch.linalg.vector_norm(h, dim=-1, keepdim=True),
                              min=1e-6)
@@ -114,7 +130,7 @@ def agnn_forward(params: Dict, adj: Adjacency, x: torch.Tensor,
             scores = _edge_scores(adj, hn, hn, cfg)      # cosine via SDDMM
             p = sparse_softmax(adj, beta * scores)
             h = _aggregate(adj, h, cfg, vals=p.to(h.dtype))
-    return h @ params["w_out"]
+    return _matmul(h, params["w_out"])
 
 
 class GCN(nn.Module):
@@ -191,7 +207,8 @@ def params_from_jax(cfg: GNNConfig, params: Dict, *, device=None) -> nn.Module:
 
     ``params`` is the JAX parameter pytree with numpy arrays as leaves:
     ``{"w": [...]}`` for GCN, ``{"w_in", "beta": [0-d], "w_out"}`` for
-    AGNN.
+    AGNN.  bf16 leaves (``ml_dtypes.bfloat16`` arrays, which torch does not
+    read) pass through float32, which holds every bf16 value exactly.
     """
     model = (GCN if cfg.model == "gcn" else AGNN)(cfg, device=device)
     if cfg.model == "gcn":
@@ -208,6 +225,8 @@ def params_from_jax(cfg: GNNConfig, params: Dict, *, device=None) -> nn.Module:
     with torch.no_grad():
         for p, arr in pairs:
             arr = np.asarray(arr)
+            if arr.dtype.kind not in "fiub":     # ml_dtypes.bfloat16
+                arr = arr.astype(np.float32)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"parameter shape {tuple(arr.shape)} does "
                                  f"not match the model's {tuple(p.shape)}")

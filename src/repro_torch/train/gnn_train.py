@@ -10,12 +10,16 @@ dispatched transpose-SpMM/SDDMM duality through the same kernels.
 
   PYTHONPATH=src python -m repro_torch.train.gnn_train [--graph GitHub]
   PYTHONPATH=src python -m repro_torch.train.gnn_train --steps 2 \\
-      --impl cuda --device cpu
+      --impl cuda --device cpu [--dtype bf16 | --int8]
       # smoke: one small config, asserts a finite, decreasing loss
 
-On the CPU the kernel impls run their kernels' plain versions.  The
-reference's bf16 runs wait for the port's precision axis (ROADMAP.md
-queue 1 item 10); every run here is fp32.
+The full run trains each model at the reference's (V, dtype) pairs,
+(8, f32), (16, f32) and (8, bf16).  ``--dtype bf16`` runs the smoke in
+bf16 end to end (format, features, weights and momentum), as the
+reference's; ``--int8`` keeps fp32 masters and builds the plan with
+``precision="int8"``: the forward SpMMs quantize the adjacency values
+per K-block, everything else runs at bf16 (DESIGN.md §13).  On the CPU
+the kernel impls run their kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -46,21 +50,27 @@ def make_task(g, seed: int = 0, num_classes: int = 8, in_dim: int = 64):
     return x, labels.astype(np.int64), train_mask
 
 
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
 def train_one(g, x_np, labels_np, mask_np, *, model: str, v: int, impl: str,
               epochs: int, num_classes: int = 8, in_dim: int = 64,
-              lr: float = 5e-3, device=None):
-    """Train one (model, V, impl) configuration for ``epochs`` steps.
+              lr: float = 5e-3, device=None, dtype=torch.float32,
+              precision=None):
+    """Train one (model, V, dtype, impl) configuration for ``epochs``
+    steps; ``precision`` is the plan's (``"int8"`` on fp32 masters).
     Returns the losses, the last step's accuracy and ms per step (host
     clock, ending in a synchronise on the card)."""
     device = resolve_device(device)
     cfg = GNNConfig(model=model, in_dim=in_dim,
                     hidden_dim=128 if model == "gcn" else 32,
                     num_classes=num_classes,
-                    num_layers=3 if model == "gcn" else 2, impl=impl)
+                    num_layers=3 if model == "gcn" else 2, impl=impl,
+                    dtype=dtype)
     fmt = from_coo(g.rows, g.cols, g.vals, (g.num_nodes, g.num_nodes),
-                   vector_size=v)
-    adj = ad_plan(fmt, impl=impl, device=device)
-    x = torch.from_numpy(x_np).to(device)
+                   vector_size=v, dtype=dtype)
+    adj = ad_plan(fmt, impl=impl, device=device, precision=precision)
+    x = torch.from_numpy(x_np).to(device=device, dtype=dtype)
     labels = torch.from_numpy(labels_np).to(device)
     mask = torch.from_numpy(mask_np).to(device)
     net = (GCN if model == "gcn" else AGNN)(cfg, device=device, seed=0)
@@ -90,8 +100,18 @@ def main(argv=None) -> None:
                          "and assert a finite loss decrease")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--dtype", default="f32", choices=sorted(DTYPES),
+                    help="format, feature and weight dtype of the smoke "
+                         "config (--steps): bf16 runs the kernels' bf16 "
+                         "variants end to end")
+    ap.add_argument("--int8", action="store_true",
+                    help="smoke config on fp32 masters with an int8 plan: "
+                         "per-K-block int8 adjacency values in the forward "
+                         "SpMMs, bf16 elsewhere")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.int8 and args.dtype != "f32":
+        ap.error("--int8 keeps fp32 masters; it takes --dtype f32")
 
     if args.steps is not None:
         scale = min(args.scale, 0.002)
@@ -100,8 +120,11 @@ def main(argv=None) -> None:
         x, labels, mask = make_task(g)
         losses, _, dt = train_one(
             g, x, labels, mask, model=model, v=8, impl=args.impl,
-            epochs=args.steps, lr=5e-2, device=device)
-        print(f"smoke {model} impl={args.impl} device={device}: loss "
+            epochs=args.steps, lr=5e-2, device=device,
+            dtype=DTYPES[args.dtype],
+            precision="int8" if args.int8 else None)
+        mode = "int8 plan" if args.int8 else args.dtype
+        print(f"smoke {model} impl={args.impl} {mode} device={device}: loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f} ({dt:.1f} ms/step)")
         assert all(np.isfinite(l) for l in losses), f"non-finite loss: {losses}"
         assert losses[-1] < losses[0], \
@@ -116,11 +139,12 @@ def main(argv=None) -> None:
     x, labels, mask = make_task(g)
     models = ["gcn", "agnn"] if args.model == "both" else [args.model]
     for model in models:
-        for v in (8, 16):
+        for v, dtype_name in ((8, "f32"), (16, "f32"), (8, "bf16")):
             losses, acc, dt = train_one(
                 g, x, labels, mask, model=model, v=v, impl=args.impl,
-                epochs=args.epochs, device=device)
-            print(f"  {model:4s} V={v:2d} f32 impl={args.impl}: "
+                epochs=args.epochs, device=device,
+                dtype=DTYPES[dtype_name])
+            print(f"  {model:4s} V={v:2d} {dtype_name:4s} impl={args.impl}: "
                   f"{dt:7.1f} ms/epoch | loss {losses[-1]:.4f} | "
                   f"train acc {acc:.3f}")
 

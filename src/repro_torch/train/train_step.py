@@ -24,7 +24,9 @@ def make_gnn_train_step(cfg, model: nn.Module, lr: float = 1e-2):
     The update is the reference's ``mom = 0.9 * mom + g; p -= lr * mom``
     from ``mom = 0``, which is exactly ``torch.optim.SGD(lr=lr,
     momentum=0.9)`` (``dampening=0``, no Nesterov, no weight decay: its
-    first step sets the buffer to ``g``).
+    first step sets the buffer to ``g``).  The momentum lives in each
+    parameter's dtype: bf16 for a bf16 model, as the reference's
+    ``zeros_like`` of bf16 parameters; an int8 plan trains fp32 masters.
 
     ``step(adj, x, labels, train_mask) -> (loss, acc)`` runs one step and
     returns the loss and accuracy before the update; the step's gradients

@@ -9,7 +9,12 @@ edge widths), the head-grid kernels and the non-coalesced SpMM bitwise
 against the one-head launches they stand for (the non-coalesced SpMM on
 the windows the SpMM does not split), the launch counters, the refusals
 of the wrappers, and gradients of a train step and of multi-head
-attention against the plain ``blocked`` impl.  They skip
+attention against the plain ``blocked`` impl.  The bf16 and int8
+variants of the window SpMM, the SDDMM and the fused attention are held
+to their plain versions within one bf16 ulp with at least 99% of the
+entries bitwise equal; the attention over value bands (DV > 128) and
+over the SDDMM/SpMM composition (D beyond its shared memory), and the
+window SpMM's 64-bit-index instantiation on a 4 GiB bf16 B.  They skip
 on a host without a CUDA device; on one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
@@ -19,7 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ad_plan, block_format, from_dense
+from repro_torch.core import (ad_plan, block_format, from_coo, from_dense,
+                              to_coo)
+from repro_torch.core.quantize import quantize_format
+from repro_torch.core.spmm import dequantized
 from repro_torch.core.sddmm import with_values
 from repro_torch.kernels import (attention_balanced_cuda,
                                  attention_balanced_plain, attention_cuda,
@@ -33,6 +41,8 @@ from repro_torch.kernels import (attention_balanced_cuda,
                                  spmm_staged_cuda, spmm_staged_plain)
 from repro_torch.kernels._combine import run_plan
 from repro_torch.kernels._window import SPLIT_BLK
+from repro_torch.kernels.attention_cuda import rings_fit, value_bands
+from repro_torch.kernels.spmm_cuda import wide_index
 from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
 from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
 from repro_torch.models import gnn
@@ -43,6 +53,20 @@ pytestmark = pytest.mark.gpu
 
 # fp32 kernel against fp32 plain version, sums in another order.
 RTOL, ATOL = 1e-4, 1e-5
+# bf16 outputs: both sides sum in fp32 and round once, so every entry is
+# within one bf16 ulp (plus 1e-6 of the largest entry) and at least 99%
+# are bitwise equal.
+BF16 = torch.bfloat16
+ULP_RTOL, ULP_ATOL_OF_MAX, BITWISE_SHARE = 2.0 ** -7, 1e-6, 0.99
+
+
+def _one_ulp(got, want):
+    assert got.dtype == want.dtype == BF16
+    got, want = got.float(), want.float()
+    atol = ULP_ATOL_OF_MAX * max(want.abs().max().item(), 1e-30)
+    torch.testing.assert_close(got, want, rtol=ULP_RTOL, atol=atol)
+    share = (got == want).float().mean().item() if got.numel() else 1.0
+    assert share >= BITWISE_SHARE, f"{share:.4f} bitwise equal"
 
 
 @pytest.fixture
@@ -120,11 +144,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="vector_size"):
         spmm_cuda(block_format(from_dense(np.eye(16, dtype=np.float32),
                                           vector_size=4), 8, device=device), x)
-    wide = torch.ones(16, 8192, device=device)
-    with pytest.raises(RuntimeError, match="attention kernel launch failed"):
-        attention_cuda(blocked, wide, wide, wide)
-    # the refused launch leaves no error behind for the next one
-    attention_cuda(blocked, x, x, x)
+    with pytest.raises(TypeError, match="variants"):
+        spmm_cuda(blocked, x.to(BF16))    # fp32 values with bf16 B
     torch.cuda.synchronize()
 
 
@@ -418,11 +439,138 @@ def test_tensor_core_attention_at_edge_widths_on_card(device, case):
                                rtol=RTOL, atol=ATOL)
 
 
-def test_attention_refuses_value_widths_above_128(device):
-    blocked = block_format(from_dense(np.eye(16, dtype=np.float32)), 8,
-                           device=device)
-    x = torch.ones(16, 8, device=device)
-    with pytest.raises(RuntimeError, match="attention kernel launch failed"):
-        attention_cuda(blocked, x, x, torch.ones(16, 129, device=device))
-    attention_cuda(blocked, x, x, x)  # no error left behind
+# (M, K, density, V, k_blk, D, DV): value bands (DV > 128, one launch a
+# band) and a D whose K and Q rings do not fit shared memory (the
+# SDDMM -> softmax -> SpMM composition instead: above 712 fp32 columns,
+# above 1,420 bf16 ones, at V = 8)
+WIDE_ATTENTION = [(64, 80, 0.2, 8, 8, 16, 129), (64, 80, 0.2, 8, 8, 32, 256),
+                  (40, 90, 0.3, 16, 4, 24, 200), (64, 80, 0.2, 8, 8, 720, 32),
+                  (48, 64, 0.25, 8, 8, 1500, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=str)
+@pytest.mark.parametrize("case", WIDE_ATTENTION, ids=lambda c: f"D{c[5]}-DV{c[6]}-V{c[3]}")
+def test_attention_wide_values_and_large_d_on_card(device, case, dtype):
+    m, k, density, v, k_blk, d, dv = case
+    rng = np.random.default_rng(m + d + dv)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density),
+                                      vector_size=v), k_blk, device=device)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    q, kk, vv = t(m, d), t(k, d), t(k, dv)
+    scale = torch.tensor(0.3, device=device)
+    fits = rings_fit(v, d, dtype)
+    before = (attention_cuda.launches, sddmm_cuda.launches,
+              spmm_cuda.launches)
+    out = attention_cuda(blocked, q, kk, vv, scale=scale)
+    got = (attention_cuda.launches - before[0], sddmm_cuda.launches
+           - before[1], spmm_cuda.launches - before[2])
+    assert got == ((len(value_bands(dv)), 0, 0) if fits else (0, 1, 1))
+    assert fits == (d != 1500 and (d != 720 or dtype == BF16))
+    want = attention_plain(blocked, q, kk, vv, scale)
+    if dtype == BF16:
+        _one_ulp(out, want)
+    else:
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+
+
+# (M, K, density, V, k_blk, N): the edge CASES' shapes for the narrow
+# variants, and a window of about 1,400 K-blocks cut over a cluster
+NARROW = [c[:6] + (c[6],) for c in CASES] + [(8, 20000, 0.1, (), 8, 8, 64)]
+
+
+@pytest.mark.parametrize("case", NARROW, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}-N{c[6]}")
+def test_bf16_and_int8_kernels_match_plain_on_card(device, case):
+    m, k, density, empty, v, k_blk, n = case
+    rng = np.random.default_rng(m * k + 5)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density, empty),
+                                      vector_size=v), k_blk, device=device)
+
+    def t(*shape, dtype=BF16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    b16, b32 = t(k, n), t(k, n, dtype=torch.float32)
+    p16 = with_values(blocked, blocked.vals.to(BF16))
+    out = spmm_cuda(p16, b16)
+    assert torch.equal(out, spmm_cuda(p16, b16))   # same bits each launch
+    _one_ulp(out, spmm_plain(p16, b16))
+    q8 = quantize_format(blocked)
+    out = spmm_cuda(q8, b16)
+    assert torch.equal(out, spmm_cuda(q8, b16))
+    _one_ulp(out, spmm_plain(q8, b16))
+    # fp32 B gives fp32 C: a window of n vectors is one running sum, held
+    # against fp64 within the recursive-sum bound (the split windows' test)
+    out = spmm_cuda(q8, b32).double()
+    rows, cols, vals = to_coo(dequantized(q8))
+    a64 = torch.zeros((m, k), dtype=torch.float64)
+    a64[rows, cols] = torch.from_numpy(vals).double()
+    a64 = a64.to(device)
+    per_win = torch.diff(blocked.win_ptr.long())
+    terms = (per_win * k_blk).double().repeat_interleave(v)[:m, None]
+    limit = ATOL + HUB_LAMBDA * terms.sqrt() * 2.0 ** -24 * (
+        a64.abs() @ b32.double().abs())
+    assert bool(((out - a64 @ b32.double()).abs() <= limit).all())
+    f = 24 if m * k < 10**6 else 32
+    q, kk = t(m, f), t(k, f)
+    _one_ulp(sddmm_cuda(blocked, q, kk), sddmm_plain(blocked, q, kk))
+    if k <= 4000:
+        vv = t(k, 40)
+        scale = torch.tensor(0.8, device=device)
+        _one_ulp(attention_cuda(blocked, q, kk, vv, scale=scale),
+                 attention_plain(blocked, q, kk, vv, scale))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [32, 64, 127, 128, 130, 200, 256])
+@pytest.mark.parametrize("case", [CASES[0], CASES[5], NARROW[-1]],
+                         ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}")
+def test_bf16_window_spmm_two_columns_match_fp32_kernel_bitwise(device, case,
+                                                                n):
+    """bf16 B of a tile of 64 columns or more takes two columns a thread
+    (one 32-bit load per pair, 16-bit loads at an odd N, a ragged tile's
+    last column or a B two bytes off a 4-byte boundary); every column's
+    products are taken in the fp32 kernel's order, so the result is that
+    kernel's on the widened operands, rounded to bf16, bit for bit."""
+    m, k, density, empty, v, k_blk = case[:6]
+    rng = np.random.default_rng(m + k + n)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density, empty),
+                                      vector_size=v), k_blk, device=device)
+    b32 = torch.from_numpy(rng.standard_normal((k, n)).astype(
+        np.float32)).to(device).to(BF16).float()
+    # the same B at an element offset of one: pairs not 4-byte aligned
+    store = torch.empty(k * n + 1, dtype=BF16, device=device)
+    off = store[1:].view(k, n)
+    off.copy_(b32)
+    views = {"bf16": (with_values(blocked, blocked.vals.to(BF16)),
+                      lambda p: with_values(p, p.vals.float())),
+             "int8": (quantize_format(blocked), lambda p: p)}
+    for p16, widen in views.values():
+        want = spmm_cuda(widen(p16), b32).to(BF16)
+        assert torch.equal(spmm_cuda(p16, b32.to(BF16)), want)
+        assert torch.equal(spmm_cuda(p16, off), want)
+    torch.cuda.synchronize()
+
+
+def test_window_spmm_64_bit_index_on_a_4_gib_bf16_b(device):
+    """B of K x N = 2^31 + 8,192 bf16 elements (4 GiB), the nonzeros of A
+    in its last rows: the kernel takes its 64-bit-index instantiation."""
+    n = 128
+    k = 2**31 // n + 64
+    rows = np.array([0, 3, 3, 9, 15, 15, 20])
+    cols = np.array([k - 1, k - 2, 7, k - 64, k - 1, k - 9, k - 1])
+    vals = np.linspace(0.5, 2.0, rows.size)
+    blocked = block_format(from_coo(rows, cols, vals, (21, k), dtype=BF16),
+                           8, device=device)
+    assert wide_index(k * n, blocked.vals.shape[0] * 8)
+    b = torch.empty((k, n), dtype=BF16, device=device)
+    b.normal_(generator=torch.Generator(device).manual_seed(0))
+    out = spmm_cuda(blocked, b)
+    _one_ulp(out, spmm_plain(blocked, b))
+    assert out[9].abs().sum() > 0 and not out[1].any()
+    del b
     torch.cuda.synchronize()

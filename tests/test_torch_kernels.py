@@ -206,8 +206,8 @@ def test_wrappers_refuse_other_dtypes_and_grad():
     with pytest.raises(TypeError, match="float32"):
         spmm_cuda(port, torch.ones(a.shape[1], n, dtype=torch.float64))
     with pytest.raises(TypeError, match="float32"):
-        sddmm_cuda(port, torch.ones(a.shape[0], 3, dtype=torch.bfloat16),
-                   torch.ones(a.shape[1], 3, dtype=torch.bfloat16))
+        sddmm_cuda(port, torch.ones(a.shape[0], 3, dtype=torch.float16),
+                   torch.ones(a.shape[1], 3, dtype=torch.float16))
     with pytest.raises(RuntimeError, match="forward-only"):
         spmm_cuda(port, torch.ones(a.shape[1], n, requires_grad=True))
     beta = torch.ones((), requires_grad=True)
