@@ -11,10 +11,13 @@ a non-zero exit at the first phase that fails:
      sm_90a, one process per source, all started together; ``-Xptxas
      -v``'s register, shared-memory and spill lines;
   3. each kernel against its plain PyTorch version on the card (the bf16
-     and int8 variants of the window SpMM and the bf16 ones of the SDDMM
-     and the fused attention within one bf16 ulp, at least 99% of the
-     entries bitwise equal, on the edge cases and on the Amazon replica's
-     A and Aᵀ at N = 128 and 32, hub rows of Aᵀ against fp64): (a) on
+     and int8 variants of every SpMM but the two baselines and the bf16
+     ones of every SDDMM and attention within one bf16 ulp, at least 99%
+     of the entries bitwise equal, on the edge cases and on the Amazon
+     replica's A and Aᵀ at N = 128 and 32, hub rows of Aᵀ against fp64;
+     the head grids at H in {1, 2, 12} bitwise H one-head launches, the
+     balanced ones bitwise the fp32 kernel on the widened operands,
+     rounded once, at split_blk in {0, 1, 3}): (a) on
      edge cases, the balanced kernels over schedules split at
      split_blk in {0, 1, 3} with one and two heads, shared and per-head
      operands, and the all-empty matrix (no balanced SDDMM launch), the
@@ -60,13 +63,22 @@ a non-zero exit at the first phase that fails:
      and three value-projection SGD steps on each, with the launch
      counters against the derived counts;
      4e. the precision axis: three train steps of GCN and AGNN on ``cuda``
-     in bf16 end to end and of GCN under an int8 plan on fp32 masters,
-     the first loss against the ``blocked`` route's step at the same
-     precision and against the fp32 ``cuda`` step, a finite falling loss,
-     and the launch counters of each variant against the derived counts;
+     and ``cuda_balanced`` in bf16 end to end and of GCN under an int8
+     plan on fp32 masters, the first loss and every gradient against the
+     ``blocked`` route's step at the same precision and the loss against
+     the fp32 step, a finite falling loss, and the launch counters of
+     each variant against the derived counts; and the int8-plan GCN
+     forward over two feature sets at once (the head-grid SpMM with the
+     quantized values shared by both);
      4f. the fused attention over value bands (DV 129 and 256, one launch
      a band) and past its shared memory (D = 720 fp32, through the SDDMM
      and SpMM kernels) on the Amazon replica, against its plain version;
+     4g. multi-head sparse attention under bf16 plans at the widths of
+     4c: the forward on ``cuda``, ``cuda_balanced`` and through
+     ``sparse_attention_staged`` on the ``cuda`` plan against dense masked
+     attention on the bf16 operands (the bf16 ladder), dout/dQ against
+     ``blocked`` at bf16, three value-projection steps on each with a
+     falling loss, and the launch counters of each variant;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
      never calls), the window-parallel SpMM also on the transposes (the
@@ -138,11 +150,15 @@ GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-3, 1e-4
 TRAIN_STEPS = 3
 TRAIN_LR = 5e-2  # the reference smoke's rate (examples/gnn_train.py)
 # H100 SXM data sheet: device memory rate, fp32 rate outside the tensor
-# cores, and the dense TF32 tensor-core rate (the fused attention's
-# products, three TF32 products per multiply in its 3xTF32 split).
+# cores, the dense TF32 tensor-core rate (the fused attention's fp32
+# products, three TF32 products per multiply in its 3xTF32 split), and
+# the dense bf16 tensor-core rate (the bound of every bf16 and int8
+# variant: their products take bf16 operands, or int8 values with bf16
+# B, whatever unit the kernel multiplies them on).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 TF32_PRODUCTS = 3
 
 DEVICE = "cuda"
@@ -194,12 +210,37 @@ KERNELS = {  # name: (route, impl that launches it, source, TPU kernel)
     "attention_bf16": ("cuda", "cuda",
                        "src/repro_torch/kernels/csrc/attention.cu",
                        "src/repro/kernels/attention_pallas.py:58"),
+    # and of rows 3, 4, 7, 8 and 10 (row 9 at H = 12 is attention_bf16's
+    # "h12" entry)
+    "spmm_batched_bf16": ("cuda", "cuda_batched",
+                          "src/repro_torch/kernels/csrc/spmm_batched.cu",
+                          "src/repro/kernels/spmm_pallas.py:294"),
+    "spmm_batched_int8": ("cuda", "cuda_batched",
+                          "src/repro_torch/kernels/csrc/spmm_batched.cu",
+                          "src/repro/kernels/spmm_pallas.py:294"),
+    "sddmm_batched_bf16": ("cuda", "cuda_batched",
+                           "src/repro_torch/kernels/csrc/sddmm_batched.cu",
+                           "src/repro/kernels/sddmm_pallas.py:171"),
+    "spmm_balanced_bf16": ("cuda", "cuda_balanced",
+                           "src/repro_torch/kernels/csrc/spmm_balanced.cu",
+                           "src/repro/kernels/spmm_pallas.py:453"),
+    "spmm_balanced_int8": ("cuda", "cuda_balanced",
+                           "src/repro_torch/kernels/csrc/spmm_balanced.cu",
+                           "src/repro/kernels/spmm_pallas.py:453"),
+    "sddmm_balanced_bf16": ("cuda", "cuda_balanced",
+                            "src/repro_torch/kernels/csrc/sddmm_balanced.cu",
+                            "src/repro/kernels/sddmm_pallas.py:313"),
+    "attention_balanced_bf16": (
+        "cuda", "cuda_balanced",
+        "src/repro_torch/kernels/csrc/attention_balanced.cu",
+        "src/repro/kernels/attention_pallas.py:241"),
 }
-# The launch counter of each entry: the wrapper, and for the three
-# wrappers with precision variants the variant's count.
-VARIANT_OF = {"spmm": "fp32", "sddmm": "fp32", "attention": "fp32",
-              "spmm_bf16": "bf16", "spmm_int8": "int8", "sddmm_bf16": "bf16",
-              "attention_bf16": "bf16"}
+# The launch counter of each entry: the wrapper, and for the wrappers with
+# precision variants the variant's count.
+VARIANT_OF = {name: ("int8" if name.endswith("_int8") else
+                     "bf16" if name.endswith("_bf16") else "fp32")
+              for name in KERNELS
+              if name not in ("spmm_noncoalesced", "spmm_staged")}
 
 
 def phase(name: str) -> None:
@@ -694,6 +735,154 @@ def check_narrow_edge(rng) -> None:
     torch.cuda.synchronize()
 
 
+def widened(view):
+    """``view`` with fp32 values: bf16 values widened, int8 values as
+    ``q * scale`` in fp32, what the narrow kernels multiply by."""
+    from repro_torch.core.sddmm import with_values
+    from repro_torch.core.spmm import dequantized
+
+    return with_values(dequantized(view), dequantized(view).vals.float())
+
+
+def check_narrow_balanced(tag: str, blocked, sched, b16, q16, k16, v16,
+                          beta, views: dict, show: bool = False) -> dict:
+    """The balanced SpMM at bf16 and int8 (``views``: variant -> view,
+    with B ``b16``), SDDMM and attention at bf16 over ``sched``: the same
+    bits on a second launch, bitwise the fp32 kernel on the widened
+    operands, rounded once (the kernels take every sum in the fp32
+    kernel's order), and within one bf16 ulp of the plain versions.
+    Returns each kernel's max abs error against its plain version, by
+    its ``kernels`` line name (``spmm_balanced_bf16``, ...)."""
+    import torch
+
+    from repro_torch.kernels import (attention_balanced_cuda,
+                                     attention_balanced_plain,
+                                     sddmm_balanced_cuda,
+                                     sddmm_balanced_plain,
+                                     spmm_balanced_cuda, spmm_balanced_plain)
+
+    bf16, errs = torch.bfloat16, {}
+    for var, bv in views.items():
+        out = spmm_balanced_cuda(bv, b16, schedule=sched)
+        bitwise(f"spmm_balanced {var} {tag}, second launch", out,
+                spmm_balanced_cuda(bv, b16, schedule=sched))
+        bitwise(f"spmm_balanced {var} {tag} vs the fp32 kernel, rounded",
+                out, spmm_balanced_cuda(widened(bv), b16.float(),
+                                        schedule=sched).to(bf16))
+        errs[f"spmm_balanced_{var}"] = one_ulp(
+            f"spmm_balanced {var} {tag}", out,
+            spmm_balanced_plain(bv, b16, sched), show=show)
+    out = sddmm_balanced_cuda(blocked, q16, k16, schedule=sched)
+    bitwise(f"sddmm_balanced bf16 {tag} vs the fp32 kernel, rounded", out,
+            sddmm_balanced_cuda(blocked, q16.float(), k16.float(),
+                                schedule=sched).to(bf16))
+    errs["sddmm_balanced_bf16"] = one_ulp(
+        f"sddmm_balanced bf16 {tag}", out,
+        sddmm_balanced_plain(blocked, q16, k16, sched), show=show)
+    out = attention_balanced_cuda(blocked, q16, k16, v16, scale=beta,
+                                  schedule=sched)
+    bitwise(f"attention_balanced bf16 {tag}, second launch", out,
+            attention_balanced_cuda(blocked, q16, k16, v16, scale=beta,
+                                    schedule=sched))
+    qs = (q16.float() * beta).to(bf16).float()
+    bitwise(f"attention_balanced bf16 {tag} vs the fp32 kernel, rounded",
+            out, attention_balanced_cuda(blocked, qs, k16.float(),
+                                         v16.float(), scale=1.0,
+                                         schedule=sched).to(bf16))
+    errs["attention_balanced_bf16"] = one_ulp(
+        f"attention_balanced bf16 {tag}", out,
+        attention_balanced_plain(blocked, q16, k16, v16, sched, beta),
+        show=show)
+    return errs
+
+
+def check_narrow_heads_edge(rng) -> None:
+    """Phase 3a for the narrow head grids and balanced kernels: the
+    head-grid SpMM at bf16 (per-head values and B) and int8 (values shared
+    by the heads), the head-grid SDDMM and the fused attention at bf16, at
+    H in {1, 2, 12}, each bitwise H one-head launches and within one bf16
+    ulp of its plain version; the balanced SpMM (bf16, int8), SDDMM and
+    attention (bf16) at split_blk in {0, 1, 3} and H in {1, 2}, the
+    attention also at H = 12 (check_narrow_balanced)."""
+    import torch
+
+    from repro_torch.core.format import block_format, from_dense
+    from repro_torch.core.quantize import quantize_format
+    from repro_torch.core.sddmm import with_values
+    from repro_torch.kernels import (attention_cuda, attention_plain,
+                                     sddmm_batched_cuda, sddmm_batched_plain,
+                                     sddmm_cuda, spmm_batched_cuda,
+                                     spmm_batched_plain, spmm_cuda)
+
+    bf16 = torch.bfloat16
+
+    def t(heads, *shape):
+        return torch.from_numpy(rng.standard_normal(
+            heads + shape).astype(np.float32)).to(device=DEVICE, dtype=bf16)
+
+    def head(x, i):
+        return x[i] if x.dim() == 3 else x
+
+    beta = torch.tensor(0.8, device=DEVICE)
+    for label, a, v, k_blk, n, f, dv in kernel_cases(rng):
+        blocked = block_format(from_dense(a, vector_size=v), k_blk,
+                               device=DEVICE)
+        m, k = a.shape
+        q8 = quantize_format(blocked)
+        errs = []
+        for h in (1, 2, 12):
+            hs = (h,)
+            b = t(hs, k, n)
+            for var, bv in (("bf16", with_values(
+                    blocked, t(hs, *blocked.vals.shape) * blocked.mask)),
+                            ("int8", q8)):
+                tag = f"[{label}, H={h}]"
+                out = spmm_batched_cuda(bv, b)
+                bitwise(f"spmm_batched {var} {tag} vs {h} spmm launches", out,
+                        torch.stack([spmm_cuda(with_values(
+                            bv, head(bv.vals, i)), b[i]) for i in range(h)]))
+                errs.append(one_ulp(f"spmm_batched {var} {tag}", out,
+                                    spmm_batched_plain(bv, b), show=False))
+            q, kk, vv = t(hs, m, f), t(hs, k, f), t(hs, k, dv)
+            out = sddmm_batched_cuda(blocked, q, kk)
+            bitwise(f"sddmm_batched bf16 {tag} vs {h} sddmm launches", out,
+                    torch.stack([sddmm_cuda(blocked, q[i], kk[i])
+                                 for i in range(h)]))
+            errs.append(one_ulp(f"sddmm_batched bf16 {tag}", out,
+                                sddmm_batched_plain(blocked, q, kk),
+                                show=False))
+            out = attention_cuda(blocked, q, kk, vv, scale=beta)
+            bitwise(f"attention bf16 {tag} vs {h} one-head launches", out,
+                    torch.stack([attention_cuda(blocked, q[i], kk[i], vv[i],
+                                                scale=beta)
+                                 for i in range(h)]))
+            errs.append(one_ulp(f"attention bf16 {tag}", out,
+                                attention_plain(blocked, q, kk, vv, beta),
+                                show=False))
+        for split in (0, 1, 3):
+            sched = blocked.schedule(split)
+            for h in (1, 2, 12):
+                if h == 12 and split != 1:
+                    continue
+                hs = (h,) if h > 1 else ()
+                views = ({} if h == 12 else
+                         {"bf16": with_values(blocked, t(
+                             hs, *blocked.vals.shape) * blocked.mask),
+                          "int8": q8})
+                errs.extend(check_narrow_balanced(
+                    f"[{label}, split_blk={split}, H={h}]", blocked, sched,
+                    t(hs, k, n), t(hs, m, f), t((), k, f), t(hs, k, dv), beta,
+                    views).values())
+        print(f"  ok   narrow head grids and balanced kernels [{label}]: "
+              "spmm_batched bf16/int8, sddmm_batched and attention bf16 at "
+              "H 1/2/12 bitwise their one-head launches; spmm_balanced "
+              "bf16/int8, sddmm_balanced and attention_balanced bf16 at "
+              "split_blk 0/1/3 bitwise the fp32 kernels on the widened "
+              "operands, rounded; within one bf16 ulp of the plain versions, "
+              f"max abs err {max(errs):.3e}", flush=True)
+    torch.cuda.synchronize()
+
+
 def bitwise(label: str, out, ref) -> None:
     """Fail unless ``out`` and ``ref`` are the same bits."""
     import torch
@@ -827,7 +1016,7 @@ def attention_setup(rng) -> dict:
         "qkv", make_inputs(ATTN_SEQ, ATTN_HEADS, ATTN_DIM))))
     g = torch.from_numpy(rng.standard_normal(
         (ATTN_HEADS, ATTN_SEQ, ATTN_DIM)).astype(np.float32)).to(DEVICE)
-    return dict(rows=rows, cols=cols, plan=plan, bplan=bplan, g=g,
+    return dict(rows=rows, cols=cols, fmt=fmt, plan=plan, bplan=bplan, g=g,
                 scale=1.0 / math.sqrt(ATTN_DIM), host_s=t_host, **t)
 
 
@@ -866,7 +1055,8 @@ def main() -> None:
                                            sparse_attention_staged)
     from repro_torch.sparse.graphs import make_dataset
     from repro_torch.train.sparse_attention_train import (
-        dense_mask, dense_masked_attention, initial_w, train_value_projection,
+        TOLERANCES as ATTN_TOLERANCES, dense_mask, dense_masked_attention,
+        initial_w, make_inputs, params_from_jax, train_value_projection,
         value_projection_loss)
     from repro_torch.train.gnn_train import make_task
     from repro_torch.train.train_step import make_gnn_train_step
@@ -881,7 +1071,14 @@ def main() -> None:
                 "spmm_staged": spmm_staged_cuda,
                 "sddmm_batched": sddmm_batched_cuda,
                 "spmm_bf16": spmm_cuda, "spmm_int8": spmm_cuda,
-                "sddmm_bf16": sddmm_cuda, "attention_bf16": attention_cuda}
+                "sddmm_bf16": sddmm_cuda, "attention_bf16": attention_cuda,
+                "spmm_batched_bf16": spmm_batched_cuda,
+                "spmm_batched_int8": spmm_batched_cuda,
+                "sddmm_batched_bf16": sddmm_batched_cuda,
+                "spmm_balanced_bf16": spmm_balanced_cuda,
+                "spmm_balanced_int8": spmm_balanced_cuda,
+                "sddmm_balanced_bf16": sddmm_balanced_cuda,
+                "attention_balanced_bf16": attention_balanced_cuda}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -923,6 +1120,7 @@ def main() -> None:
     check_kernels_edge(rng)
     check_head_grids_edge(rng)
     check_narrow_edge(np.random.default_rng(2))
+    check_narrow_heads_edge(np.random.default_rng(3))
 
     phase("3b. kernels against their plain versions: main-path shapes")
     t0 = time.time()
@@ -1070,6 +1268,9 @@ def main() -> None:
         if dirn == "A":
             err.update(spmm_balanced=e_spmm[0], sddmm_balanced=e_sddmm[0],
                        attention_balanced=e_attn)
+        else:
+            err.update(spmm_balanced_At128=e_spmm[0],
+                       spmm_balanced_At32=e_spmm[1])
         vals_2 = torch.stack([bl.vals, bl.vals * torch.from_numpy(
             rng2.uniform(0.5, 1.5, tuple(bl.vals.shape)).astype(
                 np.float32)).to(DEVICE)])
@@ -1095,6 +1296,46 @@ def main() -> None:
                         attention_balanced_plain(bl, qq, h32, vv, sched, beta),
                         KERNEL_RTOL, KERNEL_ATOL)
     del b_2, h32_2, v32_2, vals_2, out
+    # The narrow balanced kernels on A and A^T: the SpMM at bf16 and int8
+    # (N = 128 at split_blk 0 / 1 / 3, N = 32 at 1), the SDDMM and the
+    # attention at bf16 (F = D = DV = 32), each bitwise the fp32 kernel on
+    # the widened operands, rounded, the same bits on a second launch and
+    # within one bf16 ulp of its plain version; the bf16 SpMM's hub rows of
+    # A^T against fp64.
+    bal16 = {"A": {"bf16": with_values(bplan.fwd, bplan.fwd.vals.to(bf16)),
+                   "int8": quantize_format(bplan.fwd)},
+             "A^T": {"bf16": with_values(bplan.bwd, bplan.bwd.vals.to(bf16)),
+                     "int8": quantize_format(bplan.bwd)}}
+    for dirn, bl in (("A", bplan.fwd), ("A^T", bplan.bwd)):
+        for split, bb in ((0, b16), (1, b16), (3, b16), (1, b32_16)):
+            sched = bl.schedule(split)
+            tag = f"[Amazon {dirn}, N={bb.shape[1]}, split_blk={split}]"
+            e_ = check_narrow_balanced(tag, bl, sched, bb, h32_16, h32_16,
+                                       v32_16, beta, bal16[dirn], show=True)
+            if split == 1 and dirn == "A" and bb.shape[1] == 128:
+                err.update(e_)  # the kernels line's main-path shapes
+            if split == 1 and dirn == "A^T" and bb.shape[1] == 32:
+                err["spmm_balanced_bf16_At32"] = e_["spmm_balanced_bf16"]
+        if dirn == "A^T":
+            out = spmm_balanced_cuda(bal16[dirn]["bf16"], b16,
+                                     schedule=bl.schedule(1))
+            err["spmm_balanced_bf16_At128"] = check_narrow_hub_windows(
+                "spmm_balanced bf16 [Amazon A^T, N=128, split_blk=1]",
+                bal16[dirn]["bf16"], b16, out,
+                spmm_balanced_plain(bal16[dirn]["bf16"], b16,
+                                    bl.schedule(1)))
+    # The int8 head-grid SpMM at the main path's shape: the quantized
+    # values of A shared by two feature sets (bf16 B), bitwise two one-head
+    # launches.
+    b_2 = torch.stack([b16, second_head(b)[1].to(bf16)])
+    out = spmm_batched_cuda(narrow["A"]["int8"], b_2)
+    bitwise("spmm_batched int8 [Amazon A, H=2, N=128] vs 2 spmm launches",
+            out, torch.stack([spmm_cuda(narrow["A"]["int8"], b_2[i])
+                              for i in range(2)]))
+    err["spmm_batched_int8"] = one_ulp(
+        "spmm_batched int8 [Amazon A, H=2, N=128]", out,
+        spmm_batched_plain(narrow["A"]["int8"], b_2))
+    del out, b_2
     # The Fig. 15 baseline keeps spmm.cu's per-output order on unsplit
     # windows (all of A's): same bits.
     check_noncoalesced("spmm_noncoalesced [Amazon, N=128] vs spmm", blk,
@@ -1160,6 +1401,74 @@ def main() -> None:
         attention_plain(ablk, aq, ak, av, att["scale"]), KERNEL_RTOL,
         KERNEL_ATOL)
     del a_out
+    # The bf16 variants at the attention configuration: the head-grid SpMM
+    # (probabilities @ V, and dV on A^T with its global-key windows against
+    # fp64), the head-grid SDDMM and the fused attention, each bitwise its
+    # 12 one-head launches; the balanced attention and the balanced SpMM on
+    # dV bitwise the fp32 kernels on the widened operands; all within one
+    # bf16 ulp of their plain versions.
+    aq16, ak16, av16, ag16 = (x.to(bf16) for x in (aq, ak, av, ag))
+    aprob16 = with_values(ablk, aprobs.to(bf16))
+    aprob_t16 = with_values(aplan.bwd, aprobs_t.to(bf16))
+    out = spmm_batched_cuda(aprob16, av16)
+    bitwise(f"spmm_batched bf16 [attention A, {tag}] vs 12 spmm launches",
+            out, torch.stack([spmm_cuda(with_values(ablk, aprob16.vals[i]),
+                                        av16[i]) for i in range(ATTN_HEADS)]))
+    err["spmm_batched_bf16"] = one_ulp(
+        f"spmm_batched bf16 [attention A, {tag}: probabilities @ V]", out,
+        spmm_batched_plain(aprob16, av16))
+    out = spmm_batched_cuda(aprob_t16, ag16)
+    bitwise(f"spmm_batched bf16 [attention A^T, {tag}: dV] vs the fp32 "
+            "kernel, rounded", out,
+            spmm_batched_cuda(widened(aprob_t16), ag16.float()).to(bf16))
+    ref = spmm_batched_plain(aprob_t16, ag16)
+    err["spmm_batched_bf16_At"] = max(
+        check_narrow_hub_windows(
+            f"spmm_batched bf16 [attention A^T, {tag}: dV, head {h_}]",
+            with_values(aplan.bwd, aprob_t16.vals[h_]), ag16[h_], out[h_],
+            ref[h_]) for h_ in (0, ATTN_HEADS - 1))
+    out = spmm_balanced_cuda(aprob_t16, ag16, schedule=dv_sched)
+    bitwise(f"spmm_balanced bf16 [attention A^T, {tag}: dV, split_blk=1] vs "
+            "the fp32 kernel, rounded", out,
+            spmm_balanced_cuda(widened(aprob_t16), ag16.float(),
+                               schedule=dv_sched).to(bf16))
+    one_ulp(f"spmm_balanced bf16 [attention A^T, {tag}: dV, split_blk=1]",
+            out, spmm_balanced_plain(aprob_t16, ag16, dv_sched))
+    out = sddmm_batched_cuda(ablk, aq16, ak16)
+    bitwise(f"sddmm_batched bf16 [attention A, {tag}] vs 12 sddmm launches",
+            out, torch.stack([sddmm_cuda(ablk, aq16[i], ak16[i])
+                              for i in range(ATTN_HEADS)]))
+    err["sddmm_batched_bf16"] = one_ulp(
+        f"sddmm_batched bf16 [attention A, {tag}: scores]", out,
+        sddmm_batched_plain(ablk, aq16, ak16))
+    one_ulp(f"sddmm_balanced bf16 [attention A, {tag}: scores]",
+            sddmm_balanced_cuda(abplan.fwd, aq16, ak16,
+                                schedule=abplan.fwd_sched),
+            sddmm_balanced_plain(abplan.fwd, aq16, ak16, abplan.fwd_sched))
+    a_out = attention_cuda(ablk, aq16, ak16, av16, scale=att["scale"])
+    bitwise(f"attention bf16 [attention A, {tag}], second launch", a_out,
+            attention_cuda(ablk, aq16, ak16, av16, scale=att["scale"]))
+    bitwise(f"attention bf16 [attention A, {tag}] vs 12 one-head launches",
+            a_out, torch.stack([attention_cuda(ablk, aq16[i], ak16[i],
+                                               av16[i], scale=att["scale"])
+                                for i in range(ATTN_HEADS)]))
+    err["attention_bf16_h12"] = one_ulp(
+        f"attention bf16 [attention A, {tag}]", a_out,
+        attention_plain(ablk, aq16, ak16, av16, att["scale"]))
+    a_out = attention_balanced_cuda(abplan.fwd, aq16, ak16, av16,
+                                    scale=att["scale"],
+                                    schedule=abplan.fwd_sched)
+    qs16 = (aq16.float() * att["scale"]).to(bf16).float()
+    bitwise(f"attention_balanced bf16 [attention A, {tag}] vs the fp32 "
+            "kernel, rounded", a_out,
+            attention_balanced_cuda(abplan.fwd, qs16, ak16.float(),
+                                    av16.float(), scale=1.0,
+                                    schedule=abplan.fwd_sched).to(bf16))
+    err["attention_balanced_bf16_h12"] = one_ulp(
+        f"attention_balanced bf16 [attention A, {tag}]", a_out,
+        attention_balanced_plain(abplan.fwd, aq16, ak16, av16,
+                                 abplan.fwd_sched, att["scale"]))
+    del a_out, out, ref, qs16
     torch.cuda.synchronize()
 
     phase("4. end to end: GCN and AGNN inference on the Amazon replica")
@@ -1391,7 +1700,7 @@ def main() -> None:
                   "cuda_balanced": (abplan, "cuda_balanced", False),
                   "staged_cuda": (aplan, "cuda", True)}
 
-    def attn_counts(route, what):
+    def attn_counts(route, what, var=""):
         # Launches of a forward ("fwd"), or of a forward and the backward
         # for dQ ("dq") or for dV ("dv", the value projection), from the
         # autograd Functions and the gradients needed.  Fused routes:
@@ -1399,15 +1708,18 @@ def main() -> None:
         # (SDDMM), then for dQ the dProbs SDDMM and the dQ SpMM, for dV the
         # dV SpMM on A^T.  Staged layer: forward the scores SDDMM and the
         # P @ V SpMM; backward for dQ the dProbs SDDMM and the dQ SpMM, for
-        # dV the dV SpMM.  Each is one launch for all heads.
+        # dV the dV SpMM.  Each is one launch for all heads, of the
+        # variant ``var`` ("" fp32, "_bf16").
         batched = route != "cuda_balanced"
         sd, sp = (("sddmm_batched", "spmm_batched") if batched
                   else ("sddmm_balanced", "spmm_balanced"))
+        sd, sp = sd + var, sp + var
         if route == "staged_cuda":
             fwd = {sd: 1, sp: 1}
             bwd = {sd: 1, sp: 1} if what == "dq" else {sp: 1}
         else:
-            fwd = {"attention" if batched else "attention_balanced": 1}
+            fwd = {("attention" if batched else "attention_balanced")
+                   + var: 1}
             bwd = {sd: 2, sp: 1} if what == "dq" else {sd: 1, sp: 1}
         if what == "fwd":
             bwd = {}
@@ -1468,7 +1780,7 @@ def main() -> None:
     del dq, dq_ref
 
     phase(f"4e. precision: {TRAIN_STEPS} steps of GCN and AGNN in bf16 and "
-          "of GCN under an int8 plan, on cuda")
+          "of GCN under an int8 plan, on cuda and cuda_balanced")
     t0 = time.time()
     fmt16 = from_coo(g.rows, g.cols, g.vals, (m, m), vector_size=8,
                      dtype=bf16)
@@ -1478,23 +1790,35 @@ def main() -> None:
     print(f"  bf16 format + plan {time.time() - t0:.1f} s on the host; the "
           "int8 plan shares the fp32 plan's arrays and quantizes A's values "
           "per K-block at each forward SpMM")
+    t0 = time.time()
+    bplan16 = ad_plan(fmt16, impl="cuda_balanced", k_blk=8, split_blk=1,
+                      device=DEVICE)
+    bplan8 = ad_plan(fmt, impl="cuda_balanced", k_blk=8, split_blk=1,
+                     device=DEVICE, precision="int8")
+    print(f"  bf16 balanced plan {time.time() - t0:.1f} s on the host")
     x16 = x.to(bf16)
-    modes = {  # name: (model, parameter dtype, adjacency, features)
-        "gcn_bf16": ("gcn", bf16, plan16, x16),
-        "agnn_bf16": ("agnn", bf16, plan16, x16),
-        "gcn_int8": ("gcn", torch.float32, plan8, x),
+    modes = {  # name: (model, parameter dtype, adjacency per impl, features)
+        "gcn_bf16": ("gcn", bf16, {"cuda": plan16, "cuda_balanced": bplan16},
+                     x16),
+        "agnn_bf16": ("agnn", bf16, {"cuda": plan16,
+                                     "cuda_balanced": bplan16}, x16),
+        "gcn_int8": ("gcn", torch.float32, {"cuda": plan8,
+                                            "cuda_balanced": bplan8}, x),
     }
 
-    def narrow_expect(name):
+    def narrow_expect(name, impl):
         # The fp32 step's counts (4b) on the variants each mode runs: in
         # bf16 every launch is a bf16 one; under an int8 plan the forward
         # SpMMs are int8 and the transpose SpMMs (dB) bf16.
+        sfx = "" if impl == "cuda" else "_balanced"
         if name == "gcn_bf16":
-            return expect(spmm_bf16=2 * n_layers - 1)
+            return expect(**{f"spmm{sfx}_bf16": 2 * n_layers - 1})
         if name == "agnn_bf16":
-            return expect(attention_bf16=n_layers, sddmm_bf16=2 * n_layers,
-                          spmm_bf16=3 * n_layers)
-        return expect(spmm_int8=n_layers, spmm_bf16=n_layers - 1)
+            return expect(**{f"attention{sfx}_bf16": n_layers,
+                             f"sddmm{sfx}_bf16": 2 * n_layers,
+                             f"spmm{sfx}_bf16": 3 * n_layers})
+        return expect(**{f"spmm{sfx}_int8": n_layers,
+                         f"spmm{sfx}_bf16": n_layers - 1})
 
     def make_narrow(model, dtype, impl):
         cfg = dataclasses.replace(cfgs[model], impl=impl, dtype=dtype)
@@ -1503,54 +1827,79 @@ def main() -> None:
         return net, make_gnn_train_step(cfg, net, lr=TRAIN_LR)
 
     narrow_nets = {}
-    for name, (model, dtype, adj, xx) in modes.items():
+    for name, (model, dtype, adjs_, xx) in modes.items():
         ref_net, ref_step = make_narrow(model, dtype, "blocked")
-        ref_loss = ref_step(adj, xx, labels, train_mask)[0].item()
+        ref_loss = ref_step(adjs_["cuda"], xx, labels, train_mask)[0].item()
         ref_grads = [p_.grad.float() for p_ in ref_net.parameters()]
         del ref_net, ref_step
         grad_tol = NARROW_GRAD_ULPS * 2.0 ** -7 * max(
             gr.abs().max().item() for gr in ref_grads)
-        net, step = make_narrow(model, dtype, "cuda")
-        narrow_nets[name] = (net, step, adj, xx)
-        losses = []
-        for i in range(TRAIN_STEPS):
-            reset_counts()
-            loss, _ = step(adj, xx, labels, train_mask)
-            torch.cuda.synchronize()
-            got, want = counts(), narrow_expect(name)
-            if got != want:
-                raise SystemExit(f"FAIL train {name}/cuda step {i}: launch "
-                                 f"counts {got} != {want}")
-            for k_name in launches:
-                launches[k_name] += got[k_name]
-            losses.append(loss.item())
-            if i == 0:
-                for j, (p_, want_g) in enumerate(zip(net.parameters(),
-                                                     ref_grads)):
-                    compare(f"train {name}/cuda: step-1 grad of parameter "
-                            f"{j} {tuple(p_.shape)} vs blocked at the same "
-                            "precision", p_.grad.float(), want_g, 0.0,
-                            grad_tol)
+        for impl, adj in adjs_.items():
+            net, step = make_narrow(model, dtype, impl)
+            narrow_nets[(name, impl)] = (net, step, adj, xx)
+            losses = []
+            for i in range(TRAIN_STEPS):
+                reset_counts()
+                loss, _ = step(adj, xx, labels, train_mask)
+                torch.cuda.synchronize()
+                got, want = counts(), narrow_expect(name, impl)
+                if got != want:
+                    raise SystemExit(f"FAIL train {name}/{impl} step {i}: "
+                                     f"launch counts {got} != {want}")
+                for k_name in launches:
+                    launches[k_name] += got[k_name]
+                losses.append(loss.item())
+                if i == 0:
+                    for j, (p_, want_g) in enumerate(zip(net.parameters(),
+                                                         ref_grads)):
+                        compare(f"train {name}/{impl}: step-1 grad of "
+                                f"parameter {j} {tuple(p_.shape)} vs blocked "
+                                "at the same precision", p_.grad.float(),
+                                want_g, 0.0, grad_tol)
+            fp32_loss = train[f"{model}_{impl}"]["losses"][0]
+            compare(f"train {name}/{impl}: step-1 loss vs blocked at the same "
+                    "precision", torch.tensor(losses[0]),
+                    torch.tensor(ref_loss), NARROW_LOSS_RTOL, 0.0)
+            compare(f"train {name}/{impl}: step-1 loss vs the fp32 {impl} "
+                    "step", torch.tensor(losses[0]), torch.tensor(fp32_loss),
+                    NARROW_VS_FP32_RTOL, 0.0)
+            print(f"  {name}/{impl}: losses {losses} (blocked {ref_loss}, "
+                  f"fp32 {impl} {fp32_loss}); launches per step {got}")
+            if not (all(map(math.isfinite, losses))
+                    and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
+                raise SystemExit(f"FAIL train {name}/{impl}: losses {losses} "
+                                 "are not finite and decreasing")
+            if not all(p_.dtype == dtype for p_ in net.parameters()):
+                raise SystemExit(f"FAIL train {name}/{impl}: parameters left "
+                                 f"{dtype}")
+            train[f"{name}_{impl}"] = {"losses": losses,
+                                       "launches_per_step": got,
+                                       "blocked_step1_loss": ref_loss,
+                                       "fp32_step1_loss": fp32_loss}
         del ref_grads
-        fp32_loss = train[f"{model}_cuda"]["losses"][0]
-        compare(f"train {name}/cuda: step-1 loss vs blocked at the same "
-                "precision", torch.tensor(losses[0]), torch.tensor(ref_loss),
-                NARROW_LOSS_RTOL, 0.0)
-        compare(f"train {name}/cuda: step-1 loss vs the fp32 cuda step",
-                torch.tensor(losses[0]), torch.tensor(fp32_loss),
-                NARROW_VS_FP32_RTOL, 0.0)
-        print(f"  {name}/cuda: losses {losses} (blocked {ref_loss}, fp32 "
-              f"cuda {fp32_loss}); launches per step {got}")
-        if not (all(map(math.isfinite, losses))
-                and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
-            raise SystemExit(f"FAIL train {name}/cuda: losses {losses} are "
-                             "not finite and decreasing")
-        if not all(p_.dtype == dtype for p_ in net.parameters()):
-            raise SystemExit(f"FAIL train {name}/cuda: parameters left "
-                             f"{dtype}")
-        train[f"{name}_cuda"] = {"losses": losses, "launches_per_step": got,
-                                 "blocked_step1_loss": ref_loss,
-                                 "fp32_step1_loss": fp32_loss}
+    # The int8-plan GCN forward over two feature sets at once: the forward
+    # SpMMs run the head-grid kernel on the quantized values of A, shared
+    # by both sets (the reference routes 3-D features to its batched grid
+    # with shared int8 values, spmm_pallas.py:407), against the blocked
+    # route at the same precision.
+    gcn8 = narrow_nets[("gcn_int8", "cuda")][0]
+    x_2 = torch.stack([x, x.flip(0)])
+    with torch.inference_mode():
+        reset_counts()
+        out = gcn8(plan8, x_2)
+        torch.cuda.synchronize()
+        got, want = counts(), expect(spmm_batched_int8=n_layers)
+        if got != want:
+            raise SystemExit(f"FAIL gcn_int8 forward over 2 feature sets: "
+                             f"launch counts {got} != {want}")
+        for k_name in launches:
+            launches[k_name] += got[k_name]
+        ref = gcn_forward(gcn8.params(), plan8, x_2, plain["gcn"])
+        compare("gcn_int8/cuda forward over 2 feature sets vs blocked at the "
+                "same precision", out, ref, NARROW_LOSS_RTOL,
+                NARROW_LOSS_RTOL * ref.abs().max().item())
+    print(f"  gcn_int8/cuda forward over 2 feature sets: launches {got}")
+    del out, ref
 
     phase("4f. fused attention over value bands and past its shared memory "
           "(Amazon A)")
@@ -1579,6 +1928,111 @@ def main() -> None:
         print(f"  {tag}: {route}")
         wide[f"d{d_}_dv{dv_}_{dtype}"] = {"max_abs_err": e_, "route": route}
     del qq, vv, out, ref
+    torch.cuda.synchronize()
+
+    phase(f"4g. multi-head sparse attention under bf16 plans: H={ATTN_HEADS}, "
+          f"S={ATTN_SEQ}, D=DV={ATTN_DIM}")
+    # The reference example's inputs rounded to bf16 (the operands a bf16
+    # plan runs), kept as fp32 masters; the plans of 4c at
+    # precision="bf16", sharing their arrays.
+    aplan16 = ad_plan(att["fmt"], impl="cuda", k_blk=8, device=DEVICE,
+                      precision="bf16")
+    abplan16 = ad_plan(att["fmt"], impl="cuda_balanced", k_blk=8,
+                       split_blk=1, device=DEVICE, precision="bf16")
+    t16 = params_from_jax(device=DEVICE, **dict(zip("qkv", make_inputs(
+        ATTN_SEQ, ATTN_HEADS, ATTN_DIM, precision="bf16"))))
+    bq, bk, bv = t16["q"], t16["k"], t16["v"]
+    tol16, dq_tol16 = ATTN_TOLERANCES["bf16"]
+    attn16 = {   # name: (plan, impl, staged layer), as in 4d
+        "cuda": (aplan16, "cuda", False),
+        "cuda_balanced": (abplan16, "cuda_balanced", False),
+        "staged_cuda": (aplan16, "cuda", True)}
+
+    def attend16(name):
+        plan_, impl, staged = attn16[name]
+        layer = sparse_attention_staged if staged else sparse_attention
+        return layer(plan_, bq, bk, bv, impl=impl)
+
+    with torch.inference_mode():
+        dense16 = {h: dense_masked_attention(bq[h], bk[h], bv[h], amask)
+                   for h in dense_heads}
+        for name in attn16:
+            reset_counts()
+            out = attend16(name)
+            torch.cuda.synchronize()
+            got, want = counts(), attn_counts(name, "fwd", "_bf16")
+            print(f"  bf16 attention forward {name}: launches {got}")
+            if got != want:
+                raise SystemExit(f"FAIL bf16 attention forward {name}: "
+                                 f"launch counts {got} != {want}")
+            for k_name in launches:
+                launches[k_name] += got[k_name]
+            if out.dtype != bf16 or out.shape != bq.shape:
+                raise SystemExit(f"FAIL bf16 attention forward {name}: "
+                                 f"{out.dtype} {tuple(out.shape)}")
+            for h in dense_heads:
+                compare(f"bf16 attention forward {name} head {h} vs dense "
+                        "masked attention on the bf16 operands (bf16 ladder)",
+                        out[h].float(), dense16[h], tol16, tol16)
+        del dense16, out
+
+    def attn16_dq(plan_, impl, staged):
+        layer = sparse_attention_staged if staged else sparse_attention
+        leaf = bq.detach().clone().requires_grad_(True)
+        (dq,) = torch.autograd.grad(layer(plan_, leaf, bk, bv,
+                                          impl=impl).float().sum(), leaf)
+        return dq
+
+    dq_ref = attn16_dq(aplan16, "blocked", False)
+    vp_ref16 = train_value_projection(aplan16, bq, bk, bv, "blocked",
+                                      steps=1, lr=ATTN_LR)
+    attn16_result = {}
+    for name, (plan_, impl, staged) in attn16.items():
+        reset_counts()
+        dq = attn16_dq(plan_, impl, staged)
+        torch.cuda.synchronize()
+        got, want = counts(), attn_counts(name, "dq", "_bf16")
+        if got != want:
+            raise SystemExit(f"FAIL bf16 attention dQ {name}: launch counts "
+                             f"{got} != {want}")
+        for k_name in launches:
+            launches[k_name] += got[k_name]
+        compare(f"bf16 attention dout/dQ {name} vs blocked at bf16, within "
+                f"{NARROW_GRAD_ULPS} bf16 ulps of its largest entry", dq,
+                dq_ref, 0.0,
+                NARROW_GRAD_ULPS * 2.0 ** -7 * dq_ref.abs().max().item())
+        reset_counts()
+        run = train_value_projection(plan_, bq, bk, bv, impl,
+                                     steps=TRAIN_STEPS, lr=ATTN_LR,
+                                     staged=staged)
+        torch.cuda.synchronize()
+        got = counts()
+        fwd = attn_counts(name, "fwd", "_bf16")
+        step = attn_counts(name, "dv", "_bf16")
+        want = {k_: 2 * fwd[k_] + TRAIN_STEPS * step[k_] for k_ in wrappers}
+        if got != want:
+            raise SystemExit(f"FAIL bf16 value projection {name}: launch "
+                             f"counts {got} != {want}")
+        for k_name in launches:
+            launches[k_name] += got[k_name]
+        losses = run.losses + [run.final]
+        print(f"  bf16 value projection {name}: losses {losses}; launches "
+              f"{got} (target + {TRAIN_STEPS} steps + final loss)")
+        if not (all(map(math.isfinite, losses))
+                and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
+            raise SystemExit(f"FAIL bf16 value projection {name}: losses "
+                             f"{losses} are not finite and decreasing")
+        compare(f"bf16 value projection {name}: step-1 loss vs blocked at "
+                "bf16", torch.tensor(run.losses[0]),
+                torch.tensor(vp_ref16.losses[0]), NARROW_LOSS_RTOL, 0.0)
+        compare(f"bf16 value projection {name}: step-1 dloss/dW vs blocked "
+                f"at bf16, within {NARROW_GRAD_ULPS} bf16 ulps of its "
+                "largest entry", run.first_grad, vp_ref16.first_grad, 0.0,
+                NARROW_GRAD_ULPS * 2.0 ** -7
+                * vp_ref16.first_grad.abs().max().item())
+        attn16_result[name] = {"losses": losses, "launches": got,
+                               "launches_per_step": step}
+    del dq, dq_ref
     torch.cuda.synchronize()
 
     phase("5. timing (CUDA events around back-to-back calls, median of runs)")
@@ -1712,6 +2166,89 @@ def main() -> None:
                 lambda: attention_plain(blk, h32_16, h32_16, v32_16, beta),
                 None),
         })
+        # The precision variants of rows 3, 4, 7, 8, 9 (H = 12) and 10, and
+        # row 4 in fp32 on A^T.  Their yardsticks take bf16 operands (bf16
+        # COO and CSR tensors, masked SDPA at bf16); a refusal is recorded.
+        bb16, bq8, bat16 = (bal16["A"]["bf16"], bal16["A"]["int8"],
+                            bal16["A^T"]["bf16"])
+        b16_2 = torch.stack([b16, b16.flip(0)])
+        aprob16_coo, aprob_t16_coo = (
+            torch.sparse_coo_tensor(c_.indices(), c_.values().to(bf16),
+                                    c_.shape).coalesce()
+            for c_ in (aprob_coo, aprob_t_coo))
+        apattern16 = torch.sparse_csr_tensor(
+            apattern.crow_indices(), apattern.col_indices(),
+            apattern.values().to(bf16), apattern.shape)
+        at_sched, a_sched = bplan.bwd_sched, abplan.fwd_sched
+        timed.update({
+            "spmm_batched_bf16": (
+                lambda: spmm_batched_cuda(aprob16, av16),
+                lambda: spmm_batched_plain(aprob16, av16),
+                lambda: torch.bmm(aprob16_coo, av16)),
+            "spmm_batched_bf16_At": (
+                lambda: spmm_batched_cuda(aprob_t16, ag16),
+                lambda: spmm_batched_plain(aprob_t16, ag16),
+                lambda: torch.bmm(aprob_t16_coo, ag16)),
+            "spmm_batched_int8": (
+                lambda: spmm_batched_cuda(q8, b16_2),
+                lambda: spmm_batched_plain(q8, b16_2), None),
+            "sddmm_batched_bf16": (
+                lambda: sddmm_batched_cuda(ablk, aq16, ak16),
+                lambda: sddmm_batched_plain(ablk, aq16, ak16),
+                lambda: torch.sparse.sampled_addmm(
+                    apattern16, aq16, ak16.transpose(1, 2), beta=0.0)),
+            "spmm_balanced_At128": (
+                lambda: spmm_balanced_cuda(bplan.bwd, b, schedule=at_sched),
+                lambda: spmm_balanced_plain(bplan.bwd, b, at_sched),
+                lambda: torch.sparse.mm(csr_t, b)),
+            "spmm_balanced_At32": (
+                lambda: spmm_balanced_cuda(bplan.bwd, b32, schedule=at_sched),
+                lambda: spmm_balanced_plain(bplan.bwd, b32, at_sched),
+                lambda: torch.sparse.mm(csr_t, b32)),
+            "spmm_balanced_bf16": (
+                lambda: spmm_balanced_cuda(bb16, b16, schedule=bsched),
+                lambda: spmm_balanced_plain(bb16, b16, bsched),
+                lambda: torch.sparse.mm(csr16, b16)),
+            "spmm_balanced_int8": (
+                lambda: spmm_balanced_cuda(bq8, b16, schedule=bsched),
+                lambda: spmm_balanced_plain(bq8, b16, bsched), None),
+            "spmm_balanced_bf16_At128": (
+                lambda: spmm_balanced_cuda(bat16, b16, schedule=at_sched),
+                lambda: spmm_balanced_plain(bat16, b16, at_sched),
+                lambda: torch.sparse.mm(csr_t16, b16)),
+            "spmm_balanced_bf16_At32": (
+                lambda: spmm_balanced_cuda(bat16, b32_16, schedule=at_sched),
+                lambda: spmm_balanced_plain(bat16, b32_16, at_sched),
+                lambda: torch.sparse.mm(csr_t16, b32_16)),
+            "sddmm_balanced_bf16": (
+                lambda: sddmm_balanced_cuda(bblk, h32_16, h32_16,
+                                            schedule=bsched),
+                lambda: sddmm_balanced_plain(bblk, h32_16, h32_16, bsched),
+                lambda: torch.sparse.sampled_addmm(pattern16, h32_16,
+                                                   h32_16.T, beta=0.0)),
+            "attention_balanced_bf16": (
+                lambda: attention_balanced_cuda(bblk, h32_16, h32_16, v32_16,
+                                                scale=beta, schedule=bsched),
+                lambda: attention_balanced_plain(bblk, h32_16, h32_16,
+                                                 v32_16, bsched, beta),
+                None),
+            "attention_balanced_bf16_h12": (
+                lambda: attention_balanced_cuda(abplan.fwd, aq16, ak16, av16,
+                                                scale=att["scale"],
+                                                schedule=a_sched),
+                lambda: attention_balanced_plain(abplan.fwd, aq16, ak16,
+                                                 av16, a_sched, att["scale"]),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    aq16[None], ak16[None], av16[None], attn_mask=amask,
+                    scale=att["scale"])),
+            "attention_bf16_h12": (
+                lambda: attention_cuda(ablk, aq16, ak16, av16,
+                                       scale=att["scale"]),
+                lambda: attention_plain(ablk, aq16, ak16, av16, att["scale"]),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    aq16[None], ak16[None], av16[None], attn_mask=amask,
+                    scale=att["scale"])),
+        })
         ms, lib_errors = {}, {}
         for name, (kern, plain_fn, lib_fn) in timed.items():
             lib_ms = None
@@ -1838,19 +2375,19 @@ def main() -> None:
         train[f"{model}_{impl}"].update(step_ms=t_step, peak_bytes=peak)
         print(f"  train step {model}/{impl}: {t_step:.3f} ms, peak memory "
               f"{peak / 2**30:.3f} GiB")
-    # the precision modes on cuda: a train step and a forward each
-    for name, (net, step, adj, xx) in narrow_nets.items():
+    # the precision modes on each route: a train step and a forward each
+    for (name, impl), (net, step, adj, xx) in narrow_nets.items():
         torch.cuda.reset_peak_memory_stats()
         t_step = cuda_ms(lambda: step(adj, xx, labels, train_mask), reps=3,
                          batch=2, warmup=1)
         peak = torch.cuda.max_memory_allocated()
-        train[f"{name}_cuda"].update(step_ms=t_step, peak_bytes=peak)
+        train[f"{name}_{impl}"].update(step_ms=t_step, peak_bytes=peak)
         torch.cuda.reset_peak_memory_stats()
         with torch.inference_mode():
             t_fwd = cuda_ms(lambda: net(adj, xx), batch=2, warmup=1)
-        e2e[f"{name}_forward"] = {"ms": t_fwd,
-                                  "peak_bytes": torch.cuda.max_memory_allocated()}
-        print(f"  {name}/cuda: train step {t_step:.3f} ms (peak memory "
+        e2e[f"{name}_{impl}_forward"] = {
+            "ms": t_fwd, "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"  {name}/{impl}: train step {t_step:.3f} ms (peak memory "
               f"{peak / 2**30:.3f} GiB), forward {t_fwd:.3f} ms")
 
     # Multi-head attention: a forward of each route, and one
@@ -1859,9 +2396,14 @@ def main() -> None:
         vp_target = attn_blocked()
     vp_w = torch.from_numpy(initial_w(ATTN_DIM)).to(DEVICE)
 
-    def vp_step(plan_, impl, staged):
+    with torch.no_grad():
+        vp_target16 = sparse_attention(aplan16, bq, bk, bv, impl="blocked")
+
+    def vp_step(plan_, impl, staged, bf16_plan=False):
+        qq, kk, vv, target = ((bq, bk, bv, vp_target16) if bf16_plan
+                              else (aq, ak, av, vp_target))
         w_leaf = vp_w.detach().requires_grad_(True)
-        loss = value_projection_loss(plan_, aq, ak, av, w_leaf, vp_target,
+        loss = value_projection_loss(plan_, qq, kk, vv, w_leaf, target,
                                      impl=impl, staged=staged)
         (gw,) = torch.autograd.grad(loss, w_leaf)
         return (w_leaf - ATTN_LR * gw).detach()
@@ -1885,6 +2427,22 @@ def main() -> None:
                                                 peak_bytes=peak)
         print(f"  attention value-projection step {name}: {t_step:.3f} ms, "
               f"peak memory {peak / 2**30:.3f} GiB")
+    # the same under the bf16 plans (4g), forward and step
+    for name in attn16:
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t_fwd = cuda_ms(lambda: attend16(name), reps=3, batch=2,
+                            warmup=1)
+        e2e[f"attention_bf16_{name}"] = {
+            "ms": t_fwd, "peak_bytes": torch.cuda.max_memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
+        t_step = cuda_ms(lambda: vp_step(*attn16[name], bf16_plan=True),
+                         reps=3, batch=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        attn16_result[name].update(step_ms=t_step, peak_bytes=peak)
+        print(f"  bf16 attention {name}: forward {t_fwd:.3f} ms, "
+              f"value-projection step {t_step:.3f} ms, peak memory "
+              f"{peak / 2**30:.3f} GiB")
 
     phase("6. where the time goes (torch.profiler, one forward or step each)")
     with torch.inference_mode():
@@ -1895,13 +2453,14 @@ def main() -> None:
         print(f"  train step {model}/{impl}:")
         train[f"{model}_{impl}"].update(profile_run(
             lambda: step(adjs[impl], x, labels, train_mask)))
-    for name, (net, step, adj, xx) in narrow_nets.items():
-        print(f"  train step {name}/cuda:")
-        train[f"{name}_cuda"].update(profile_run(
+    for (name, impl), (net, step, adj, xx) in narrow_nets.items():
+        print(f"  train step {name}/{impl}:")
+        train[f"{name}_{impl}"].update(profile_run(
             lambda: step(adj, xx, labels, train_mask)))
-        print(f"  forward {name}/cuda:")
+        print(f"  forward {name}/{impl}:")
         with torch.inference_mode():
-            e2e[f"{name}_forward"].update(profile_run(lambda: net(adj, xx)))
+            e2e[f"{name}_{impl}_forward"].update(
+                profile_run(lambda: net(adj, xx)))
     for name, (run, _) in attn_fwd.items():
         print(f"  attention forward {name}:")
         with torch.inference_mode():
@@ -1910,6 +2469,14 @@ def main() -> None:
         print(f"  attention value-projection step {name}:")
         attn_result[name].update(profile_run(
             lambda: vp_step(plan_, impl, staged)))
+    for name in attn16:
+        print(f"  bf16 attention forward {name}:")
+        with torch.inference_mode():
+            e2e[f"attention_bf16_{name}"].update(
+                profile_run(lambda: attend16(name)))
+        print(f"  bf16 attention value-projection step {name}:")
+        attn16_result[name].update(profile_run(
+            lambda: vp_step(*attn16[name], bf16_plan=True)))
 
     v = blk.vector_size
     # Each distinct input read once (the main path passes Q and K as one
@@ -1927,6 +2494,10 @@ def main() -> None:
                                   ("attention_balanced", ATTN_RUN))}
     plan_arrays = {name: (pl.run_ptr, pl.pieces)
                    for name, pl in bal_plans.items()}
+    at_pl = run_plan("chip_smoke", at_sched, bplan.bwd.num_windows, SPMM_RUN)
+    h12_pl = run_plan("chip_smoke", a_sched, abplan.fwd.num_windows, ATTN_RUN)
+    at_plan = (at_pl.run_ptr, at_pl.pieces)
+    h12_plan = (h12_pl.run_ptr, h12_pl.pieces)
     nbytes = {
         "spmm": read_once(blk.vals, blk.cols, blk.win_ptr, b) + m * 128 * 4,
         "sddmm": (read_once(h32, h32, blk.mask, blk.cols, blk.block_win)
@@ -1987,6 +2558,46 @@ def main() -> None:
                                  blk.block_win) + nnzp * v * 2),
         "attention_bf16": (read_once(h32_16, h32_16, v32_16, beta, blk.mask,
                                      blk.cols, blk.win_ptr) + m * 32 * 2),
+        # rows 3, 4, 7, 8, 9 (H = 12) and 10 at bf16 / int8, and row 4 in
+        # fp32 on A^T, each with the arrays of its run or window plan
+        "spmm_batched_bf16": (read_once(aprob16.vals, ablk.cols,
+                                        ablk.win_ptr, av16)
+                              + av16.numel() * 2),
+        "spmm_batched_bf16_At": (read_once(aprob_t16.vals, aplan.bwd.cols,
+                                           aplan.bwd.win_ptr, ag16,
+                                           split_ids(aplan.bwd, ATTN_DIM))
+                                 + ag16.numel() * 2),
+        "spmm_batched_int8": (read_once(q8.vals, q8.scales, blk.cols,
+                                        blk.win_ptr, b16_2) + 2 * m * 128 * 2),
+        "sddmm_batched_bf16": (read_once(aq16, ak16, ablk.mask, ablk.cols,
+                                         ablk.block_win)
+                               + aprobs.numel() * 2),
+        "spmm_balanced_At128": (read_once(bplan.bwd.vals, bplan.bwd.cols, b,
+                                          *at_plan) + m * 128 * 4),
+        "spmm_balanced_At32": (read_once(bplan.bwd.vals, bplan.bwd.cols, b32,
+                                         *at_plan) + m * 32 * 4),
+        "spmm_balanced_bf16": (read_once(bb16.vals, bblk.cols, b16,
+                                         *plan_arrays["spmm_balanced"])
+                               + m * 128 * 2),
+        "spmm_balanced_int8": (read_once(bq8.vals, bq8.scales, bblk.cols, b16,
+                                         *plan_arrays["spmm_balanced"])
+                               + m * 128 * 2),
+        "spmm_balanced_bf16_At128": (read_once(bat16.vals, bplan.bwd.cols,
+                                               b16, *at_plan) + m * 128 * 2),
+        "spmm_balanced_bf16_At32": (read_once(bat16.vals, bplan.bwd.cols,
+                                              b32_16, *at_plan) + m * 32 * 2),
+        "sddmm_balanced_bf16": (read_once(h32_16, h32_16, bblk.mask,
+                                          bblk.cols, bsched.blk_id,
+                                          bsched.blk_win) + nnzp * v * 2),
+        "attention_balanced_bf16": (
+            read_once(h32_16, h32_16, v32_16, beta, bblk.mask, bblk.cols,
+                      *plan_arrays["attention_balanced"]) + m * 32 * 2),
+        "attention_balanced_bf16_h12": (
+            read_once(aq16, ak16, av16, abplan.fwd.mask, abplan.fwd.cols,
+                      *h12_plan) + av16.numel() * 2),
+        "attention_bf16_h12": (read_once(aq16, ak16, av16, ablk.mask,
+                                         ablk.cols, ablk.win_ptr)
+                               + av16.numel() * 2),
     }
     # Operations on the true nonzeros only: the padded and masked-off
     # slots of a block are the format's, not the function's.
@@ -2007,12 +2618,24 @@ def main() -> None:
     flops.update(spmm_bf16_At128=flops["spmm_At128"],
                  spmm_bf16_At32=flops["spmm_At32"], sddmm_bf16=flops["sddmm"],
                  attention_bf16=flops["attention"])
-    # Tensor-core operations of the fused attention at the TF32 rate: three
-    # TF32 products per multiply for fp32 operands (3xTF32); for bf16 ones
-    # one for the scores (exact) and two for P·V (P split, V exact).
+    flops.update(spmm_batched_bf16=flops["spmm_batched"],
+                 spmm_batched_bf16_At=flops["spmm_batched_At"],
+                 spmm_batched_int8=2 * flops["spmm"],
+                 sddmm_batched_bf16=flops["sddmm_batched"],
+                 spmm_balanced_At128=flops["spmm_At128"],
+                 spmm_balanced_At32=flops["spmm_At32"],
+                 spmm_balanced_bf16=flops["spmm"],
+                 spmm_balanced_int8=flops["spmm"],
+                 spmm_balanced_bf16_At128=flops["spmm_At128"],
+                 spmm_balanced_bf16_At32=flops["spmm_At32"],
+                 sddmm_balanced_bf16=flops["sddmm"],
+                 attention_balanced_bf16=flops["attention"],
+                 attention_balanced_bf16_h12=flops["attention_h12"],
+                 attention_bf16_h12=flops["attention_h12"])
+    # Tensor-core operations of the fp32 fused attention at the TF32 rate:
+    # three TF32 products per multiply (3xTF32).
     tc_flops = {"attention": TF32_PRODUCTS * flops["attention"],
-                "attention_h12": TF32_PRODUCTS * flops["attention_h12"],
-                "attention_bf16": 2 * nnz * 32 * 1 + 2 * nnz * 32 * 2}
+                "attention_h12": TF32_PRODUCTS * flops["attention_h12"]}
     shapes = {
         "spmm": {"M": m, "K": m, "N": 128, "NNZP": nnzp, "nnz": nnz, "V": v,
                  "k_blk": 8},
@@ -2054,6 +2677,36 @@ def main() -> None:
     for n_cols in (128, 32):
         shapes[f"spmm_bf16_At{n_cols}"] = dict(
             shapes[f"spmm_At{n_cols}"], dtypes="bf16 vals, B and C")
+        shapes[f"spmm_balanced_At{n_cols}"] = dict(
+            shapes[f"spmm_At{n_cols}"], split_blk=1,
+            segments=at_sched.num_segments, run_blk=SPMM_RUN)
+        shapes[f"spmm_balanced_bf16_At{n_cols}"] = dict(
+            shapes[f"spmm_balanced_At{n_cols}"], dtypes="bf16 vals, B and C")
+    shapes.update(
+        spmm_batched_bf16=dict(shapes["spmm_batched"],
+                               dtypes="bf16 vals, B and C"),
+        spmm_batched_bf16_At=dict(shapes["spmm_batched_At"],
+                                  dtypes="bf16 vals, B and C"),
+        spmm_batched_int8=dict(shapes["spmm"], H=2, per_head="B",
+                               dtypes="int8 vals shared by the heads with "
+                               "fp32 per-K-block scales, bf16 B and C"),
+        sddmm_batched_bf16=dict(shapes["sddmm_batched"],
+                                dtypes="bf16 Q, K and S"),
+        spmm_balanced_bf16=dict(shapes["spmm_balanced"],
+                                dtypes="bf16 vals, B and C"),
+        spmm_balanced_int8=dict(shapes["spmm_balanced"],
+                                dtypes="int8 vals with fp32 per-K-block "
+                                "scales, bf16 B and C"),
+        sddmm_balanced_bf16=dict(shapes["sddmm_balanced"],
+                                 dtypes="bf16 Q, K and S"),
+        attention_balanced_bf16=dict(shapes["attention_balanced"],
+                                     dtypes="bf16 Q, K, V, out"),
+        attention_balanced_bf16_h12=dict(
+            shapes["attention_h12"], split_blk=1,
+            segments=a_sched.num_segments, run_blk=ATTN_RUN,
+            dtypes="bf16 Q, K, V, out"),
+        attention_bf16_h12=dict(shapes["attention_h12"],
+                                dtypes="bf16 Q, K, V, out"))
 
     def measured(name):
         kernel_ms, plain_ms, library_ms = ms[name]
@@ -2072,6 +2725,9 @@ def main() -> None:
                        "multiply",
                        bound_fp32_ms=bound(nbytes[name], flops[name])[0],
                        bound_fp32_by=bound(nbytes[name], flops[name])[1])
+        elif "bf16" in name or "int8" in name:
+            b_ms, b_by = bound(nbytes[name], flops[name], BF16_FLOPS_PER_S)
+            row["bound_peak"] = "bf16 tensor cores, 989 TFLOP/s"
         else:
             b_ms, b_by = bound(nbytes[name], flops[name])
         row.update(bound_ms=b_ms, bound_by=b_by)
@@ -2101,6 +2757,17 @@ def main() -> None:
             # the transpose SpMM (dB) of the bf16 and int8-plan train steps
             row["At"] = {"n128": measured("spmm_bf16_At128"),
                          "n32": measured("spmm_bf16_At32")}
+        if name in ("spmm_balanced", "spmm_balanced_bf16"):
+            # the balanced route's transpose SpMM (dB), split_blk = 1
+            row["At"] = {"n128": measured(f"{name}_At128"),
+                         "n32": measured(f"{name}_At32")}
+        if name == "spmm_batched_bf16":
+            # the bf16 attention backward's dV on the pattern's transpose
+            row["At"] = measured("spmm_batched_bf16_At")
+        if name in ("attention_bf16", "attention_balanced_bf16"):
+            # the 12-head attention at bf16, beside the one-head (AGNN)
+            # numbers above
+            row["h12"] = measured(f"{name}_h12")
         rows.append(row)
     for name, n_launch in launches.items():
         if n_launch == 0:
@@ -2108,6 +2775,7 @@ def main() -> None:
 
     print(json.dumps({"end_to_end": e2e, "training": train,
                       "sparse_attention": attn_result,
+                      "sparse_attention_bf16": attn16_result,
                       "attention_wide": wide,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,

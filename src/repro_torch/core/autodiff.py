@@ -144,6 +144,21 @@ def _dense_precision(precision: Optional[str]) -> Optional[str]:
     return "bf16" if precision == "int8" else precision
 
 
+# Where a plan's impl does not run an op itself: op -> (the impl for
+# one head, the impl for operands with a leading head dimension).  The
+# window-parallel ``cuda`` kernels take one head, so heads go to their
+# head-grid versions; its attention is the fused kernel, which takes both.
+_ROUTES = {"cuda": {"spmm": ("cuda", "cuda_batched"),
+                    "sddmm": ("cuda", "cuda_batched"),
+                    "attention": ("cuda_fused_attn", "cuda_fused_attn")}}
+
+
+def _routes(op: str, impl: str) -> tuple:
+    """``(one head, heads)``: the impls that run ``op`` on a plan of
+    ``impl`` (:data:`_ROUTES`, else ``impl`` itself)."""
+    return _ROUTES.get(impl, {}).get(op, (impl, impl))
+
+
 def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
             n_blk: int = 128, split_blk: int = 1, device=None,
             precision: Optional[str] = None) -> ADPlan:
@@ -160,15 +175,22 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     queue 1 item 11).  Its ``f_blk`` has no counterpart: the port's SDDMM
     kernels walk the whole feature dimension in one pass.  ``precision``
     (``None``, ``"fp32"``, ``"bf16"``, ``"int8"``) fixes the level of every
-    op on the plan and is checked against the impl's ``precisions``;
-    plans of one pattern at several levels share their arrays.
+    op on the plan and is checked against the ``precisions`` of every impl
+    the plan's ops run (:data:`_ROUTES`: on ``cuda`` the head grids and
+    the fused attention too), so a combination a kernel lacks fails
+    before a step runs; plans of one pattern at several levels share
+    their arrays.
     """
     device = resolve_device(device)
     validate_precision(precision)
     if precision is not None:
-        _dispatch.require("spmm", impl, precision=precision)
-        _dispatch.require("sddmm", impl,
-                          precision=_dense_precision(precision))
+        ops = ("spmm", "sddmm") + (("attention",) if impl in _PLAN_IMPLS
+                                   else ())
+        for op in ops:
+            for name in dict.fromkeys(_routes(op, impl)):
+                _dispatch.require(op, name, precision=(
+                    precision if op == "spmm"
+                    else _dense_precision(precision)))
     if impl not in _PLAN_IMPLS:
         raise NotImplementedError(
             f"ad_plan(impl={impl!r}): the port builds plans for "
@@ -226,15 +248,14 @@ def forward_only(name: str, **tensors) -> None:
 
 
 def _head_impl(op: str, impl: str, *operands) -> str:
-    """The impl that runs ``op`` of ``impl`` on these operands: the
-    window-parallel ``cuda`` kernels take one head, so a leading head
-    dimension routes to their head-grid versions, one launch for every
-    head; the impl that takes the heads must be flagged ``batched``."""
+    """The impl that runs ``op`` on a plan of ``impl`` on these operands
+    (:func:`_routes`); the one that takes a leading head dimension, in
+    one launch for every head, must be flagged ``batched``."""
+    one, heads = _routes(op, impl)
     if not any(t.dim() == 3 for t in operands):
-        return impl
-    name = "cuda_batched" if impl == "cuda" else impl
-    _dispatch.require(op, name, batched=True)
-    return name
+        return one
+    _dispatch.require(op, heads, batched=True)
+    return heads
 
 
 def _run_spmm(impl: str, plan: ADPlan, vals, b, *, transposed: bool,
@@ -343,8 +364,7 @@ def _attention_kernel(impl: str, plan: ADPlan, q, k, v, scale):
     window-parallel for ``cuda``, over the forward schedule for
     ``cuda_balanced``."""
     extra = {"schedule": plan.fwd_sched} if impl == "cuda_balanced" else {}
-    name = _head_impl("attention", "cuda_fused_attn" if impl == "cuda"
-                      else impl, q, k, v)
+    name = _head_impl("attention", impl, q, k, v)
     _dispatch.require("attention", name, precision=plan.precision)
     q, k, v = cast_precision(plan.precision, q, k, v)
     return _dispatch.dispatch("attention", name, plan.fwd, q, k, v,

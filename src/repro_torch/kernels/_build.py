@@ -44,21 +44,23 @@ _L = ctypes.c_int64
 SOURCES: Dict[str, tuple] = {
     "spmm": ("spmm_launch", [_P] * 7 + [_I] * 14 + [_P]),
     "spmm_batched": ("spmm_batched_launch",
-                     [_P] * 6 + [_I] * 12 + [_L, _L, _I, _P]),
+                     [_P] * 7 + [_I] * 12 + [_L, _L] + [_I] * 3 + [_P]),
     "spmm_noncoalesced": ("spmm_noncoalesced_f32",
                           [_P] * 5 + [_I] * 5 + [_P]),
     "spmm_staged": ("spmm_staged_f32", [_P] * 4 + [_I] * 6 + [_P]),
     "sddmm": ("sddmm_launch", [_P] * 6 + [_I] * 6 + [_P]),
-    "sddmm_batched": ("sddmm_batched_f32", [_P] * 6 + [_I] * 6 + [_L, _L, _P]),
+    "sddmm_batched": ("sddmm_batched_launch",
+                      [_P] * 6 + [_I] * 6 + [_L, _L, _I, _P]),
     "attention": ("attention_launch",
                   [_P] * 7 + [_I] * 10 + [_L, _L, _L, _I, _P]),
-    "spmm_balanced": ("spmm_balanced_f32",
-                      [_P] * 9 + [_I] * 7 + [_L, _L, _P, _I, _L, _L, _P]),
-    "sddmm_balanced": ("sddmm_balanced_f32",
-                       [_P] * 7 + [_I] * 6 + [_L, _L, _L, _P]),
-    "attention_balanced": ("attention_balanced_f32",
+    "spmm_balanced": ("spmm_balanced_launch",
+                      [_P] * 10 + [_I] * 7 + [_L, _L, _P, _I, _L, _L, _I,
+                                              _I, _P]),
+    "sddmm_balanced": ("sddmm_balanced_launch",
+                       [_P] * 7 + [_I] * 6 + [_L, _L, _L, _I, _P]),
+    "attention_balanced": ("attention_balanced_launch",
                            [_P] * 15 + [_I] * 7 + [_L, _L, _L, _P, _I, _L,
-                                                   _L, _P]),
+                                                   _L, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -5,9 +5,10 @@ CPU, launches its kernel when every tensor lies on one CUDA device, and
 raises on anything the kernel does not take: a combination of dtypes that
 is not one of its variants (the kernels never cast), non-contiguous
 tensors, non-int32 indices, or mixed devices.  Every wrapper takes
-float32; the window SpMM, the SDDMM and the fused attention also take
-bfloat16 operands, and the SpMM int8 values with fp32 per-K-block scales
-(DESIGN.md §13).
+float32; the window, head-grid and balanced SpMMs, SDDMMs and attentions
+also take bfloat16 operands, and the SpMMs int8 values with fp32
+per-K-block scales (DESIGN.md §13).  The two SpMM baselines, staged and
+non-coalesced, take float32 only.
 """
 
 from __future__ import annotations

@@ -16,6 +16,12 @@ merges them per window as the kernel does.
 
 ``q``, ``k`` and ``v`` may each carry a leading head dimension; a 2-D
 operand is shared by every head, and all 2-D in gives ``(M, DV)`` out.
+Q, K and V are all float32 or all bfloat16 (``attention_cuda``'s
+variants; the reference's bf16 path): Q is scaled in fp32 and rounded to
+its dtype before the launch, the scores, the softmax statistics and every
+sum are the fp32 kernel's, and the output is rounded once to V's dtype;
+``attention_balanced_cuda.variant_launches`` counts each variant's
+launches.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from repro_torch.core.format import BlockedMEBCRS, Schedule
 
 from . import _build, _checks
 from ._combine import run_plan
+from .attention_cuda import VARIANTS
 from .spmm_balanced_cuda import piece_blocks
 
 __all__ = ["RUN_BLK", "attention_balanced_cuda", "attention_balanced_plain"]
@@ -40,9 +47,10 @@ def attention_balanced_plain(blocked: BlockedMEBCRS, q: torch.Tensor,
                              k: torch.Tensor, v: torch.Tensor,
                              schedule: Schedule, scale=None,
                              run_blk: int = RUN_BLK) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: per (run, window) piece the
-    row maxima, row sums and unnormalised output in fp32, then each
-    window's pieces merged by log-sum-exp with the sums in fp64."""
+    """Plain PyTorch version of the kernel: Q scaled in fp32 and rounded to
+    its dtype, then per (run, window) piece the row maxima, row sums and
+    unnormalised output in fp32, then each window's pieces merged by
+    log-sum-exp with the sums in fp64, the output in V's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     q3, k3, v3 = (t if t.dim() == 3 else t[None] for t in (q, k, v))
@@ -60,7 +68,7 @@ def attention_balanced_plain(blocked: BlockedMEBCRS, q: torch.Tensor,
     cols = blocked.cols.long()[rows]
     qpad = torch.zeros((q3.shape[0], w * vsz, d), dtype=torch.float32,
                        device=dev)
-    qpad[:, : q3.shape[1]] = q3.float() * scale
+    qpad[:, : q3.shape[1]] = (q3.float() * scale).to(q.dtype)
     qg = qpad.reshape(q3.shape[0], w, vsz, d)[:, piece_win[blk_piece]]
     kg = k3.float()[:, cols].reshape(k3.shape[0], nsb, k_blk, d)
     vg = v3.float()[:, cols].reshape(
@@ -102,14 +110,18 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     """``softmax_rows(scale · mask ⊙ Q Kᵀ) @ V`` over ``blocked``'s pattern,
     block-parallel over ``schedule`` (built with ``split_blk`` when
     omitted) in runs of about ``run_blk`` K-blocks: ``q ([H,] M, D)``,
-    ``k ([H,] Mc, D)``, ``v ([H,] Mc, DV)`` → ``([H,] M, DV)``, fp32.
-    ``scale`` (default ``1/sqrt(D)``) may be a 0-d tensor; it is folded
-    into Q before the launch."""
+    ``k ([H,] Mc, D)``, ``v ([H,] Mc, DV)`` → ``([H,] M, DV)`` in V's
+    dtype (fp32 or bf16 operands).  ``scale`` (default ``1/sqrt(D)``) may
+    be a 0-d tensor; it is folded into Q before the launch, in fp32 and
+    rounded to Q's dtype."""
     op = "attention_balanced_cuda"
     if schedule is None:
         schedule = blocked.schedule(split_blk)
-    scale_t = {"scale": scale} if isinstance(scale, torch.Tensor) else {}
-    _checks.forward_inputs(op, q=q, k=k, v=v, **scale_t)
+    if isinstance(scale, torch.Tensor):
+        _checks.forward_inputs(op, tuple(x + (scale.dtype,) for x in VARIANTS),
+                               q=q, k=k, v=v, scale=scale)
+    else:
+        _checks.forward_inputs(op, VARIANTS, q=q, k=k, v=v)
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2), v=(v, 2))
     if _checks.on_cpu(op, seg_win=schedule.seg_win,
                       seg_meta=schedule.seg_meta, cols=blocked.cols,
@@ -139,7 +151,7 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
         op, {"run_ptr": plan.run_ptr, "pieces": plan.pieces,
              "tree_meta": tree.meta, "cols": blocked.cols},
         {"mask": blocked.mask, "q": qs, "k": k, "v": v})
-    out = torch.empty((h, m, dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((h, m, dv), dtype=v.dtype, device=q.device)
     if m == 0 or dv == 0:
         return out if batched else out[0]
     # Scratch of the combine tree: each run edge's (acc, m, l) in fp32, and
@@ -154,18 +166,20 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
                                        ((h, entries, vsz), dtype))]
                     if entries else [None] * 3)
     ptrs = [None if t is None else t.data_ptr() for t in scratch]
-    err = _build.library("attention_balanced").attention_balanced_f32(
+    err = _build.library("attention_balanced").attention_balanced_launch(
         plan.run_ptr.data_ptr(), plan.pieces.data_ptr(),
         tree.meta.data_ptr(), blocked.cols.data_ptr(),
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), blocked.mask.data_ptr(),
         out.data_ptr(), *ptrs, m, d, dv, plan.num_runs, h, vsz,
         blocked.k_blk, _checks.head_stride(qs, 2), _checks.head_stride(k, 2),
         _checks.head_stride(v, 2), _build.host_ints(tree.level_ints()),
-        len(tree.levels), plan.entries, tree.entries,
+        len(tree.levels), plan.entries, tree.entries, _checks.dtype_code(v),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("attention_balanced", err)
     attention_balanced_cuda.launches += 1
+    attention_balanced_cuda.variant_launches[_checks.variant(v)] += 1
     return out if batched else out[0]
 
 
 attention_balanced_cuda.launches = 0
+attention_balanced_cuda.variant_launches = {"fp32": 0, "bf16": 0}

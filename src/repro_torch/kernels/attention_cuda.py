@@ -117,10 +117,6 @@ def attention_cuda(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
     else:
         _checks.forward_inputs(op, VARIANTS, q=q, k=k, v=v)
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2), v=(v, 2))
-    if batched and v.dtype != torch.float32:
-        raise TypeError(f"{op}: the bf16 variant takes one head (2-D q, k, "
-                        "v); bf16 over heads is ROADMAP.md queue 2, with "
-                        "the multi-head bf16 attention path")
     tensors = dict(win_ptr=blocked.win_ptr, cols=blocked.cols,
                    mask=blocked.mask, q=q, k=k, v=v)
     if _checks.on_cpu(op, **tensors):
@@ -180,9 +176,12 @@ def attention_cuda_staged(blocked: BlockedMEBCRS, q: torch.Tensor,
     batched SpMM, one launch each for every head; operands and result as
     :func:`attention_cuda`.  The (``[H,]`` NNZP, V) scores and
     probabilities pass through device memory: the traffic the fused kernel
-    keeps on chip."""
+    keeps on chip.  bf16 operands run the kernels' bf16 variants; the
+    softmax runs in fp32 and the probabilities go to V's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scores = sddmm_batched_cuda(blocked, q, k)
-    probs = sparse_softmax(blocked, scores * scale)
+    # the softmax in fp32 whatever the scores' dtype, as the reference's
+    # (attention_pallas.py:443); the probabilities in V's
+    probs = sparse_softmax(blocked, scores.float() * scale)
     return spmm_batched_cuda(with_values(blocked, probs.to(v.dtype)), v)

@@ -1,6 +1,7 @@
 // Batched SDDMM over the blocked ME-BCRS pattern, one launch for H heads:
-// S[h] = mask * (Q[h] @ K[h]^T), fp32, (H, NNZP, V), where Q and K are
-// each either per head or shared by every head.
+// S[h] = mask * (Q[h] @ K[h]^T), (H, NNZP, V), where Q and K are each
+// either per head or shared by every head, and Q, K and S are all fp32 or
+// all bf16 (fp32 dots).
 //
 // Replaces: src/repro/kernels/sddmm_pallas.py, _batched_sddmm_kernel
 // (launched through sddmm_pallas_batched), the (H, NB, F / F_BLK) grid of
@@ -11,7 +12,7 @@
 // once is Q (M x F per distinct head) + K (Mc x F per distinct head) +
 // mask (NNZP x V bytes) + cols (NNZP) + block_win (NB) + S (H x NNZP x V);
 // the work, 2 * H * NNZP * V * F flops, is well under the fp32 rate for
-// that traffic.
+// that traffic.  bf16 halves the bytes of Q, K and S.
 //
 // Design: the row-parallel kernel of sddmm.cu (sddmm_rows.cuh) with the
 // heads on gridDim.y (rows stay on gridDim.x, which has no 65,535 limit).
@@ -21,22 +22,34 @@
 // launches of sddmm.cu, as the reference promises for its batched grid.
 // Like sddmm.cu it walks the whole feature dimension in one pass: the
 // reference's f_blk feature tiles, which bound a TPU cell's VMEM, have no
-// counterpart, since a thread's V sums live in registers for any F.
+// counterpart, since a thread's V sums live in registers for any F.  The
+// bf16 variant is sddmm.cu's instantiation of the same kernel: Q and K
+// widened as they are read, fp32 dots, S rounded once; per (head, row)
+// bitwise H launches of sddmm.cu at bf16.
 #include "sddmm_rows.cuh"
 
-// block_win (NB,) int32, cols (NB * k_blk,) int32, q (M, F) f32 with heads
-// q_hstride elements apart (0: shared), k (Mc, F) f32 with heads k_hstride
-// apart (0: shared), mask (NB * k_blk, V) bool, out (H, NB * k_blk, V)
-// f32 with 16-byte alignment (a fresh allocation).  H at most 65,535.
-extern "C" int sddmm_batched_f32(const void* block_win, const void* cols,
-                                 const void* q, const void* k,
-                                 const void* mask, void* out, int m, int f,
-                                 int num_blocks, int heads, int v, int k_blk,
-                                 int64_t q_hstride, int64_t k_hstride,
-                                 void* stream) {
-  return repro::launch_sddmm_rows<float>(block_win, cols, q, k, mask, out, m, f,
-                                  num_blocks, heads, v, k_blk, q_hstride,
-                                  k_hstride, stream);
+// block_win (NB,) int32, cols (NB * k_blk,) int32, q (M, F) and k (Mc, F)
+// of qk_type (0 f32, 1 bf16) with heads q_hstride and k_hstride elements
+// apart (0: shared), mask (NB * k_blk, V) bool, out (H, NB * k_blk, V) of
+// qk_type with 16-byte alignment (a fresh allocation).  H at most 65,535.
+extern "C" int sddmm_batched_launch(const void* block_win, const void* cols,
+                                    const void* q, const void* k,
+                                    const void* mask, void* out, int m, int f,
+                                    int num_blocks, int heads, int v,
+                                    int k_blk, int64_t q_hstride,
+                                    int64_t k_hstride, int qk_type,
+                                    void* stream) {
+  if (qk_type == 0) {
+    return repro::launch_sddmm_rows<float>(block_win, cols, q, k, mask, out,
+                                           m, f, num_blocks, heads, v, k_blk,
+                                           q_hstride, k_hstride, stream);
+  }
+  if (qk_type == 1) {
+    return repro::launch_sddmm_rows<__nv_bfloat16>(
+        block_win, cols, q, k, mask, out, m, f, num_blocks, heads, v, k_blk,
+        q_hstride, k_hstride, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 REPRO_ERROR_STRING(sddmm_batched_error_string)

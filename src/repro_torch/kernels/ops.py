@@ -28,10 +28,12 @@ the reference's: ``differentiable`` impls run backward through the
 autograd Functions of ``core/autodiff.py``; ``batched`` impls take a
 leading head dimension in one launch.  The attention ``cuda_staged`` and
 the two SpMM baselines are forward only, as in the reference.  The
-``precisions`` follow the kernels' variants (DESIGN.md §13): the ``cuda``
-SpMM takes fp32, bf16 and int8, the ``cuda`` SDDMM and the fused
-attention fp32 and bf16, every other impl fp32 (its narrow variants are
-ROADMAP.md queue 2).
+``precisions`` follow the kernels' variants (DESIGN.md §13) and equal the
+reference's: every SpMM of ``cuda``, ``cuda_batched`` and
+``cuda_balanced`` takes fp32, bf16 and int8, their SDDMMs and every
+attention fp32 and bf16.  The two SpMM baselines ``cuda_staged`` and
+``cuda_noncoalesced`` take fp32 only (their narrow variants, rows 2 and 5
+of PERF.md §6, are ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -134,20 +136,25 @@ _dispatch.register("attention", "cuda_fused_attn", _attention_cuda_adapter,
                    precisions=("fp32", "bf16"))
 # Head grids: one launch for every head, bitwise-equal to a launch per head.
 _dispatch.register("spmm", "cuda_batched", _spmm_batched_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16", "int8"))
 _dispatch.register("sddmm", "cuda_batched", _sddmm_batched_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16"))
 # The three-pass baseline of the fused kernel: scores through device memory.
 _dispatch.register("attention", "cuda_staged", _attention_staged_adapter,
-                   batched=True)
+                   batched=True, precisions=("fp32", "bf16"))
 # Block-parallel load-balanced impls (DESIGN.md §11): uniform-segment grids
 # driven by a host-built Schedule, for skewed matrices.
 _dispatch.register("spmm", "cuda_balanced", _spmm_balanced_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16", "int8"))
 _dispatch.register("sddmm", "cuda_balanced", _sddmm_balanced_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16"))
 _dispatch.register("attention", "cuda_balanced", _attention_balanced_adapter,
-                   differentiable=True, batched=True)
+                   differentiable=True, batched=True,
+                   precisions=("fp32", "bf16"))
 # The SpMM baselines of the paper's ablations (forward only).
 _dispatch.register("spmm", "cuda_staged", _spmm_staged_adapter)
 _dispatch.register("spmm", "cuda_noncoalesced", _spmm_noncoalesced_adapter)

@@ -11,7 +11,9 @@ it runs :func:`sddmm_balanced_plain`.
 
 ``q`` may be ``(M, F)`` or ``(H, M, F)`` and ``k`` ``(Mc, F)`` or
 ``(H, Mc, F)``; a 2-D operand is shared by every head, and 2-D in gives
-``(NNZP, V)`` out, else ``(H, NNZP, V)``.
+``(NNZP, V)`` out, else ``(H, NNZP, V)``.  Q and K are both float32 or
+both bfloat16 (``sddmm_cuda``'s variants): fp32 dots, S in Q's dtype;
+``sddmm_balanced_cuda.variant_launches`` counts each variant's launches.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch.core.format import BlockedMEBCRS, Schedule
 
 from . import _build, _checks
+from .sddmm_cuda import VARIANTS
 
 __all__ = ["sddmm_balanced_cuda", "sddmm_balanced_plain"]
 
@@ -28,7 +31,8 @@ __all__ = ["sddmm_balanced_cuda", "sddmm_balanced_plain"]
 def sddmm_balanced_plain(blocked: BlockedMEBCRS, q: torch.Tensor,
                          k: torch.Tensor, schedule: Schedule) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``mask ⊙ (Q Kᵀ)`` at the
-    scheduled blocks, zeros elsewhere, in the blocked layout."""
+    scheduled blocks, zeros elsewhere, in the blocked layout; narrow
+    operands widened, fp32 dots, S in Q's dtype."""
     q3 = q if q.dim() == 3 else q[None]
     k3 = k if k.dim() == 3 else k[None]
     h = max(q3.shape[0], k3.shape[0])
@@ -58,18 +62,18 @@ def sddmm_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
                         k: torch.Tensor, *, schedule: Schedule | None = None,
                         split_blk: int = 1) -> torch.Tensor:
     """Sampled ``Q Kᵀ`` at ``blocked``'s pattern over ``schedule``'s block
-    list (built with ``split_blk`` when omitted), fp32, as blocked-layout
-    values."""
+    list (built with ``split_blk`` when omitted), fp32 or bf16 operands
+    with fp32 dots, as blocked-layout values in Q's dtype."""
     op = "sddmm_balanced_cuda"
     if schedule is None:
         schedule = blocked.schedule(split_blk)
-    _checks.forward_inputs(op, q=q, k=k)
+    _checks.forward_inputs(op, VARIANTS, q=q, k=k)
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2))
     if schedule.num_blocks == 0:
         # A zero-block schedule (the all-empty matrix): zeros without a
         # launch, as the reference.
         out = torch.zeros((h, blocked.cols.shape[0], blocked.vector_size),
-                          dtype=torch.float32, device=q.device)
+                          dtype=q.dtype, device=q.device)
         return out if batched else out[0]
     tensors = dict(blk_id=schedule.blk_id, blk_win=schedule.blk_win,
                    cols=blocked.cols, mask=blocked.mask, q=q, k=k)
@@ -96,17 +100,19 @@ def sddmm_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
                          f"({schedule.num_blocks} scheduled blocks, "
                          f"{blocked.num_blocks} in the view)")
     # every block of a non-empty view is scheduled, so every row is written
-    out = torch.empty((h, nnzp, v), dtype=torch.float32, device=q.device)
-    err = _build.library("sddmm_balanced").sddmm_balanced_f32(
+    out = torch.empty((h, nnzp, v), dtype=q.dtype, device=q.device)
+    err = _build.library("sddmm_balanced").sddmm_balanced_launch(
         schedule.blk_id.data_ptr(), schedule.blk_win.data_ptr(),
         blocked.cols.data_ptr(), q.data_ptr(), k.data_ptr(),
         blocked.mask.data_ptr(), out.data_ptr(), m, q.shape[-1],
         schedule.num_blocks, h, v, blocked.k_blk, _checks.head_stride(q, 2),
-        _checks.head_stride(k, 2), nnzp * v,
+        _checks.head_stride(k, 2), nnzp * v, _checks.dtype_code(q),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("sddmm_balanced", err)
     sddmm_balanced_cuda.launches += 1
+    sddmm_balanced_cuda.variant_launches[_checks.variant(q)] += 1
     return out if batched else out[0]
 
 
 sddmm_balanced_cuda.launches = 0
+sddmm_balanced_cuda.variant_launches = {"fp32": 0, "bf16": 0}

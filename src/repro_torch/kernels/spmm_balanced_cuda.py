@@ -17,6 +17,14 @@ partial, and then sums each window's pieces in fp64, as the kernel does.
 Operands follow the batched convention of the reference: ``vals`` may be
 ``(NNZP, V)`` or ``(H, NNZP, V)`` and ``b`` ``(K, N)`` or ``(H, K, N)``;
 a 2-D operand is shared by every head, and 2-D in gives 2-D out.
+
+The kernel's variants are ``spmm_cuda``'s (:data:`~repro_torch.kernels.
+spmm_cuda.VARIANTS`): fp32, bf16, or int8 values (shared by every head)
+with the view's per-K-block scales and fp32 or bf16 B.  Every operand is
+widened to fp32 as it is read and the sums are those of the fp32 kernel,
+so C is that kernel's result on the widened (int8: ``q · scale``)
+operands, rounded once to B's dtype;
+``spmm_balanced_cuda.variant_launches`` counts each variant's launches.
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.format import BlockedMEBCRS, Schedule
+from repro_torch.core.spmm import dequantized
 
 from . import _build, _checks
 from ._combine import RunPlan, run_plan
+from .spmm_cuda import _variant_inputs
 
 __all__ = ["RUN_BLK", "piece_blocks", "spmm_balanced_cuda",
            "spmm_balanced_plain"]
@@ -58,9 +68,12 @@ def spmm_balanced_plain(blocked: BlockedMEBCRS, b: torch.Tensor,
                         schedule: Schedule,
                         run_blk: int = RUN_BLK) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the scheduled blocks' fp32
-    contractions summed per (run, window) piece in fp64 and rounded to
-    fp32 (the kernel folds fp32 sums of at most 32 products into fp64 and
-    writes an fp32 partial), then each window's pieces summed in fp64."""
+    contractions (int8 values dequantized, narrow operands widened) summed
+    per (run, window) piece in fp64 and rounded to fp32 (the kernel folds
+    fp32 sums of at most 32 products into fp64 and writes an fp32
+    partial), then each window's pieces summed in fp64, rounded to fp32
+    and then to B's dtype."""
+    blocked = dequantized(blocked)
     vals3 = blocked.vals if blocked.vals.dim() == 3 else blocked.vals[None]
     b3 = b if b.dim() == 3 else b[None]
     h = max(vals3.shape[0], b3.shape[0])
@@ -82,7 +95,7 @@ def spmm_balanced_plain(blocked: BlockedMEBCRS, b: torch.Tensor,
     win = torch.zeros((h, w, v, n), dtype=torch.float64,
                       device=b.device).index_add_(
         1, plan.pieces[:, 0].long(), piece.double())
-    out = win.reshape(h, w * v, n)[:, : blocked.shape[0]].to(b.dtype)
+    out = win.reshape(h, w * v, n)[:, : blocked.shape[0]].float().to(b.dtype)
     return out if (blocked.vals.dim() == 3 or b.dim() == 3) else out[0]
 
 
@@ -90,25 +103,29 @@ def spmm_balanced_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
                        schedule: Schedule | None = None, split_blk: int = 1,
                        n_blk: int = 128,
                        run_blk: int = RUN_BLK) -> torch.Tensor:
-    """``C = A @ B`` over ``blocked`` in fp32, block-parallel over
-    ``schedule`` (built from ``blocked`` with ``split_blk`` when omitted)
-    in runs of about ``run_blk`` K-blocks; ``n_blk`` is the column tile
-    (threads per block, a multiple of 32 up to 256)."""
+    """``C = A @ B`` over ``blocked`` (the variants of ``spmm_cuda``), C in
+    B's dtype, block-parallel over ``schedule`` (built from ``blocked``
+    with ``split_blk`` when omitted) in runs of about ``run_blk``
+    K-blocks; ``n_blk`` is the column tile (threads per block, a multiple
+    of 32 up to 256)."""
     op = "spmm_balanced_cuda"
     if schedule is None:
         schedule = blocked.schedule(split_blk)
-    _checks.forward_inputs(op, vals=blocked.vals, b=b)
+    scales = _variant_inputs(op, blocked, b)
     h, batched = _checks.heads(op, vals=(blocked.vals, 2), b=(b, 2))
-    if _checks.on_cpu(op, seg_win=schedule.seg_win,
-                      seg_meta=schedule.seg_meta, cols=blocked.cols,
-                      vals=blocked.vals, b=b):
+    tensors = dict(seg_win=schedule.seg_win, seg_meta=schedule.seg_meta,
+                   cols=blocked.cols, vals=blocked.vals, b=b)
+    if scales is not None:
+        tensors["scales"] = scales
+    if _checks.on_cpu(op, **tensors):
         return spmm_balanced_plain(blocked, b, schedule, run_blk)
     plan = run_plan(op, schedule, blocked.num_windows, run_blk)
     tree = plan.tree
     _checks.kernel_inputs(
         op, {"run_ptr": plan.run_ptr, "pieces": plan.pieces,
              "tree_meta": tree.meta, "cols": blocked.cols},
-        {"vals": blocked.vals, "b": b})
+        {k_: t for k_, t in tensors.items()
+         if k_ in ("vals", "b", "scales")})
     m, k = blocked.shape
     v = blocked.vector_size
     if v not in (8, 16):
@@ -123,7 +140,7 @@ def spmm_balanced_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
     if (max(m, n, plan.num_runs) > _checks.int32_max
             or -(-n // n_tile) > 65535 or h > 65535):
         raise ValueError(f"{op}: shape too large for the kernel's grid")
-    c = torch.empty((h, m, n), dtype=torch.float32, device=b.device)
+    c = torch.empty((h, m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c if batched else c[0]
     # Scratch of the combine tree: the run edges' fp32 partials and the
@@ -135,19 +152,23 @@ def spmm_balanced_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
     if tree.entries:
         part2 = torch.empty((h, tree.entries, v, n), dtype=torch.float64,
                             device=b.device)
-    err = _build.library("spmm_balanced").spmm_balanced_f32(
+    err = _build.library("spmm_balanced").spmm_balanced_launch(
         plan.run_ptr.data_ptr(), plan.pieces.data_ptr(),
         tree.meta.data_ptr(), blocked.cols.data_ptr(),
-        blocked.vals.data_ptr(), b.data_ptr(), c.data_ptr(),
+        blocked.vals.data_ptr(), None if scales is None else scales.data_ptr(),
+        b.data_ptr(), c.data_ptr(),
         None if part is None else part.data_ptr(),
         None if part2 is None else part2.data_ptr(), m, n, plan.num_runs, h,
         v, blocked.k_blk, n_tile, _checks.head_stride(blocked.vals, 2),
         _checks.head_stride(b, 2), _build.host_ints(tree.level_ints()),
         len(tree.levels), plan.entries, tree.entries,
+        _checks.dtype_code(blocked.vals), _checks.dtype_code(b),
         torch.cuda.current_stream(b.device).cuda_stream)
     _build.check_launch("spmm_balanced", err)
     spmm_balanced_cuda.launches += 1
+    spmm_balanced_cuda.variant_launches[_checks.variant(blocked.vals)] += 1
     return c if batched else c[0]
 
 
 spmm_balanced_cuda.launches = 0
+spmm_balanced_cuda.variant_launches = {"fp32": 0, "bf16": 0, "int8": 0}

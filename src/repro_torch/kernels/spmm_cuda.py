@@ -50,7 +50,9 @@ def spmm_plain(blocked: BlockedMEBCRS, b: torch.Tensor) -> torch.Tensor:
 def _variant_inputs(op: str, blocked: BlockedMEBCRS, b: torch.Tensor):
     """Check ``(vals, b)`` against :data:`VARIANTS` (and that nothing
     needs a gradient); returns the scales the kernel reads, ``None`` for
-    float values."""
+    float values.  int8 values carry one scale per K-block for every head,
+    so they must be 2-D (shared by the heads), as the reference requires
+    (``spmm_pallas.py:407``)."""
     _checks.forward_inputs(op, VARIANTS, vals=blocked.vals, b=b)
     if blocked.vals.dtype != torch.int8:
         return None
@@ -59,6 +61,10 @@ def _variant_inputs(op: str, blocked: BlockedMEBCRS, b: torch.Tensor):
             or scales.shape != (blocked.num_blocks,)):
         raise TypeError(f"{op}: int8 values need the view's fp32 per-K-block "
                         f"scales ({blocked.num_blocks},) (quantize_format)")
+    if blocked.vals.dim() != 2:
+        raise ValueError(f"{op}: int8 values must be shared by every head "
+                         "(2-D, one scale per K-block); quantize before "
+                         "stacking heads")
     return scales
 
 

@@ -185,10 +185,20 @@ def test_batched_flag_matches_the_reference_registry():
              ("attention", "cuda_staged"): "pallas_staged",
              ("spmm", "cuda_staged"): "pallas_staged",
              ("spmm", "cuda_noncoalesced"): "pallas_noncoalesced"}
+    # The narrow variants of the two SpMM baselines (rows 2 and 5 of
+    # PERF.md §6) are ROADMAP.md queue 2: until they are ported, their
+    # impls take fp32 where the reference's take more.
+    queue2 = {("spmm", "cuda_staged"): ("fp32", "bf16"),
+              ("spmm", "cuda_noncoalesced"): ("fp32", "bf16", "int8")}
     for (op, impl), jax_impl in pairs.items():
         mine, theirs = dispatch.get(op, impl), jdispatch.get(op, jax_impl)
         assert (mine.batched, mine.differentiable) == (
             theirs.batched, theirs.differentiable), (op, impl)
+        if (op, impl) in queue2:
+            assert mine.precisions == ("fp32",), (op, impl)
+            assert theirs.precisions == queue2[(op, impl)], (op, impl)
+        else:
+            assert mine.precisions == theirs.precisions, (op, impl)
     assert dispatch.require("spmm", "cuda_batched", batched=True,
                             differentiable=True).fn is not None
     with pytest.raises(ValueError, match="no native batched path.*"

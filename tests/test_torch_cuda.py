@@ -29,6 +29,7 @@ from repro_torch.core import (ad_plan, block_format, from_coo, from_dense,
 from repro_torch.core.quantize import quantize_format
 from repro_torch.core.spmm import dequantized
 from repro_torch.core.sddmm import with_values
+from repro_torch.core.softmax import sparse_softmax
 from repro_torch.kernels import (attention_balanced_cuda,
                                  attention_balanced_plain, attention_cuda,
                                  attention_cuda_staged, attention_plain,
@@ -261,35 +262,51 @@ def _head(t, h):
     return t[h] if t.dim() == 3 else t
 
 
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
 @pytest.mark.parametrize("mix", ["first", "second", "both"])
 @pytest.mark.parametrize("h", [1, 3])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
 def test_head_grid_kernels_are_bitwise_the_per_head_launches(device, case, h,
-                                                             mix):
+                                                             mix, prec):
+    """One launch of a head-grid kernel for H heads is bitwise H one-head
+    launches and agrees with its plain version: fp32 at the kernel
+    tolerance; bf16, and int8 values (shared by the heads) with bf16 B,
+    within one bf16 ulp."""
     m, k, density, empty, v, k_blk, n, f, dv = case
     rng = np.random.default_rng(m * k + 7 * h)
     a = _matrix(rng, m, k, density, empty)
     blocked = block_format(from_dense(a, vector_size=v), k_blk, device=device)
+    dtype = BF16 if prec == "bf16" else torch.float32
 
     def t(per_head, *shape):
         hs = (h,) if per_head else ()
         return torch.from_numpy(rng.standard_normal(hs + shape).astype(
-            np.float32)).to(device)
+            np.float32)).to(device=device, dtype=dtype)
+
+    def agree(got, want):
+        if prec == "bf16":
+            _one_ulp(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
     first, second = mix in ("first", "both"), mix in ("second", "both")
-    bv = with_values(blocked, t(first, *blocked.vals.shape) * blocked.mask)
+    views = {prec: with_values(blocked,
+                               t(first, *blocked.vals.shape) * blocked.mask)}
     b, q, kk = t(second, k, n), t(first, m, f), t(second, k, f)
-    out = spmm_batched_cuda(bv, b)
-    want = torch.stack([spmm_cuda(with_values(blocked, _head(bv.vals, i)),
-                                  _head(b, i)) for i in range(h)])
-    assert torch.equal(out, want)
-    torch.testing.assert_close(out, spmm_batched_plain(bv, b), rtol=RTOL,
-                               atol=ATOL)
+    if prec == "bf16" and second:
+        views["int8"] = quantize_format(blocked)  # values shared by the heads
+    for var, bv in views.items():
+        before = spmm_batched_cuda.variant_launches[var]
+        out = spmm_batched_cuda(bv, b)
+        assert spmm_batched_cuda.variant_launches[var] == before + 1
+        assert torch.equal(out, torch.stack([
+            spmm_cuda(with_values(bv, _head(bv.vals, i)), _head(b, i))
+            for i in range(h)]))
+        agree(out, spmm_batched_plain(bv, b))
     out = sddmm_batched_cuda(blocked, q, kk)
     assert torch.equal(out, torch.stack([
         sddmm_cuda(blocked, _head(q, i), _head(kk, i)) for i in range(h)]))
-    torch.testing.assert_close(out, sddmm_batched_plain(blocked, q, kk),
-                               rtol=RTOL, atol=ATOL)
+    agree(out, sddmm_batched_plain(blocked, q, kk))
     # attention: per-head Q with shared K, V ("first"), shared Q with
     # per-head K, V ("second"), or all per head
     vv = t(second, k, dv)
@@ -298,11 +315,18 @@ def test_head_grid_kernels_are_bitwise_the_per_head_launches(device, case, h,
     assert torch.equal(out, torch.stack([
         attention_cuda(blocked, _head(q, i), _head(kk, i), _head(vv, i),
                        scale=scale) for i in range(h)]))
-    torch.testing.assert_close(out, attention_plain(blocked, q, kk, vv, scale),
-                               rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(
-        attention_cuda_staged(blocked, q, kk, vv, scale=scale),
-        attention_plain(blocked, q, kk, vv, scale), rtol=RTOL, atol=ATOL)
+    agree(out, attention_plain(blocked, q, kk, vv, scale))
+    if prec == "fp32":
+        agree(attention_cuda_staged(blocked, q, kk, vv, scale=scale),
+              attention_plain(blocked, q, kk, vv, scale))
+    else:
+        # the staged composition: the softmax of the SDDMM kernel's bf16
+        # scores in fp32, the probabilities at bf16 through the SpMM kernel
+        probs = sparse_softmax(blocked, sddmm_batched_cuda(
+            blocked, q, kk).float() * scale).to(BF16)
+        agree(attention_cuda_staged(blocked, q, kk, vv, scale=scale),
+              spmm_batched_plain(with_values(blocked, probs), vv))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
@@ -574,3 +598,122 @@ def test_window_spmm_64_bit_index_on_a_4_gib_bf16_b(device):
     assert out[9].abs().sum() > 0 and not out[1].any()
     del b
     torch.cuda.synchronize()
+
+
+def _widened(view):
+    """``view`` with fp32 values: bf16 values widened, int8 values as
+    ``q · scale`` in fp32 (what the narrow kernels multiply by)."""
+    return with_values(dequantized(view), dequantized(view).vals.float())
+
+
+@pytest.mark.parametrize("split", [0, 1, 3])
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("case", CASES + [HUB_CASE], ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
+def test_narrow_balanced_kernels_match_plain_on_card(device, case, h, split):
+    """The balanced SpMM at bf16 and int8, SDDMM and attention at bf16:
+    within one bf16 ulp of their plain versions, the same bits on a
+    second launch, and bitwise the fp32 kernel's result on the widened
+    operands, rounded once (the same sums in the same order)."""
+    m, k, density, empty, v, k_blk, n, f, dv = case
+    rng = np.random.default_rng(m * k + 13 * h + split)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density, empty),
+                                      vector_size=v), k_blk, device=device)
+    sched = blocked.schedule(split)
+    hs = (h,) if h > 1 else ()
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=BF16)
+
+    b = t(*hs, k, n)
+    views = {"bf16": with_values(blocked, t(*hs, *blocked.vals.shape)
+                                 * blocked.mask),
+             "int8": quantize_format(blocked)}
+    for var, bv in views.items():
+        out = spmm_balanced_cuda(bv, b, schedule=sched)
+        assert out.dtype == BF16
+        assert torch.equal(out, spmm_balanced_cuda(bv, b, schedule=sched))
+        assert torch.equal(out, spmm_balanced_cuda(
+            _widened(bv), b.float(), schedule=sched).to(BF16))
+        _one_ulp(out, spmm_balanced_plain(bv, b, sched))
+    # int8 values with fp32 B: the fp32 kernel on q * scale, bit for bit
+    q8, b32 = views["int8"], b.float()
+    assert torch.equal(spmm_balanced_cuda(q8, b32, schedule=sched),
+                       spmm_balanced_cuda(_widened(q8), b32, schedule=sched))
+    q, kk, vv = t(*hs, m, f), t(k, f), t(*hs, k, dv)
+    out = sddmm_balanced_cuda(blocked, q, kk, schedule=sched)
+    assert torch.equal(out, sddmm_balanced_cuda(
+        blocked, q.float(), kk.float(), schedule=sched).to(BF16))
+    _one_ulp(out, sddmm_balanced_plain(blocked, q, kk, sched))
+    scale = torch.tensor(0.8, device=device)
+    out = attention_balanced_cuda(blocked, q, kk, vv, scale=scale,
+                                  schedule=sched)
+    assert torch.equal(out, attention_balanced_cuda(
+        blocked, q, kk, vv, scale=scale, schedule=sched))
+    qs = (q.float() * scale).to(BF16).float()
+    assert torch.equal(out, attention_balanced_cuda(
+        blocked, qs, kk.float(), vv.float(), scale=1.0,
+        schedule=sched).to(BF16))
+    _one_ulp(out, attention_balanced_plain(blocked, q, kk, vv, sched, scale))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", ["gcn-bf16", "agnn-bf16", "gcn-int8"])
+def test_balanced_narrow_train_step_on_card_matches_blocked(device, mode):
+    """The first step's gradients of a bf16 or int8-plan model on
+    cuda_balanced against the blocked route's at the same precision,
+    within four bf16 ulps of the largest entry (chip_smoke.py's gate)."""
+    model, prec = mode.split("-")
+    dtype = BF16 if prec == "bf16" else torch.float32
+    rng = np.random.default_rng(2)
+    a = _matrix(rng, 300, 300, 0.02) + np.eye(300, dtype=np.float32)
+    fmt = from_dense(a) if prec == "int8" else from_coo(
+        *to_coo(from_dense(a)), (300, 300), dtype=BF16)
+    x = torch.from_numpy(rng.standard_normal((300, 32)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    kw = dict(model=model, in_dim=32, hidden_dim=32 if model == "gcn" else 16,
+              num_classes=4, num_layers=3, dtype=dtype)
+    grads = {}
+    for name in ("cuda_balanced", "blocked"):
+        cfg = gnn.GNNConfig(impl=name, **kw)
+        net = (gnn.GCN if model == "gcn" else gnn.AGNN)(cfg, device=device)
+        plan = ad_plan(fmt, impl=name, device=device,
+                       precision="int8" if prec == "int8" else None)
+        net(plan, x).float().square().mean().backward()
+        grads[name] = [p.grad.float() for p in net.parameters()]
+    top = max(g.abs().max().item() for g in grads["blocked"])
+    for got, want in zip(grads["cuda_balanced"], grads["blocked"]):
+        torch.testing.assert_close(got, want, rtol=0.0,
+                                   atol=4 * 2.0 ** -7 * top)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_balanced"])
+def test_bf16_multi_head_attention_gradients_on_card_match_blocked(device,
+                                                                  impl):
+    seq, heads, d = 300, 3, 16
+    rows, cols = sat.block_sparse_causal_pattern(seq)
+    fmt = from_dense(np.asarray(sat.dense_mask(rows, cols, seq, "cpu"),
+                                np.float32))
+    q, k, v = (torch.from_numpy(x).to(device)
+               for x in sat.make_inputs(seq, heads, d, precision="bf16"))
+    grads, launches = {}, {}
+    for name in (impl, "blocked"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plan = ad_plan(fmt, impl=name, device=device, precision="bf16")
+        before = (sddmm_batched_cuda.variant_launches["bf16"],
+                  spmm_batched_cuda.variant_launches["bf16"])
+        out = sparse_attention(plan, *leaves)
+        assert out.dtype == BF16
+        out.float().square().sum().backward()
+        launches[name] = (sddmm_batched_cuda.variant_launches["bf16"]
+                          - before[0],
+                          spmm_batched_cuda.variant_launches["bf16"]
+                          - before[1])
+        grads[name] = [t.grad for t in leaves]
+    # the cuda route's backward: the recomputed scores and dProbs, and dV,
+    # dQ and dK, each one head-grid launch at bf16
+    assert launches[impl] == ((2, 3) if impl == "cuda" else (0, 0))
+    for got, want in zip(grads[impl], grads["blocked"]):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0.0,
+                                   atol=4 * 2.0 ** -7 * want.abs().max().item())

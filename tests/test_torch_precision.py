@@ -451,11 +451,14 @@ def test_gnn_train_smoke_cli_precisions(flags, capsys):
 
 
 def test_dispatch_precision_gate_names_the_capable_impls():
+    # the two SpMM baselines are fp32 only (ROADMAP.md queue 2); every
+    # other kernel impl takes the reference's narrow levels
     with pytest.raises(ValueError) as exc:
-        dispatch.require("spmm", "cuda_balanced", precision="bf16")
+        dispatch.require("spmm", "cuda_staged", precision="bf16")
     assert str(exc.value) == (
-        "impl 'cuda_balanced' of op 'spmm' does not support precision "
-        "'bf16' (supports: fp32); impls with 'bf16': blocked, cuda")
+        "impl 'cuda_staged' of op 'spmm' does not support precision "
+        "'bf16' (supports: fp32); impls with 'bf16': blocked, cuda, "
+        "cuda_balanced, cuda_batched")
     # the reference's text, up to the list of its own impls
     with pytest.raises(ValueError) as exc:
         dispatch.require("spmm", "coo_segment", precision="int8")
@@ -463,26 +466,46 @@ def test_dispatch_precision_gate_names_the_capable_impls():
         jdispatch.require("spmm", "coo_segment", precision="int8")
     assert (str(exc.value).split("; impls with")[0]
             == str(jexc.value).split("; impls with")[0])
-    for op, impl in (("spmm", "cuda_batched"), ("sddmm", "cuda_balanced"),
-                     ("spmm", "cuda_staged"), ("spmm", "cuda_noncoalesced")):
+    for op, impl in (("spmm", "cuda_staged"), ("spmm", "cuda_noncoalesced")):
         assert dispatch.get(op, impl).precisions == ("fp32",)
+    for op, impl, want in (("spmm", "cuda_batched", ("fp32", "bf16", "int8")),
+                           ("spmm", "cuda_balanced", ("fp32", "bf16", "int8")),
+                           ("sddmm", "cuda_balanced", ("fp32", "bf16")),
+                           ("attention", "cuda_balanced", ("fp32", "bf16"))):
+        assert dispatch.get(op, impl).precisions == want, (op, impl)
     assert dispatch.get("attention", "cuda_fused_attn").precisions == (
         "fp32", "bf16")
     with pytest.raises(ValueError, match="does not support precision 'int8'"):
         dispatch.require("sddmm", "cuda", precision="int8")
     with pytest.raises(ValueError, match="does not support precision"):
         ad_plan(from_dense(np.eye(16, dtype=np.float32)),
-                impl="cuda_balanced", device="cpu", precision="bf16")
+                impl="cuda_staged", device="cpu", precision="bf16")
+    # a plan on cuda_balanced now builds at every narrow level
+    for prec in ("bf16", "int8"):
+        plan = ad_plan(from_dense(np.eye(16, dtype=np.float32)),
+                       impl="cuda_balanced", device="cpu", precision=prec)
+        assert plan.precision == prec and plan.fwd_sched is not None
     _, port, _ = _formats(CASES[1])
     with pytest.raises(ValueError, match="does not support precision"):
         spmm(port, torch.ones(port.shape[1], 4), impl="coo_segment",
              precision="bf16")
     # fp32-only kernels refuse narrow operands and name the roadmap
-    from repro_torch.kernels import spmm_balanced_cuda
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        spmm_balanced_cuda(dataclasses.replace(port,
-                                               vals=port.vals.to(BF16)),
-                           torch.ones(port.shape[1], 4, dtype=BF16))
+    from repro_torch.kernels import (spmm_balanced_cuda, spmm_balanced_plain,
+                                     spmm_noncoalesced_cuda, spmm_plain,
+                                     spmm_staged_cuda)
+    p16 = dataclasses.replace(port, vals=port.vals.to(BF16))
+    b16 = _bf16(np.random.default_rng(14).standard_normal(
+        (port.shape[1], 4)).astype(np.float32))
+    for fn in (spmm_staged_cuda, spmm_noncoalesced_cuda):
+        with pytest.raises(TypeError, match="ROADMAP.md"):
+            fn(p16, b16)
+    # the balanced SpMM, refused here before, runs its bf16 variant: its
+    # plain version, within one bf16 ulp of the window SpMM's
+    got = spmm_balanced_cuda(p16, b16)
+    assert got.dtype == BF16
+    sched = port.schedule(1)
+    assert torch.equal(got, spmm_balanced_plain(p16, b16, sched))
+    _assert_one_ulp(got, spmm_plain(p16, b16), "spmm_balanced_cuda bf16")
 
 
 def test_wrappers_take_only_their_variants():
@@ -497,10 +520,23 @@ def test_wrappers_take_only_their_variants():
     with pytest.raises(TypeError, match="variants"):
         sddmm_cuda(port, torch.ones(port.shape[0], 3, dtype=BF16),
                    torch.ones(k, 3))
-    x = torch.ones(2, k, 4, dtype=BF16)
-    with pytest.raises(TypeError, match="one head"):
-        attention_cuda(port, torch.ones(2, port.shape[0], 4, dtype=BF16), x,
-                       x)
+    # int8 values over heads must be shared (2-D), as the reference says
+    from repro_torch.kernels import spmm_balanced_cuda, spmm_batched_cuda
+    q8 = quantize.quantize_format(port)
+    q8h = dataclasses.replace(q8, vals=torch.stack([q8.vals, q8.vals]))
+    for fn in (spmm_batched_cuda, spmm_balanced_cuda):
+        with pytest.raises(ValueError, match="shared by every head"):
+            fn(q8h, torch.ones(2, k, 4, dtype=BF16))
+    # the fused attention takes bf16 over heads (refused here before): the
+    # same function as one-head launches, within one bf16 ulp
+    rng = np.random.default_rng(15)
+    q, kk, v = (_bf16(rng.standard_normal((2, n, 4)).astype(np.float32))
+                for n in (port.shape[0], k, k))
+    got = attention_cuda(port, q, kk, v)
+    assert got.dtype == BF16 and got.shape == (2, port.shape[0], 4)
+    for h in range(2):
+        _assert_one_ulp(got[h], attention_cuda(port, q[h], kk[h], v[h]),
+                        f"attention_cuda bf16 head {h}")
 
 
 def test_attention_value_bands_cover_dv_and_split_exactly():
@@ -548,8 +584,9 @@ def test_format_metrics_equal_jax():
 
 
 def test_fp32_level_casts_for_fp32_only_impls():
-    """An fp32-only impl runs precision "fp32" as a plain cast, on the
-    entry points and through a plan."""
+    """Precision "fp32" is a plain cast of the operands, on the entry
+    points and through a plan (here on cuda_balanced, fp32-only until its
+    narrow variants were ported)."""
     _, port, _ = _formats(CASES[1])
     rng = np.random.default_rng(13)
     m, k = port.shape
