@@ -37,7 +37,12 @@ a non-zero exit at the first phase that fails:
      the two SpMM baselines at N = 128; on the attention pattern (12 heads,
      16,384 tokens, head dim 64), the head-grid SpMM on A and on its
      transpose, the balanced SpMM on its transpose (dV), the head-grid
-     SDDMM and the fused attention;
+     SDDMM and the fused attention; (c) the SDDMM tile that rows 6, 7 and
+     8 share: on every edge case at its F and at F = 720 and 1,500, fp32
+     and bf16, one head and three, and at the main paths' shapes, the
+     window, head-grid and balanced SDDMMs the same bits per sampled row,
+     the same bits on a second launch, and bf16 bitwise the fp32 kernel on
+     widened operands, rounded;
   4. inference: GCN (5 x 128) and AGNN (hidden 32, 5 layers) on
      ``make_dataset("Amazon", 1.0, seed=0)`` over the ``cuda`` plan, the
      bare blocked format and the ``cuda_balanced`` plan, and GCN over the
@@ -85,7 +90,9 @@ a non-zero exit at the first phase that fails:
      Amazon replica's at N = 128 and 32, the attention pattern's dV), the
      balanced kernels at split_blk in {0, 1, 8, 32} with
      each run plan's runs, edge entries and partial bytes, the run length
-     of the run-carried SpMM and attention swept at split_blk = 1, each
+     of the run-carried SpMM and attention swept at split_blk = 1, the
+     SDDMM on the Amazon replica with its K gathers folded into cache and
+     a device copy of its bound's bytes (what holds it off the bound), each
      forward and train step with its peak memory;
   6. where the time goes: ``torch.profiler`` over one forward and one train
      step of each model and route, device time by kernel and the device's
@@ -883,6 +890,91 @@ def check_narrow_heads_edge(rng) -> None:
     torch.cuda.synchronize()
 
 
+def check_sddmm_rows(tag: str, blocked, scheds, q, k) -> None:
+    """The three SDDMMs share one tensor-core tile (``sddmm_rows.cuh``), and
+    a sampled row's products do not depend on the tile that holds it: on
+    the same Q and K (fp32 or bf16; 2-D, or with a head dimension) the
+    window SDDMM (row 6) gives the same bits on a second launch, the head
+    grid (row 7) the same bits as one-head window launches, the balanced
+    SDDMM (row 8) over each schedule in ``scheds`` the same bits per row;
+    at bf16 each is bitwise the fp32 kernel on the widened operands,
+    rounded once."""
+    import torch
+
+    from repro_torch.kernels import (sddmm_balanced_cuda, sddmm_batched_cuda,
+                                     sddmm_cuda)
+
+    def head(x, i):
+        return x[i] if x.dim() == 3 else x
+
+    h = max(q.shape[0] if q.dim() == 3 else 1,
+            k.shape[0] if k.dim() == 3 else 1)
+    if q.dim() == 2 and k.dim() == 2:
+        out = sddmm_cuda(blocked, q, k)
+        bitwise(f"sddmm {tag}, second launch", out, sddmm_cuda(blocked, q, k))
+        bitwise(f"sddmm_batched {tag}, H=1, vs sddmm", sddmm_batched_cuda(
+            blocked, q[None], k)[0], out)
+    else:
+        out = sddmm_batched_cuda(blocked, q, k)
+        bitwise(f"sddmm_batched {tag}, second launch", out,
+                sddmm_batched_cuda(blocked, q, k))
+        bitwise(f"sddmm_batched {tag} vs {h} sddmm launches", out,
+                torch.stack([sddmm_cuda(blocked, head(q, i), head(k, i))
+                             for i in range(h)]))
+    for sched in scheds:
+        if sched.num_blocks:
+            bitwise(f"sddmm_balanced {tag}, split_blk={sched.split_blk}, vs "
+                    "the window SDDMM", sddmm_balanced_cuda(
+                        blocked, q, k, schedule=sched), out)
+    if q.dtype == torch.bfloat16:
+        fn = sddmm_cuda if out.dim() == 2 else sddmm_batched_cuda
+        bitwise(f"sddmm bf16 {tag} vs the fp32 kernel, rounded", out,
+                fn(blocked, q.float(), k.float()).to(torch.bfloat16))
+
+
+def check_sddmm_tiles_edge(rng) -> None:
+    """Phase 3a for the SDDMM tile of rows 6, 7 and 8: on every edge case at
+    its F and at F = 720 and 1,500 (streamed past one stage of 64
+    features), Q and K of unit rows (the main path's scaling), fp32 and
+    bf16, one head and three (per-head Q, shared K): check_sddmm_rows at
+    split_blk 0 / 1 / 3, and the plain version within the kernel tolerance
+    (fp32) or one bf16 ulp (bf16)."""
+    import torch
+
+    from repro_torch.core.format import block_format, from_dense
+    from repro_torch.kernels import sddmm_batched_cuda, sddmm_batched_plain
+
+    errs = []
+    for label, a, v, k_blk, _, f, _ in kernel_cases(rng):
+        blocked = block_format(from_dense(a, vector_size=v), k_blk,
+                               device=DEVICE)
+        scheds = [blocked.schedule(split) for split in (0, 1, 3)]
+        m, k = a.shape
+        for ff in (f, 720, 1500):
+            q = unit_rows(rng, m, ff).to(DEVICE)
+            q3 = torch.stack([q] + [unit_rows(rng, m, ff).to(DEVICE)
+                                    for _ in range(2)])
+            kk = unit_rows(rng, k, ff).to(DEVICE)
+            for dtype in (torch.float32, torch.bfloat16):
+                for x in (q, q3):
+                    x, y = x.to(dtype), kk.to(dtype)
+                    tag = (f"[{label}, F={ff}, {str(dtype)[6:]}, "
+                           f"H={x.shape[0] if x.dim() == 3 else 1}]")
+                    check_sddmm_rows(tag, blocked, scheds, x, y)
+                    got = sddmm_batched_cuda(blocked, x, y)
+                    want = sddmm_batched_plain(blocked, x, y)
+                    errs.append(one_ulp(f"sddmm {tag}", got, want, show=False)
+                                if dtype == torch.bfloat16 else
+                                compare(f"sddmm {tag}", got, want,
+                                        KERNEL_RTOL, KERNEL_ATOL, show=False))
+        print(f"  ok   SDDMM tile [{label}], F {f}/720/1500, fp32/bf16, H "
+              "1/3: rows 6, 7 and 8 the same bits per sampled row (split_blk "
+              "0/1/3), the same bits on a second launch, bf16 bitwise the "
+              "fp32 kernel on widened operands; against the plain versions "
+              f"max abs err {max(errs):.3e}", flush=True)
+    torch.cuda.synchronize()
+
+
 def bitwise(label: str, out, ref) -> None:
     """Fail unless ``out`` and ``ref`` are the same bits."""
     import torch
@@ -1121,6 +1213,7 @@ def main() -> None:
     check_head_grids_edge(rng)
     check_narrow_edge(np.random.default_rng(2))
     check_narrow_heads_edge(np.random.default_rng(3))
+    check_sddmm_tiles_edge(np.random.default_rng(4))
 
     phase("3b. kernels against their plain versions: main-path shapes")
     t0 = time.time()
@@ -1228,6 +1321,9 @@ def main() -> None:
             sddmm_cuda(blk, h32_16, h32_16))
     err["sddmm_bf16"] = one_ulp("sddmm bf16 [Amazon, F=32]", out,
                                 sddmm_plain(blk, h32_16, h32_16))
+    for x in (h32, h32_16):
+        check_sddmm_rows(f"[Amazon A, F=32, {str(x.dtype)[6:]}]", bplan.fwd,
+                         [bplan.fwd_sched], x, x)
     out = attention_cuda(blk, h32_16, h32_16, v32_16, scale=beta)
     bitwise("attention bf16 [Amazon, D=DV=32, scale=beta], second launch",
             out, attention_cuda(blk, h32_16, h32_16, v32_16, scale=beta))
@@ -1393,6 +1489,8 @@ def main() -> None:
         f"sddmm_batched [attention A, {tag}: scores]",
         sddmm_batched_cuda(ablk, aq, ak), sddmm_batched_plain(ablk, aq, ak),
         KERNEL_RTOL, KERNEL_ATOL)
+    check_sddmm_rows(f"[attention A, {tag}]", abplan.fwd, [abplan.fwd_sched],
+                     aq, ak)
     a_out = attention_cuda(ablk, aq, ak, av, scale=att["scale"])
     bitwise(f"attention [attention A, {tag}], second launch", a_out,
             attention_cuda(ablk, aq, ak, av, scale=att["scale"]))
@@ -1441,6 +1539,8 @@ def main() -> None:
     err["sddmm_batched_bf16"] = one_ulp(
         f"sddmm_batched bf16 [attention A, {tag}: scores]", out,
         sddmm_batched_plain(ablk, aq16, ak16))
+    check_sddmm_rows(f"[attention A, {tag}, bf16]", abplan.fwd,
+                     [abplan.fwd_sched], aq16, ak16)
     one_ulp(f"sddmm_balanced bf16 [attention A, {tag}: scores]",
             sddmm_balanced_cuda(abplan.fwd, aq16, ak16,
                                 schedule=abplan.fwd_sched),
@@ -2263,6 +2363,26 @@ def main() -> None:
                   f"{ms[name][1]:.4f} ms, library {ms[name][2]} ms"
                   + (f" (refused: {lib_errors[name]})"
                      if name in lib_errors else ""))
+        # What holds the SDDMM tile (rows 6-8) off its bound: row 6 on the
+        # Amazon A with its column ids folded into K's first 8,192 rows
+        # (every K gather then hits L1 or L2) against the real gathers, and
+        # a device copy that reads and writes as many bytes as the bound
+        # counts (the rate a plain stream gets from this card's HBM).
+        folded = dataclasses.replace(blk, cols=blk.cols % 8192)
+        stream = torch.empty(
+            (read_once(h32, blk.mask, blk.cols, blk.block_win)
+             + blk.cols.shape[0] * blk.vector_size * 4) // 8,
+            dtype=torch.float32, device=DEVICE)
+        diag = {"sddmm_ms": ms["sddmm"][0], "sddmm_bf16_ms": ms["sddmm_bf16"][0],
+                "sddmm_folded_ms": cuda_ms(
+                    lambda: sddmm_cuda(folded, h32, h32)),
+                "sddmm_bf16_folded_ms": cuda_ms(
+                    lambda: sddmm_cuda(folded, h32_16, h32_16)),
+                "copy_of_bound_bytes_ms": cuda_ms(lambda: stream.clone())}
+        del folded, stream
+        e2e["sddmm_tile_diagnosis"] = diag
+        print("  SDDMM tile on the Amazon A, F=32: " + ", ".join(
+            f"{k_} {v_:.4f}" for k_, v_ in diag.items()))
         # The transpose SpMM (dB, dK) on Aᵀ, whose hub columns of A are
         # hub windows, window-parallel (timed above) against block-parallel,
         # and its bound.

@@ -84,6 +84,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -93,6 +94,9 @@ constexpr int kMaxWindowsPerWarp = 16;  // win_ptr entries: a lane each
 
 using repro::cp_async16;
 using repro::cp_async4;
+using repro::Frag;
+using repro::mma_3xtf32;
+using repro::widen;
 
 // Shared memory of the one warp of a block, in bytes: K rows of two
 // chunks and Q rows of two windows (elements of T), P^T (floats), mask
@@ -116,10 +120,6 @@ __host__ __device__ __forceinline__ Layout layout(int vsz, int d, int elt) {
   return s;
 }
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T narrow(float x);
 template <>
@@ -129,48 +129,6 @@ __device__ __forceinline__ float narrow<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// An mma operand fragment of N fp32 values split into TF32 big and small;
-// kExact: values that TF32 holds exactly (widened bf16), whose small part
-// is 0 and is never used.
-template <int N, bool kExact = false>
-struct Frag {
-  uint32_t big[N], small[N];
-  __device__ __forceinline__ void set(int i, float x) {
-    if constexpr (kExact) {
-      big[i] = __float_as_uint(x);
-    } else {
-      big[i] = to_tf32(x);
-      small[i] = to_tf32(x - __uint_as_float(big[i]));
-    }
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// a . b in 3xTF32: big.big into hi, big.small + small.big into lo.  Two
-// accumulators make two chains of dependent mma instead of one.  A product
-// with an exact operand's small part is 0 and is not taken.
-template <bool kAExact, bool kBExact>
-__device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4],
-                                           const Frag<4, kAExact>& a,
-                                           const Frag<2, kBExact>& b) {
-  if constexpr (!kBExact) mma_tf32(lo, a.big, b.small);
-  if constexpr (!kAExact) mma_tf32(lo, a.small, b.big);
-  mma_tf32(hi, a.big, b.big);
 }
 
 // Copies `rows` rows of `width` elements, row r from src + idx(r) * width,

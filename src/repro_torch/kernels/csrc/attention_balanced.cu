@@ -70,7 +70,7 @@
 // so the bf16 result is the fp32 kernel's on the widened operands,
 // rounded, bit for bit.
 #include "spmm_window.cuh"
-#include "sddmm_rows.cuh"
+#include "tf32.cuh"
 
 namespace {
 

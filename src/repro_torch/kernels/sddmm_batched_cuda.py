@@ -2,8 +2,8 @@
 and its plain version.
 
 Counterpart of ``repro.kernels.sddmm_pallas.sddmm_pallas_batched``, which
-launches ``_batched_sddmm_kernel``: the row-parallel SDDMM over a grid of
-H heads, one launch for every head, bitwise-equal to H launches of
+launches ``_batched_sddmm_kernel``: the tensor-core SDDMM tile over a grid
+of H heads, one launch for every head, bitwise-equal to H launches of
 ``sddmm_cuda``.  ``sddmm_batched_cuda`` launches the hand-written kernel
 on CUDA tensors and counts each launch in ``sddmm_batched_cuda.launches``;
 on CPU tensors it runs :func:`sddmm_batched_plain`.

@@ -5,8 +5,9 @@ Counterpart of ``repro.kernels.sddmm_pallas.sddmm_pallas``, which launches
 on CUDA tensors and counts each launch in ``sddmm_cuda.launches``; on CPU
 tensors it runs :func:`sddmm_plain`, ``core.sddmm.sddmm_blocked``'s
 gather-einsum.  Q and K are both float32 or both bfloat16 (the
-reference's bf16 path): the dots are fp32 and the result comes back in
-Q's dtype.  ``sddmm_cuda.variant_launches`` counts the launches of each
+reference's bf16 path): the kernel takes the dots on the TF32 tensor
+cores, 3xTF32 for fp32 operands and exact for bf16 ones, with fp32 sums,
+and the result comes back in Q's dtype.  ``sddmm_cuda.variant_launches`` counts the launches of each
 variant (``"fp32"``, ``"bf16"``) beside the total in ``launches``.
 """
 

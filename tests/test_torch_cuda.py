@@ -14,8 +14,13 @@ variants of the window SpMM, the SDDMM and the fused attention are held
 to their plain versions within one bf16 ulp with at least 99% of the
 entries bitwise equal; the attention over value bands (DV > 128) and
 over the SDDMM/SpMM composition (D beyond its shared memory), and the
-window SpMM's 64-bit-index instantiation on a 4 GiB bf16 B.  They skip
-on a host without a CUDA device; on one, run
+window SpMM's 64-bit-index instantiation on a 4 GiB bf16 B.  The
+tensor-core SDDMM tile shared by the window, head-grid and balanced
+SDDMMs: the same bits per sampled row from all three and from a second
+launch, at odd F, F = 720 and 1,500, V = 16, k_blk 3, 4 and 16, H 1, 2
+and 12 with shared and per-head operands, fp32 and bf16 (bf16 bitwise the
+fp32 kernel on widened operands, rounded).  They skip on a host without a
+CUDA device; on one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
@@ -717,3 +722,98 @@ def test_bf16_multi_head_attention_gradients_on_card_match_blocked(device,
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=0.0,
                                    atol=4 * 2.0 ** -7 * want.abs().max().item())
+
+
+# (M, K, density, V, k_blk, F): the tensor-core SDDMM tile at odd F (a
+# cut k-step, element-wise loads), F past one stage of 64 features
+# (720, 1,500: the attention's SDDMM route for a D past its shared
+# memory), V = 16 (two n8 tiles), k_blk 3, 4 and 16 (up to seven, four
+# and one windows a tile), rows past M, and the all-empty matrix
+TILE_CASES = [(45, 45, 0.2, 8, 8, 1), (45, 45, 0.2, 8, 8, 7),
+              (64, 64, 0.15, 8, 4, 33), (64, 64, 0.3, 8, 16, 9),
+              (40, 200, 0.5, 8, 3, 16), (77, 77, 0.2, 16, 8, 64),
+              (50, 61, 0.25, 16, 4, 30), (300, 1000, 0.05, 8, 8, 32),
+              (64, 80, 0.2, 8, 8, 720), (48, 64, 0.25, 16, 16, 1500),
+              (30, 30, 0.0, 8, 8, 8)]
+
+
+def _unit(rng, *shape):
+    """Rows of unit norm, as the main path gives them to the SDDMM (AGNN's
+    normalized features, the attention's scaled queries): an fp32 sum in
+    any order is then within the kernel tolerance of another at any F."""
+    x = rng.standard_normal(shape)
+    return (x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-6)
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[3]}-kblk{c[4]}-F{c[5]}")
+def test_sddmm_tiles_agree_per_row_on_card(device, case):
+    """The window (row 6), head-grid (row 7) and balanced (row 8) SDDMMs
+    share one tile: a sampled row gets the same bits from each, whatever
+    tile and windows hold it (split_blk 0, 1, 3), and from a second launch;
+    fp32 within the kernel tolerance of the plain version; bf16 bitwise
+    the fp32 kernel on the widened operands, rounded once (rows 6 and 8),
+    within one bf16 ulp of the plain version, >= 99% bitwise."""
+    m, k, density, v, k_blk, f = case
+    rng = np.random.default_rng(m * k + f)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density),
+                                      vector_size=v), k_blk, device=device)
+    q, kk = (torch.from_numpy(_unit(rng, r, f)).to(device) for r in (m, k))
+    for x, y in ((q, kk), (q.to(BF16), kk.to(BF16))):
+        out = sddmm_cuda(blocked, x, y)
+        assert torch.equal(out, sddmm_cuda(blocked, x, y))
+        assert torch.equal(out, sddmm_batched_cuda(blocked, x[None], y)[0])
+        for split in (0, 1, 3):
+            sched = blocked.schedule(split)
+            got = sddmm_balanced_cuda(blocked, x, y, schedule=sched)
+            if sched.num_blocks:
+                assert torch.equal(got, out)
+            else:
+                assert not bool(got.any()) and not bool(out.any())
+        want = sddmm_plain(blocked, x, y)
+        if x.dtype == BF16:
+            _one_ulp(out, want)
+            assert torch.equal(out, sddmm_cuda(blocked, x.float(),
+                                               y.float()).to(BF16))
+            sched = blocked.schedule(1)
+            if sched.num_blocks:
+                assert torch.equal(
+                    sddmm_balanced_cuda(blocked, x, y, schedule=sched),
+                    sddmm_balanced_cuda(blocked, x.float(), y.float(),
+                                        schedule=sched).to(BF16))
+        else:
+            torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=str)
+@pytest.mark.parametrize("h", [1, 2, 12])
+@pytest.mark.parametrize("case", [TILE_CASES[i] for i in (1, 2, 3, 6, 8)],
+                         ids=lambda c: f"V{c[3]}-kblk{c[4]}-F{c[5]}")
+def test_sddmm_tile_head_grids_on_card(device, case, h, dtype):
+    """The head-grid and balanced SDDMMs at H in {1, 2, 12} with per-head
+    and shared Q and K: bitwise H one-head launches of the window SDDMM,
+    and within the kernel tolerance (fp32) or one bf16 ulp (bf16) of the
+    plain version."""
+    m, k, density, v, k_blk, f = case
+    rng = np.random.default_rng(m + k + f + h)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density),
+                                      vector_size=v), k_blk, device=device)
+    sched = blocked.schedule(1)
+    for qh, kh in ((True, False), (False, True), (True, True)):
+        q = torch.from_numpy(_unit(rng, *((h,) if qh else ()), m, f)).to(
+            device=device, dtype=dtype)
+        kk = torch.from_numpy(_unit(rng, *((h,) if kh else ()), k, f)).to(
+            device=device, dtype=dtype)
+        heads = torch.stack([sddmm_cuda(blocked, _head(q, i), _head(kk, i))
+                             for i in range(h)])
+        out = sddmm_batched_cuda(blocked, q, kk)
+        assert torch.equal(out, heads)
+        assert torch.equal(sddmm_balanced_cuda(blocked, q, kk,
+                                               schedule=sched), heads)
+        want = sddmm_batched_plain(blocked, q, kk)
+        if dtype == BF16:
+            _one_ulp(out, want)
+        else:
+            torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
