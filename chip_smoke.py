@@ -11,10 +11,11 @@ a non-zero exit at the first phase that fails:
      sm_90a, one process per source, all started together; ``-Xptxas
      -v``'s register, shared-memory and spill lines;
   3. each kernel against its plain PyTorch version on the card (the bf16
-     and int8 variants of every SpMM but the two baselines and the bf16
-     ones of every SDDMM and attention within one bf16 ulp, at least 99%
-     of the entries bitwise equal, on the edge cases and on the Amazon
-     replica's A and Aᵀ at N = 128 and 32, hub rows of Aᵀ against fp64;
+     and int8 variants of every SpMM (the staged baseline has no int8)
+     and the bf16 ones of every SDDMM and attention within one bf16 ulp,
+     at least 99% of the entries bitwise equal, on the edge cases and on
+     the Amazon replica's A and Aᵀ at N = 128 and 32, hub rows of Aᵀ
+     against fp64;
      the head grids at H in {1, 2, 12} bitwise H one-head launches, the
      balanced ones bitwise the fp32 kernel on the widened operands,
      rounded once, at split_blk in {0, 1, 3}): (a) on
@@ -27,14 +28,16 @@ a non-zero exit at the first phase that fails:
      head-grid SpMM and SDDMM and the fused attention at H in {1, 2, 4}
      with every mix of shared and per-head operands, each bitwise-equal
      to H one-head launches; the non-coalesced SpMM bitwise-equal to the
-     SpMM on the rows of the windows the SpMM does not split; the staged
-     SpMM; (b) at the main paths' shapes: on the Amazon replica, the
+     SpMM on the rows of the windows the SpMM does not split, at fp32,
+     bf16 and int8; the staged SpMM at fp32 and bf16, int8 refused; (b)
+     at the main paths' shapes: on the Amazon replica, the
      window-parallel SpMM on A and on its transpose (N = 128 and 32; the
      rows of hub windows against fp64), each with its window plan, the
      balanced kernels over the schedules of A and of its
      transpose (the run-carried SpMM and attention at split_blk in
      {0, 1, 3} and H in {1, 2}, each also against a second launch), and
-     the two SpMM baselines at N = 128; on the attention pattern (12 heads,
+     the two SpMM baselines at N = 128 (with their narrow variants); on
+     the attention pattern (12 heads,
      16,384 tokens, head dim 64), the head-grid SpMM on A and on its
      transpose, the balanced SpMM on its transpose (dV), the head-grid
      SDDMM and the fused attention; (c) the SDDMM tile that rows 6, 7 and
@@ -47,9 +50,10 @@ a non-zero exit at the first phase that fails:
      ``make_dataset("Amazon", 1.0, seed=0)`` over the ``cuda`` plan, the
      bare blocked format and the ``cuda_balanced`` plan, and GCN over the
      bare format with the two SpMM baselines (``cuda_noncoalesced``,
-     ``cuda_staged``), each held against the same model with the plain
-     ``blocked`` impl, with the kernels' launch counters read around each
-     forward;
+     ``cuda_staged``; also in bf16, and the non-coalesced one over int8
+     values, at the bf16 ladder), each held against the same model with
+     the plain ``blocked`` impl, with the kernels' launch counters read
+     around each forward;
      4b. training: the gradients of ``spmm_ad``, ``sddmm_ad`` and
      ``attention_ad`` (β's included) under a random cotangent on both
      routes against ``blocked``; three steps of each model on ``cuda`` and
@@ -84,6 +88,17 @@ a non-zero exit at the first phase that fails:
      attention on the bf16 operands (the bf16 ladder), dout/dQ against
      ``blocked`` at bf16, three value-projection steps on each with a
      falling loss, and the launch counters of each variant;
+     4h. the tuned route (``ad_plan(impl="cuda_tuned")``) on the Amazon
+     replica: first every kernel the sweeps time (the window and balanced
+     SpMMs at each column tile, on A and Aᵀ, fp32 at N = 128 and 32 and
+     bf16 at 128; on A the SDDMMs and attentions) at k_blk 16 and 32
+     against its plain version, then the sweeps of the GCN (N = 128), AGNN
+     (N = 32) and bf16 GCN plans into a fresh cache, every candidate's ms
+     and each direction's winner, no failed candidate; a second plan on a
+     fresh format hits the cache and times nothing; three steps of GCN
+     and AGNN in fp32 and GCN in bf16 on ``cuda_tuned``, the first loss and
+     every gradient against ``blocked``, a falling loss, and the launch
+     counters against the kernels each direction's winner names;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
      never calls), the window-parallel SpMM also on the transposes (the
@@ -93,10 +108,11 @@ a non-zero exit at the first phase that fails:
      of the run-carried SpMM and attention swept at split_blk = 1, the
      SDDMM on the Amazon replica with its K gathers folded into cache and
      a device copy of its bound's bytes (what holds it off the bound), each
-     forward and train step with its peak memory;
+     forward and train step with its peak memory (the ``cuda_tuned`` ones
+     beside the fixed routes', and the sweeps' wall time);
   6. where the time goes: ``torch.profiler`` over one forward and one train
-     step of each model and route, device time by kernel and the device's
-     idle share.
+     step of each model and route (``cuda_tuned`` too), device time by
+     kernel and the device's idle share.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -107,10 +123,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -241,17 +259,32 @@ KERNELS = {  # name: (route, impl that launches it, source, TPU kernel)
         "cuda", "cuda_balanced",
         "src/repro_torch/kernels/csrc/attention_balanced.cu",
         "src/repro/kernels/attention_pallas.py:241"),
+    # and of the two SpMM baselines, rows 2 and 5 (the staged one has no
+    # int8 path, spmm_pallas.py:678)
+    "spmm_noncoalesced_bf16": (
+        "cuda", "cuda_noncoalesced",
+        "src/repro_torch/kernels/csrc/spmm_noncoalesced.cu",
+        "src/repro/kernels/spmm_pallas.py:271"),
+    "spmm_noncoalesced_int8": (
+        "cuda", "cuda_noncoalesced",
+        "src/repro_torch/kernels/csrc/spmm_noncoalesced.cu",
+        "src/repro/kernels/spmm_pallas.py:271"),
+    "spmm_staged_bf16": ("cuda", "cuda_staged",
+                         "src/repro_torch/kernels/csrc/spmm_staged.cu",
+                         "src/repro/kernels/spmm_pallas.py:613"),
 }
 # The launch counter of each entry: the wrapper, and for the wrappers with
 # precision variants the variant's count.
 VARIANT_OF = {name: ("int8" if name.endswith("_int8") else
                      "bf16" if name.endswith("_bf16") else "fp32")
-              for name in KERNELS
-              if name not in ("spmm_noncoalesced", "spmm_staged")}
+              for name in KERNELS}
+
+
+T_START = time.time()
 
 
 def phase(name: str) -> None:
-    print(f"\n=== {name}", flush=True)
+    print(f"\n=== {name} (at {time.time() - T_START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -742,6 +775,155 @@ def check_narrow_edge(rng) -> None:
     torch.cuda.synchronize()
 
 
+def check_narrow_baseline(label: str, blocked, out, ref, plain) -> float:
+    """A narrow variant of the Fig. 15 baseline (bf16 output): the same
+    bits as the window-parallel SpMM's narrow variant on the rows of the
+    windows that SpMM walks unsplit, and within one bf16 ulp of the plain
+    version on every row.  Returns the max abs error."""
+    rows = unsplit_rows(blocked)
+    bitwise(f"{label}, rows of unsplit windows vs spmm", out[rows], ref[rows])
+    return one_ulp(label, out, plain, show=False)
+
+
+def check_narrow_baselines_edge(rng) -> None:
+    """Phase 3a for the narrow variants of the two SpMM baselines: the
+    non-coalesced SpMM at bf16 and int8 (bf16 B; int8 also with fp32 B) the
+    same bits as the window SpMM's variant on its unsplit windows, the
+    staged SpMM at bf16, each within one bf16 ulp of its plain version and
+    the same bits on a second launch; int8 values refused by the staged
+    SpMM, as by the reference's."""
+    import torch
+
+    from repro_torch.core.format import block_format, from_dense
+    from repro_torch.core.quantize import quantize_format
+    from repro_torch.core.sddmm import with_values
+    from repro_torch.kernels import (spmm_cuda, spmm_noncoalesced_cuda,
+                                     spmm_noncoalesced_plain,
+                                     spmm_staged_cuda, spmm_staged_plain)
+
+    bf16 = torch.bfloat16
+    for label, a, v, k_blk, n, _, _ in kernel_cases(rng):
+        blocked = block_format(from_dense(a, vector_size=v), k_blk,
+                               device=DEVICE)
+        b = torch.from_numpy(rng.standard_normal(
+            (a.shape[1], n)).astype(np.float32)).to(DEVICE)
+        b16 = b.to(bf16)
+        views = {"bf16": with_values(blocked, blocked.vals.to(bf16)),
+                 "int8": quantize_format(blocked)}
+        errs = []
+        for var, bv in views.items():
+            out = spmm_noncoalesced_cuda(bv, b16)
+            bitwise(f"spmm_noncoalesced {var} [{label}], second launch", out,
+                    spmm_noncoalesced_cuda(bv, b16))
+            errs.append(check_narrow_baseline(
+                f"spmm_noncoalesced {var} [{label}]", blocked, out,
+                spmm_cuda(bv, b16), spmm_noncoalesced_plain(bv, b16)))
+        q8 = views["int8"]
+        check_noncoalesced(f"spmm_noncoalesced int8, fp32 B [{label}]",
+                           blocked, spmm_noncoalesced_cuda(q8, b),
+                           spmm_cuda(q8, b), spmm_noncoalesced_plain(q8, b))
+        out = spmm_staged_cuda(views["bf16"], b16)
+        bitwise(f"spmm_staged bf16 [{label}], second launch", out,
+                spmm_staged_cuda(views["bf16"], b16))
+        errs.append(one_ulp(f"spmm_staged bf16 [{label}]", out,
+                            spmm_staged_plain(views["bf16"], b16),
+                            show=False))
+        try:
+            spmm_staged_cuda(q8, b16)
+        except ValueError:
+            pass
+        else:
+            raise SystemExit(f"FAIL spmm_staged int8 [{label}]: not refused")
+        print(f"  ok   baselines' narrow variants [{label}]: non-coalesced "
+              "bf16 and int8 the same bits as spmm's on unsplit windows, "
+              "staged bf16; within one bf16 ulp of their plain versions, the "
+              f"same bits on a second launch; max abs err {max(errs):.3e}; "
+              "staged int8 refused (ValueError)", flush=True)
+    torch.cuda.synchronize()
+
+
+def check_tuned_candidates(label: str, fmt, n: int, transposed: bool,
+                           narrow: bool = False) -> None:
+    """Every kernel the sweep times on ``fmt`` at N = F = D = DV = ``n``,
+    at k_blk 16 and 32 (the main paths' shapes have run at k_blk 8 only):
+    the window SpMM at each column tile the sweep tries and the balanced
+    SpMM over the split_blk = 1 schedule against their plain versions (on
+    a transpose the window SpMM's hub rows against fp64), and on A the
+    SDDMMs and attentions (window and balanced).  ``narrow``: the bf16
+    SpMMs instead, within one bf16 ulp (hub rows against fp64 plus half
+    an ulp).  Run before the sweep, so each is the first launch of that
+    kernel at that k_blk."""
+    import torch
+
+    from repro_torch.core.format import blocked_view
+    from repro_torch.core.sddmm import with_values
+    from repro_torch.kernels import (attention_balanced_cuda,
+                                     attention_balanced_plain, attention_cuda,
+                                     attention_plain, autotune,
+                                     sddmm_balanced_cuda, sddmm_balanced_plain,
+                                     sddmm_cuda, sddmm_plain,
+                                     spmm_balanced_cuda, spmm_balanced_plain,
+                                     spmm_cuda, spmm_plain)
+
+    rng = np.random.default_rng(11)
+    bf16 = torch.bfloat16
+    m, k = fmt.shape
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(
+        DEVICE)
+    tiles = sorted({min(nb, max(32, -(-n // 32) * 32))
+                    for nb in autotune.DEFAULT_N_BLKS})
+    for k_blk in (16, 32):
+        bl = blocked_view(fmt, k_blk, DEVICE)
+        sched = bl.schedule(1)
+        tag = f"[{label}, k_blk={k_blk}, N={n}"
+        if narrow:
+            bl, b = with_values(bl, bl.vals.to(bf16)), b.to(bf16)
+        for nb in tiles:
+            out = spmm_cuda(bl, b, n_blk=nb)
+            ref = spmm_plain(bl, b)
+            if narrow and transposed:
+                check_narrow_hub_windows(f"spmm bf16 {tag}, n_blk={nb}]", bl,
+                                         b, out, ref)
+            elif narrow:
+                one_ulp(f"spmm bf16 {tag}, n_blk={nb}]", out, ref)
+            elif transposed:
+                check_hub_windows(f"spmm {tag}, n_blk={nb}]", bl,
+                                  bl.vals[None], b[None], out[None],
+                                  ref[None])
+            else:
+                compare(f"spmm {tag}, n_blk={nb}]", out, ref, KERNEL_RTOL,
+                        KERNEL_ATOL)
+            out = spmm_balanced_cuda(bl, b, schedule=sched, n_blk=nb)
+            ref = spmm_balanced_plain(bl, b, sched)
+            if narrow:
+                one_ulp(f"spmm_balanced bf16 {tag}, n_blk={nb}, split_blk=1]",
+                        out, ref)
+            else:
+                compare(f"spmm_balanced {tag}, n_blk={nb}, split_blk=1]", out,
+                        ref, KERNEL_RTOL, KERNEL_ATOL)
+        if transposed or narrow:
+            continue
+        h = unit_rows(rng, m, n).to(DEVICE)
+        hv = torch.from_numpy(rng.standard_normal((m, n)).astype(
+            np.float32)).to(DEVICE)
+        beta = torch.tensor(0.9, device=DEVICE)
+        compare(f"sddmm {tag}]", sddmm_cuda(bl, h, h), sddmm_plain(bl, h, h),
+                KERNEL_RTOL, KERNEL_ATOL)
+        compare(f"sddmm_balanced {tag}, split_blk=1]",
+                sddmm_balanced_cuda(bl, h, h, schedule=sched),
+                sddmm_balanced_plain(bl, h, h, sched), KERNEL_RTOL,
+                KERNEL_ATOL)
+        compare(f"attention {tag}, scale=beta]",
+                attention_cuda(bl, h, h, hv, scale=beta),
+                attention_plain(bl, h, h, hv, beta), KERNEL_RTOL, KERNEL_ATOL)
+        compare(f"attention_balanced {tag}, split_blk=1, scale=beta]",
+                attention_balanced_cuda(bl, h, h, hv, scale=beta,
+                                        schedule=sched),
+                attention_balanced_plain(bl, h, h, hv, sched, beta),
+                KERNEL_RTOL, KERNEL_ATOL)
+    torch.cuda.synchronize()
+
+
 def widened(view):
     """``view`` with fp32 values: bf16 values widened, int8 values as
     ``q * scale`` in fp32, what the narrow kernels multiply by."""
@@ -1170,7 +1352,10 @@ def main() -> None:
                 "spmm_balanced_bf16": spmm_balanced_cuda,
                 "spmm_balanced_int8": spmm_balanced_cuda,
                 "sddmm_balanced_bf16": sddmm_balanced_cuda,
-                "attention_balanced_bf16": attention_balanced_cuda}
+                "attention_balanced_bf16": attention_balanced_cuda,
+                "spmm_noncoalesced_bf16": spmm_noncoalesced_cuda,
+                "spmm_noncoalesced_int8": spmm_noncoalesced_cuda,
+                "spmm_staged_bf16": spmm_staged_cuda}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -1214,6 +1399,7 @@ def main() -> None:
     check_narrow_edge(np.random.default_rng(2))
     check_narrow_heads_edge(np.random.default_rng(3))
     check_sddmm_tiles_edge(np.random.default_rng(4))
+    check_narrow_baselines_edge(np.random.default_rng(5))
 
     phase("3b. kernels against their plain versions: main-path shapes")
     t0 = time.time()
@@ -1443,6 +1629,19 @@ def main() -> None:
     err["spmm_staged"] = compare(
         "spmm_staged [Amazon, N=128]", spmm_staged_cuda(blk, b),
         spmm_staged_plain(blk, b), KERNEL_RTOL, KERNEL_ATOL)
+    # Their narrow variants on A: the non-coalesced SpMM at bf16 and int8
+    # (bf16 B) the same bits as the window SpMM's variants (A has no split
+    # window), the staged SpMM at bf16; each within one bf16 ulp of its
+    # plain version.
+    for var, bv in narrow["A"].items():
+        err[f"spmm_noncoalesced_{var}"] = check_narrow_baseline(
+            f"spmm_noncoalesced {var} [Amazon, N=128]", blk,
+            spmm_noncoalesced_cuda(bv, b16), spmm_cuda(bv, b16),
+            spmm_noncoalesced_plain(bv, b16))
+    err["spmm_staged_bf16"] = one_ulp(
+        "spmm_staged bf16 [Amazon, N=128]",
+        spmm_staged_cuda(narrow["A"]["bf16"], b16),
+        spmm_staged_plain(narrow["A"]["bf16"], b16))
     torch.cuda.synchronize()
 
     att = attention_setup(rng)
@@ -1644,6 +1843,36 @@ def main() -> None:
         compare("agnn over the ADPlan (attention kernel) vs over the bare "
                 "format (SDDMM + softmax + SpMM kernels)", outs["agnn_plan"],
                 outs["agnn_blocked"], E2E_RTOL, E2E_ATOL)
+        # The baselines' narrow variants on the GCN forward: the model in
+        # bf16 over the bare format with bf16 values, and with int8 values
+        # (per-K-block scales, bf16 features), against the blocked impl on
+        # the same adjacency, at the bf16 ladder.
+        gcn16 = GCN(dataclasses.replace(cfgs["gcn"], dtype=bf16),
+                    device=DEVICE, seed=0)
+        x16 = x.to(bf16)
+        for name, impl, adj, want in (
+                ("gcn_noncoalesced_bf16", "cuda_noncoalesced",
+                 narrow["A"]["bf16"], expect(spmm_noncoalesced_bf16=n_layers)),
+                ("gcn_noncoalesced_int8", "cuda_noncoalesced",
+                 narrow["A"]["int8"], expect(spmm_noncoalesced_int8=n_layers)),
+                ("gcn_staged_bf16", "cuda_staged", narrow["A"]["bf16"],
+                 expect(spmm_staged_bf16=n_layers))):
+            cfg = dataclasses.replace(cfgs["gcn"], impl=impl, dtype=bf16)
+            reset_counts()
+            out = gcn_forward(gcn16.params(), adj, x16, cfg)
+            torch.cuda.synchronize()
+            got = counts()
+            print(f"  {name}: launches {got}")
+            if got != want:
+                raise SystemExit(f"FAIL {name}: launch counts {got} != {want}")
+            for k_name in launches:
+                launches[k_name] += got[k_name]
+            ref = gcn_forward(gcn16.params(), adj, x16,
+                              dataclasses.replace(cfg, impl="blocked"))
+            compare(f"{name} logits vs impl=blocked at the same precision",
+                    out.float(), ref.float(), NARROW_LOSS_RTOL,
+                    NARROW_LOSS_RTOL * ref.float().abs().max().item())
+        del gcn16, out, ref
         for model, params in (("gcn", gcn.params()), ("agnn", agnn.params())):
             loss, acc = gnn_loss(params, plan, x, labels, train_mask,
                                  cfgs[model])
@@ -1703,10 +1932,12 @@ def main() -> None:
     torch.cuda.synchronize()
 
     train = {}
+    step_refs = {}   # the blocked step's first loss and gradients (4h)
     for model in ("gcn", "agnn"):
         ref_net, ref_step = make(model, "blocked")
         ref_loss, _ = ref_step(plan, x, labels, train_mask)
         ref_grads = [p.grad.clone() for p in ref_net.parameters()]
+        step_refs[model] = (ref_loss.detach(), ref_grads)
         del ref_net, ref_step
         for impl in ("cuda", "cuda_balanced"):
             net, step = make(model, impl)
@@ -1931,6 +2162,7 @@ def main() -> None:
         ref_net, ref_step = make_narrow(model, dtype, "blocked")
         ref_loss = ref_step(adjs_["cuda"], xx, labels, train_mask)[0].item()
         ref_grads = [p_.grad.float() for p_ in ref_net.parameters()]
+        step_refs[name] = (ref_loss, ref_grads)
         del ref_net, ref_step
         grad_tol = NARROW_GRAD_ULPS * 2.0 ** -7 * max(
             gr.abs().max().item() for gr in ref_grads)
@@ -1976,7 +2208,6 @@ def main() -> None:
                                        "launches_per_step": got,
                                        "blocked_step1_loss": ref_loss,
                                        "fp32_step1_loss": fp32_loss}
-        del ref_grads
     # The int8-plan GCN forward over two feature sets at once: the forward
     # SpMMs run the head-grid kernel on the quantized values of A, shared
     # by both sets (the reference routes 3-D features to its batched grid
@@ -2135,6 +2366,156 @@ def main() -> None:
     del dq, dq_ref
     torch.cuda.synchronize()
 
+    phase(f"4h. the tuned route on the Amazon replica: every candidate at "
+          f"k_blk 16 and 32, the sweeps, the cache, {TRAIN_STEPS} steps of "
+          "GCN and AGNN (fp32) and GCN (bf16) on cuda_tuned")
+    from repro_torch.kernels import autotune
+
+    tune_dir = tempfile.TemporaryDirectory(prefix="repro_torch_autotune_")
+    cache = autotune.AutotuneCache(os.path.join(tune_dir.name, "cache.json"))
+    fmt_t, fmt16_t = fmt.transpose(), fmt16.transpose()
+    t0 = time.time()
+    # The candidates' first launches at k_blk 16 and 32, before the sweeps:
+    # the fp32 ones at the GCN's N = 128 and the AGNN's N = F = D = DV =
+    # 32, the bf16 SpMMs at N = 128 (the bf16 GCN plan's sweep).
+    for n_cols in (128, 32):
+        check_tuned_candidates("Amazon A", fmt, n_cols, transposed=False)
+        check_tuned_candidates("Amazon A^T", fmt_t, n_cols, transposed=True)
+    check_tuned_candidates("Amazon A, bf16", fmt16, 128, transposed=False,
+                           narrow=True)
+    check_tuned_candidates("Amazon A^T, bf16", fmt16_t, 128, transposed=True,
+                           narrow=True)
+    t_candidates = time.time() - t0
+    autotune.reset_counters()
+    t0 = time.time()
+    tplans = {"gcn": ad_plan(fmt, impl="cuda_tuned", n_example=128,
+                             cache=cache, device=DEVICE),
+              "agnn": ad_plan(fmt, impl="cuda_tuned", n_example=32,
+                              cache=cache, device=DEVICE),
+              "gcn_bf16": ad_plan(fmt16, impl="cuda_tuned", n_example=128,
+                                  cache=cache, device=DEVICE)}
+    torch.cuda.synchronize()
+    t_sweep = time.time() - t0
+    print(f"  candidates at k_blk 16 and 32 checked in {t_candidates:.1f} s; "
+          f"sweeps and plans {t_sweep:.1f} s (host block_format and "
+          "schedules, device timing): every candidate's median ms")
+    for key_, cand in autotune.timed:
+        print(f"    {cand.median_ms:.4f} ms  k_blk={cand.k_blk} "
+              f"n_blk={cand.n_blk} split_blk={cand.split_blk} "
+              f"[{key_.rsplit('|k', 1)[0]}]")
+    if autotune.failed_candidates:
+        raise SystemExit(f"FAIL autotune: {autotune.failed_candidates} "
+                         f"candidates failed, the last: {autotune.last_error}")
+
+    def route(sched):
+        return ("window" if sched is None
+                else f"balanced(split_blk={sched.split_blk})")
+
+    winners = {}
+    for name, tp in tplans.items():
+        winners[name] = {
+            "A": {"k_blk": tp.fwd.k_blk, "n_blk": tp.n_blk,
+                  "route": route(tp.fwd_sched)},
+            "At": {"k_blk": tp.bwd.k_blk, "n_blk": tp.n_blk_t,
+                   "route": route(tp.bwd_sched)}}
+        print(f"  winners {name}: A {winners[name]['A']}, A^T "
+              f"{winners[name]['At']}")
+    # A second plan on a fresh format of the same graph, with a fresh cache
+    # object on the same file: every winner from the file, nothing timed.
+    t0 = time.time()
+    n_timed = len(autotune.timed)
+    fmt_b = from_coo(g.rows, g.cols, g.vals, (m, m), vector_size=8)
+    again = ad_plan(fmt_b, impl="cuda_tuned", n_example=128,
+                    cache=autotune.AutotuneCache(cache.path), device=DEVICE)
+    t_hit = time.time() - t0
+    same = ((again.fwd.k_blk, again.bwd.k_blk, again.n_blk, again.n_blk_t,
+             route(again.fwd_sched), route(again.bwd_sched))
+            == (tplans["gcn"].fwd.k_blk, tplans["gcn"].bwd.k_blk,
+                tplans["gcn"].n_blk, tplans["gcn"].n_blk_t,
+                route(tplans["gcn"].fwd_sched),
+                route(tplans["gcn"].bwd_sched)))
+    if len(autotune.timed) != n_timed or not same:
+        raise SystemExit(f"FAIL autotune cache: the second plan timed "
+                         f"{len(autotune.timed) - n_timed} candidates, same "
+                         f"winners {same}")
+    print(f"  second plan on a fresh format: cache hit, nothing timed, the "
+          f"same winners; format + plan {t_hit:.1f} s on the host")
+    del again, fmt_b
+
+    def tuned_expect(model, tp, sfx):
+        # 4b's counts, each on the kernel its direction's winner names:
+        # A's route for the forward SpMMs, the attention, the SDDMMs and
+        # AGNN's dQ; A^T's for the transpose SpMMs (GCN's dB, AGNN's dV
+        # and dK).
+        f = "" if tp.fwd_sched is None else "_balanced"
+        t = "" if tp.bwd_sched is None else "_balanced"
+        want = {}
+        for name, count in (
+                ((f"spmm{f}{sfx}", n_layers), (f"spmm{t}{sfx}", n_layers - 1))
+                if model == "gcn" else
+                ((f"attention{f}{sfx}", n_layers),
+                 (f"sddmm{f}{sfx}", 2 * n_layers),
+                 (f"spmm{f}{sfx}", n_layers),
+                 (f"spmm{t}{sfx}", 2 * n_layers))):
+            want[name] = want.get(name, 0) + count
+        return expect(**want)
+
+    tuned_nets = {}
+    for name, (model, dtype, xx) in (("gcn", ("gcn", torch.float32, x)),
+                                     ("agnn", ("agnn", torch.float32, x)),
+                                     ("gcn_bf16", ("gcn", bf16, x16))):
+        tp = tplans[name]
+        sfx = "_bf16" if dtype == bf16 else ""
+        net, step = make_narrow(model, dtype, "cuda_tuned")
+        tuned_nets[name] = (net, step, tp, xx)
+        ref_loss, ref_grads = step_refs[name]
+        losses = []
+        for i in range(TRAIN_STEPS):
+            reset_counts()
+            loss, _ = step(tp, xx, labels, train_mask)
+            torch.cuda.synchronize()
+            got, want = counts(), tuned_expect(model, tp, sfx)
+            if got != want:
+                raise SystemExit(f"FAIL train {name}/cuda_tuned step {i}: "
+                                 f"launch counts {got} != {want}")
+            for k_name in launches:
+                launches[k_name] += got[k_name]
+            losses.append(loss.item())
+            if i > 0:
+                continue
+            if dtype == bf16:
+                compare(f"train {name}/cuda_tuned: step-1 loss vs blocked at "
+                        "the same precision", torch.tensor(losses[0]),
+                        torch.tensor(ref_loss), NARROW_LOSS_RTOL, 0.0)
+                tol = NARROW_GRAD_ULPS * 2.0 ** -7 * max(
+                    gr.abs().max().item() for gr in ref_grads)
+                rtol = 0.0
+            else:
+                compare(f"train {name}/cuda_tuned: step-1 loss vs blocked",
+                        loss, ref_loss, GRAD_RTOL, 0.0)
+                tol = GRAD_ATOL_OF_MAX * max(gr.abs().max().item()
+                                             for gr in ref_grads)
+                rtol = GRAD_RTOL
+            for j, (p_, want_g) in enumerate(zip(net.parameters(),
+                                                 ref_grads)):
+                compare(f"train {name}/cuda_tuned: step-1 grad of parameter "
+                        f"{j} {tuple(p_.shape)} vs blocked", p_.grad.float(),
+                        want_g.float(), rtol, tol, show=False)
+        print(f"  {name}/cuda_tuned: losses {losses}; first loss and every "
+              f"gradient against blocked; launches per step {got}")
+        if not (all(map(math.isfinite, losses))
+                and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
+            raise SystemExit(f"FAIL train {name}/cuda_tuned: losses {losses} "
+                             "are not finite and decreasing")
+        train[f"{name}_cuda_tuned"] = {"losses": losses,
+                                       "launches_per_step": got,
+                                       "winners": winners[name]}
+    tuned = {"winners": winners, "candidate_check_s": t_candidates,
+             "sweep_s": t_sweep, "cache_hit_plan_s": t_hit,
+             "candidates": [{"key": key_.rsplit("|k", 1)[0], **c.to_json()}
+                            for key_, c in autotune.timed]}
+    torch.cuda.synchronize()
+
     phase("5. timing (CUDA events around back-to-back calls, median of runs)")
     csr = torch.sparse_coo_tensor(
         torch.from_numpy(np.stack([g.rows, g.cols])),
@@ -2265,6 +2646,17 @@ def main() -> None:
                                        scale=beta),
                 lambda: attention_plain(blk, h32_16, h32_16, v32_16, beta),
                 None),
+            # the baselines' narrow variants (rows 2 and 5)
+            "spmm_noncoalesced_bf16": (
+                lambda: spmm_noncoalesced_cuda(blk16, b16),
+                lambda: spmm_noncoalesced_plain(blk16, b16),
+                lambda: torch.sparse.mm(csr16, b16)),
+            "spmm_noncoalesced_int8": (
+                lambda: spmm_noncoalesced_cuda(q8, b16),
+                lambda: spmm_noncoalesced_plain(q8, b16), None),
+            "spmm_staged_bf16": (lambda: spmm_staged_cuda(blk16, b16),
+                                 lambda: spmm_staged_plain(blk16, b16),
+                                 lambda: torch.sparse.mm(csr16, b16)),
         })
         # The precision variants of rows 3, 4, 7, 8, 9 (H = 12) and 10, and
         # row 4 in fp32 on A^T.  Their yardsticks take bf16 operands (bf16
@@ -2509,6 +2901,26 @@ def main() -> None:
             "ms": t_fwd, "peak_bytes": torch.cuda.max_memory_allocated()}
         print(f"  {name}/{impl}: train step {t_step:.3f} ms (peak memory "
               f"{peak / 2**30:.3f} GiB), forward {t_fwd:.3f} ms")
+    # the tuned route (4h): a train step and a forward of each model,
+    # beside the fixed routes' from the same run
+    for name, (net, step, tp, xx) in tuned_nets.items():
+        torch.cuda.reset_peak_memory_stats()
+        t_step = cuda_ms(lambda: step(tp, xx, labels, train_mask), reps=3,
+                         batch=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        train[f"{name}_cuda_tuned"].update(step_ms=t_step, peak_bytes=peak)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t_fwd = cuda_ms(lambda: net(tp, xx), batch=2, warmup=1)
+        e2e[f"{name}_cuda_tuned_forward"] = {
+            "ms": t_fwd, "peak_bytes": torch.cuda.max_memory_allocated()}
+        fixed = {impl: train[f"{name}_{impl}"].get("step_ms")
+                 for impl in ("cuda", "cuda_balanced")}
+        print(f"  {name}/cuda_tuned: train step {t_step:.3f} ms (cuda "
+              f"{fixed['cuda']:.3f}, cuda_balanced "
+              f"{fixed['cuda_balanced']:.3f}; peak memory "
+              f"{peak / 2**30:.3f} GiB), forward {t_fwd:.3f} ms; sweep "
+              f"{t_sweep:.1f} s for the three plans")
 
     # Multi-head attention: a forward of each route, and one
     # value-projection SGD step (loss, dloss/dW, update) of each.
@@ -2581,6 +2993,11 @@ def main() -> None:
         with torch.inference_mode():
             e2e[f"{name}_{impl}_forward"].update(
                 profile_run(lambda: net(adj, xx)))
+    for name in tuned_nets:
+        net, step, tp, xx = tuned_nets[name]
+        print(f"  train step {name}/cuda_tuned:")
+        train[f"{name}_cuda_tuned"].update(profile_run(
+            lambda: step(tp, xx, labels, train_mask)))
     for name, (run, _) in attn_fwd.items():
         print(f"  attention forward {name}:")
         with torch.inference_mode():
@@ -2718,6 +3135,16 @@ def main() -> None:
         "attention_bf16_h12": (read_once(aq16, ak16, av16, ablk.mask,
                                          ablk.cols, ablk.win_ptr)
                                + av16.numel() * 2),
+        # the baselines' narrow variants compute rows 1 bf16 / int8's
+        # function on its inputs
+        "spmm_noncoalesced_bf16": (read_once(blk16.vals, blk.cols,
+                                             blk.win_ptr, b16)
+                                   + m * 128 * 2),
+        "spmm_noncoalesced_int8": (read_once(q8.vals, q8.scales, blk.cols,
+                                             blk.win_ptr, b16)
+                                   + m * 128 * 2),
+        "spmm_staged_bf16": (read_once(blk16.vals, blk.cols, blk.block_win,
+                                       b16) + m * 128 * 2),
     }
     # Operations on the true nonzeros only: the padded and masked-off
     # slots of a block are the format's, not the function's.
@@ -2733,7 +3160,8 @@ def main() -> None:
     for name in ("spmm", "sddmm", "attention"):
         flops[f"{name}_balanced"] = flops[name]
     for name in ("spmm_noncoalesced", "spmm_staged", "spmm_bf16",
-                 "spmm_int8"):
+                 "spmm_int8", "spmm_noncoalesced_bf16",
+                 "spmm_noncoalesced_int8", "spmm_staged_bf16"):
         flops[name] = flops["spmm"]
     flops.update(spmm_bf16_At128=flops["spmm_At128"],
                  spmm_bf16_At32=flops["spmm_At32"], sddmm_bf16=flops["sddmm"],
@@ -2826,7 +3254,14 @@ def main() -> None:
             segments=a_sched.num_segments, run_blk=ATTN_RUN,
             dtypes="bf16 Q, K, V, out"),
         attention_bf16_h12=dict(shapes["attention_h12"],
-                                dtypes="bf16 Q, K, V, out"))
+                                dtypes="bf16 Q, K, V, out"),
+        spmm_noncoalesced_bf16=dict(shapes["spmm"],
+                                    dtypes="bf16 vals, B and C"),
+        spmm_noncoalesced_int8=dict(shapes["spmm"],
+                                    dtypes="int8 vals with fp32 per-K-block "
+                                    "scales, bf16 B and C"),
+        spmm_staged_bf16=dict(shapes["spmm"], dtypes="bf16 vals, B, staged "
+                              "B[cols] and C (fp32 sums, one cast)"))
 
     def measured(name):
         kernel_ms, plain_ms, library_ms = ms[name]
@@ -2896,10 +3331,11 @@ def main() -> None:
     print(json.dumps({"end_to_end": e2e, "training": train,
                       "sparse_attention": attn_result,
                       "sparse_attention_bf16": attn16_result,
-                      "attention_wide": wide,
+                      "attention_wide": wide, "tuned": tuned,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))
+    tune_dir.cleanup()
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

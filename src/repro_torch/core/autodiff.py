@@ -18,10 +18,17 @@ on the host, everything these ops need about one pattern:
   * ``perm`` — a gather map re-laying ``fwd``-layout values into ``bwd``
     layout (:meth:`ADPlan.transpose_vals`),
   * ``fwd_sched`` / ``bwd_sched`` — the block-parallel schedules of A and
-    Aᵀ for ``impl="cuda_balanced"`` (scheduled independently: hub columns
-    of A become hub windows of Aᵀ),
+    Aᵀ, present per direction: both for ``impl="cuda_balanced"``, the
+    directions whose sweep chose the block-parallel kernel for
+    ``impl="cuda_tuned"`` (scheduled independently: hub columns of A
+    become hub windows of Aᵀ),
 
-plus the tile parameters each direction runs with.  :func:`spmm_ad`,
+plus the tile parameters each direction runs with.  ``impl="cuda_tuned"``
+resolves the autotuner when the plan is built (the forward SpMM, the
+transpose SpMM and the SDDMM tuned apart, the SDDMM's ``k_blk`` pinned
+to the forward layout), so a step never enters the tuner: each direction
+runs the window-parallel kernel, or the block-parallel one when it has a
+schedule, at its own ``k_blk`` and column tile.  :func:`spmm_ad`,
 :func:`sddmm_ad` and :func:`attention_ad` are ``torch.autograd.Function``s
 whose backward dispatches the duality through the registry; a cotangent
 that no input needs launches nothing (``ctx.needs_input_grad``).
@@ -53,7 +60,7 @@ import numpy as np
 import torch
 
 from . import dispatch as _dispatch
-from .format import (MEBCRS, BlockedMEBCRS, Schedule, block_format,
+from .format import (MEBCRS, BlockedMEBCRS, Schedule, blocked_view,
                      resolve_device)
 from .quantize import cast_precision, validate_precision
 from .sddmm import with_values
@@ -71,8 +78,11 @@ class ADPlan:
     bwd: BlockedMEBCRS    # Aᵀ, transpose-SpMM layout (vals = re-laid A vals)
     perm: torch.Tensor    # (NNZP_T, V) int32 flat indices into fwd-layout vals
     impl: str             # impl the tile parameters below were chosen for
-    n_blk: int            # SpMM column tile, both directions
-    # Block-parallel schedules of A and Aᵀ (impl="cuda_balanced").
+    n_blk: int            # forward SpMM column tile
+    n_blk_t: int          # transpose-SpMM (dB / dK) column tile
+    # Block-parallel schedules of A and Aᵀ, present per direction: both
+    # for impl="cuda_balanced", where the sweep chose the block-parallel
+    # kernel for impl="cuda_tuned".
     fwd_sched: Schedule | None = None
     bwd_sched: Schedule | None = None
     # Precision level of every op on the plan (None: operand dtypes as
@@ -134,7 +144,7 @@ def _blocked_perm(blocked_a: BlockedMEBCRS,
     return perm
 
 
-_PLAN_IMPLS = ("blocked", "cuda", "cuda_balanced")
+_PLAN_IMPLS = ("blocked", "cuda", "cuda_balanced", "cuda_tuned")
 
 
 def _dense_precision(precision: Optional[str]) -> Optional[str]:
@@ -148,9 +158,12 @@ def _dense_precision(precision: Optional[str]) -> Optional[str]:
 # one head, the impl for operands with a leading head dimension).  The
 # window-parallel ``cuda`` kernels take one head, so heads go to their
 # head-grid versions; its attention is the fused kernel, which takes both.
-_ROUTES = {"cuda": {"spmm": ("cuda", "cuda_batched"),
-                    "sddmm": ("cuda", "cuda_batched"),
-                    "attention": ("cuda_fused_attn", "cuda_fused_attn")}}
+# A ``cuda_tuned`` plan runs a direction with a schedule on
+# ``cuda_balanced`` (:func:`_exec_impl`) and one without on these.
+_WINDOW_ROUTES = {"spmm": ("cuda", "cuda_batched"),
+                  "sddmm": ("cuda", "cuda_batched"),
+                  "attention": ("cuda_fused_attn", "cuda_fused_attn")}
+_ROUTES = {"cuda": _WINDOW_ROUTES, "cuda_tuned": _WINDOW_ROUTES}
 
 
 def _routes(op: str, impl: str) -> tuple:
@@ -159,21 +172,38 @@ def _routes(op: str, impl: str) -> tuple:
     return _ROUTES.get(impl, {}).get(op, (impl, impl))
 
 
+def _exec_impl(impl: str, sched: Schedule | None) -> str:
+    """The impl a direction of a plan of ``impl`` runs: a tuned plan fixed
+    its route per direction when it was built, the block-parallel kernels
+    where that direction has a schedule, else the window-parallel ones."""
+    if impl == "cuda_tuned":
+        return "cuda" if sched is None else "cuda_balanced"
+    return impl
+
+
 def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
-            n_blk: int = 128, split_blk: int = 1, device=None,
+            n_blk: int = 128, split_blk: int = 1, n_example: int = 64,
+            cache=None, device=None,
             precision: Optional[str] = None) -> ADPlan:
     """Build (and memoize on ``fmt``) the plan, on ``device`` (the card
     unless ``device`` says otherwise).
 
-    Host-side precompute, like ``block_format``.  ``impl`` is ``"blocked"``
-    (plain PyTorch), ``"cuda"`` (the window-parallel kernels; attention
-    runs ``"cuda_fused_attn"``) or ``"cuda_balanced"`` (the block-parallel
+    Host-side precompute, like ``block_format``; the plans of one pattern
+    share its blocked views (:func:`~repro_torch.core.format.blocked_view`).
+    ``impl`` is ``"blocked"`` (plain PyTorch), ``"cuda"`` (the
+    window-parallel kernels; attention runs ``"cuda_fused_attn"``),
+    ``"cuda_balanced"`` (the block-parallel
     kernels over a :class:`Schedule` of A and one of Aᵀ, each cut into
-    segments of at most ``split_blk`` K-blocks; 0 is the unsplit schedule).
-    ``n_blk`` is the column tile of the SpMM kernels in both directions;
-    the JAX plan's separate transpose tile waits for the tuner (ROADMAP.md
-    queue 1 item 11).  Its ``f_blk`` has no counterpart: the port's SDDMM
-    kernels walk the whole feature dimension in one pass.  ``precision``
+    segments of at most ``split_blk`` K-blocks; 0 is the unsplit schedule)
+    or ``"cuda_tuned"``: the autotuner (``kernels/autotune.py``, its
+    ``cache``, by default the port's cache file) picks ``(k_blk, n_blk,
+    split_blk)`` for A and for Aᵀ apart, timing dummies of ``n_example``
+    feature columns in the format's dtype on ``device``, and the SDDMM's
+    sweep is pinned to A's ``k_blk`` (dVals land in the forward layout).
+    ``n_blk`` is the column tile of the forward SpMM and of the transpose
+    SpMM (``n_blk_t``), which only the tuner sets apart.  The reference's
+    ``f_blk`` has no counterpart: the port's SDDMM kernels walk the whole
+    feature dimension in one pass.  ``precision``
     (``None``, ``"fp32"``, ``"bf16"``, ``"int8"``) fixes the level of every
     op on the plan and is checked against the ``precisions`` of every impl
     the plan's ops run (:data:`_ROUTES`: on ``cuda`` the head grids and
@@ -187,15 +217,18 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
         ops = ("spmm", "sddmm") + (("attention",) if impl in _PLAN_IMPLS
                                    else ())
         for op in ops:
-            for name in dict.fromkeys(_routes(op, impl)):
+            # a tuned plan's block-parallel directions run cuda_balanced
+            names = _routes(op, impl) + (
+                ("cuda_balanced",) if impl == "cuda_tuned" else ())
+            for name in dict.fromkeys(names):
                 _dispatch.require(op, name, precision=(
                     precision if op == "spmm"
                     else _dense_precision(precision)))
     if impl not in _PLAN_IMPLS:
         raise NotImplementedError(
             f"ad_plan(impl={impl!r}): the port builds plans for "
-            f"{', '.join(map(repr, _PLAN_IMPLS))}; tuned and sharded plans "
-            "are ROADMAP.md queue 1 items 11 and 15")
+            f"{', '.join(map(repr, _PLAN_IMPLS))}; sharded plans are "
+            "ROADMAP.md queue 1 item 6 (multi-device)")
     if isinstance(fmt, BlockedMEBCRS):
         raise ValueError("ad_plan needs the canonical MEBCRS (it blocks "
                          "both A and its transpose itself)")
@@ -204,6 +237,13 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     if memo is None:
         memo = {}
         object.__setattr__(fmt, "_ad_plans", memo)
+    if impl == "cuda_tuned":
+        # the winners depend on the example width, the cache file and the
+        # precision the sweep is pinned to
+        key += (int(n_example), getattr(cache, "path", None), precision)
+        if key not in memo:
+            memo[key] = _tuned_plan(fmt, n_example, cache, device, precision)
+        return memo[key]
     if precision is not None:
         if key + (precision,) not in memo:
             base = ad_plan(fmt, impl=impl, k_blk=k_blk, n_blk=n_blk,
@@ -214,17 +254,51 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     if key in memo:
         return memo[key]
 
-    blocked_f = block_format(fmt, k_blk, device="cpu")
-    blocked_t = block_format(fmt.transpose(), k_blk, device="cpu")
+    blocked_f = blocked_view(fmt, k_blk, device)
+    blocked_t = blocked_view(fmt.transpose(), k_blk, device)
     perm = torch.from_numpy(_blocked_perm(blocked_f, blocked_t))
     scheds = {}
     if impl == "cuda_balanced":
-        scheds = {"fwd_sched": blocked_f.schedule(split_blk).to(device),
-                  "bwd_sched": blocked_t.schedule(split_blk).to(device)}
-    plan = ADPlan(fwd=blocked_f.to(device), bwd=blocked_t.to(device),
-                  perm=perm.to(device), impl=impl, n_blk=n_blk, **scheds)
+        scheds = {"fwd_sched": blocked_f.schedule(split_blk),
+                  "bwd_sched": blocked_t.schedule(split_blk)}
+    plan = ADPlan(fwd=blocked_f, bwd=blocked_t, perm=perm.to(device),
+                  impl=impl, n_blk=n_blk, n_blk_t=n_blk, **scheds)
     memo[key] = plan
     return plan
+
+
+def _tuned_plan(fmt: MEBCRS, n_example: int, cache, device,
+                precision: Optional[str]) -> ADPlan:
+    """The ``cuda_tuned`` plan: A and Aᵀ each blocked at the ``k_blk`` its
+    sweep picked, with its column tile and, where the sweep chose the
+    block-parallel kernel, its schedule; the sweeps pinned to the plan's
+    precision (the SDDMM's to its dense level), as the reference's."""
+    from repro_torch.kernels import autotune
+
+    fmt_t = fmt.transpose()
+    m, k = fmt.shape
+    dt = fmt.values.dtype
+    b_ex = torch.zeros((k, n_example), dtype=dt, device=device)
+    g_ex = torch.zeros((m, n_example), dtype=dt, device=device)
+    pk = {} if precision is None else {"precisions": (precision,)}
+    pk_d = ({} if precision is None
+            else {"precisions": (_dense_precision(precision),)})
+    cfg_f = autotune.tune_spmm(fmt, b_ex, cache=cache, **pk)
+    cfg_t = autotune.tune_spmm(fmt_t, g_ex, cache=cache, **pk)
+    # dVals must land in the forward value layout: pin the SDDMM's k_blk
+    autotune.tune_sddmm(fmt, g_ex, b_ex, k_blks=(cfg_f.k_blk,), cache=cache,
+                        **pk_d)
+    blocked_f = blocked_view(fmt, cfg_f.k_blk, device)
+    blocked_t = blocked_view(fmt_t, cfg_t.k_blk, device)
+    perm = torch.from_numpy(_blocked_perm(blocked_f, blocked_t))
+    return ADPlan(
+        fwd=blocked_f, bwd=blocked_t, perm=perm.to(device),
+        impl="cuda_tuned", n_blk=cfg_f.n_blk, n_blk_t=cfg_t.n_blk,
+        fwd_sched=(blocked_f.schedule(cfg_f.split_blk)
+                   if cfg_f.split_blk else None),
+        bwd_sched=(blocked_t.schedule(cfg_t.split_blk)
+                   if cfg_t.split_blk else None),
+        precision=precision)
 
 
 def forward_only(name: str, **tensors) -> None:
@@ -264,10 +338,13 @@ def _run_spmm(impl: str, plan: ADPlan, vals, b, *, transposed: bool,
     ``precision``; ``vals`` are already masked and in that direction's
     layout."""
     blocked = plan.bwd if transposed else plan.fwd
-    kwargs = {"k_blk": blocked.k_blk, "n_blk": plan.n_blk}
+    sched = plan.bwd_sched if transposed else plan.fwd_sched
+    impl = _exec_impl(impl, sched)
+    kwargs = {"k_blk": blocked.k_blk,
+              "n_blk": plan.n_blk_t if transposed else plan.n_blk}
     if impl == "cuda_balanced":
         # this direction's own schedule: Aᵀ's skew differs from A's
-        kwargs["schedule"] = plan.bwd_sched if transposed else plan.fwd_sched
+        kwargs["schedule"] = sched
     name = _head_impl("spmm", impl, vals, b)
     _dispatch.require("spmm", name, precision=precision)
     blocked, b = apply_precision(with_values(blocked, vals.contiguous()), b,
@@ -280,6 +357,7 @@ def _run_sddmm(impl: str, plan: ADPlan, q, k,
     """``mask ⊙ (Q Kᵀ)`` in the forward layout at ``precision`` (SDDMM
     samples A's pattern, so it walks the forward schedule)."""
     kwargs = {"k_blk": plan.fwd.k_blk}
+    impl = _exec_impl(impl, plan.fwd_sched)
     if impl == "cuda_balanced":
         kwargs["schedule"] = plan.fwd_sched
     name = _head_impl("sddmm", impl, q, k)
@@ -362,7 +440,8 @@ class _SddmmAD(torch.autograd.Function):
 def _attention_kernel(impl: str, plan: ADPlan, q, k, v, scale):
     """The single-pass kernel of ``impl`` at the plan's precision:
     window-parallel for ``cuda``, over the forward schedule for
-    ``cuda_balanced``."""
+    ``cuda_balanced`` (and ``cuda_tuned`` where A's sweep chose it)."""
+    impl = _exec_impl(impl, plan.fwd_sched)
     extra = {"schedule": plan.fwd_sched} if impl == "cuda_balanced" else {}
     name = _head_impl("attention", impl, q, k, v)
     _dispatch.require("attention", name, precision=plan.precision)
@@ -456,8 +535,9 @@ def attention_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor,
     be a 0-d tensor such as AGNN's learned β, and then receives a
     gradient.  ``impl="cuda"`` runs the single-pass kernel
     (``"cuda_fused_attn"``) and ``"cuda_balanced"`` its block-parallel
-    version over the forward schedule; both keep the scores out of device
-    memory and recompute them backward.  ``"blocked"`` runs the staged
+    version over the forward schedule, ``"cuda_tuned"`` the one its plan
+    chose for A; all keep the scores out of device memory and recompute
+    them backward.  ``"blocked"`` runs the staged
     SDDMM → sparse softmax → SpMM composition.  Attention has no int8
     level: an int8 plan runs all of it, the recompute backward included,
     at bf16.
@@ -470,7 +550,7 @@ def attention_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
-    if impl in ("cuda", "cuda_balanced"):
+    if impl in ("cuda", "cuda_balanced", "cuda_tuned"):
         return _AttentionAD.apply(impl, plan, q, k, v, scale)
     probs = _softmax_probs(impl, plan, q, k, scale)
     return _SpmmAD.apply(impl, plan, probs.to(v.dtype), v)

@@ -27,6 +27,12 @@ softmax → SpMM).  Impl names:
   cuda_noncoalesced  SpMM with the thread mapping the paper's coalesced
                    one replaces (Fig. 15), the counterpart of
                    ``pallas_noncoalesced``
+  cuda_tuned       SpMM and SDDMM through the autotuner
+                   (``kernels/autotune.py``): the window-parallel or the
+                   block-parallel kernel and their tiles per matrix class;
+                   ``cuda_fused_attn_tuned`` the same for attention; the
+                   counterparts of ``pallas_tuned`` and
+                   ``pallas_fused_attn_tuned``
 
 Capability flags, enforced by :func:`require`:
 
@@ -37,6 +43,13 @@ Capability flags, enforced by :func:`require`:
   batched         the impl takes operands with a leading head dimension
                   (a 2-D operand is shared by every head) and serves every
                   head in one pass: one launch for a kernel impl;
+  needs_canonical the impl takes the canonical :class:`MEBCRS` (the
+                  autotuned impls re-block it per ``k_blk`` candidate) and
+                  the precision level itself (``precision=``), which the
+                  entry points then pass on instead of casting first;
+  returns_format  the impl returns a :class:`BlockedMEBCRS` with the
+                  values bound instead of a bare value array (the tuned
+                  SDDMM: the value layout depends on the tuned ``k_blk``);
 
 plus the ``precisions`` tuple (DESIGN.md §13): the precision levels the
 impl runs at, a subset of ``("fp32", "bf16", "int8")``; every impl
@@ -69,6 +82,8 @@ class OpImpl:
     fn: Callable
     differentiable: bool = False
     batched: bool = False
+    needs_canonical: bool = False
+    returns_format: bool = False
     precisions: Tuple[str, ...] = ("fp32",)
 
 

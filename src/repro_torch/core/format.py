@@ -46,6 +46,8 @@ __all__ = [
     "to_dense",
     "to_coo",
     "block_format",
+    "blocked_view",
+    "window_skew",
 ]
 
 
@@ -323,6 +325,42 @@ def to_coo(fmt) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         values = values.float()
     vals = values.cpu().numpy()[t_idx, r_idx]
     return rows, cols, vals
+
+
+def blocked_view(fmt: MEBCRS, k_blk: int = 8, device=None) -> BlockedMEBCRS:
+    """``block_format(fmt, k_blk)`` on ``device`` (the card unless it says
+    otherwise), memoized on ``fmt`` per ``(k_blk, device)``: every plan of
+    one pattern, and every candidate of the autotuner, shares its blocked
+    views and the schedules memoized on them."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    memo = getattr(fmt, "_blocked_views", None)
+    if memo is None:
+        memo = {}
+        object.__setattr__(fmt, "_blocked_views", memo)
+    key = (int(k_blk), str(device))
+    if key not in memo:
+        memo[key] = block_format(fmt, k_blk, device=device)
+    return memo[key]
+
+
+def window_skew(fmt) -> float:
+    """p99 / mean of the per-window nonzero-vector counts (at least 1.0).
+
+    The autotuner's bucket statistic (DESIGN.md §11): near 1 for uniform
+    matrices, large for power-law and hub-row matrices where a few
+    windows own most K-blocks, the regime of the block-parallel schedule.
+    Accepts the canonical :class:`MEBCRS` (``row_pointers``) or a
+    :class:`BlockedMEBCRS` (``win_ptr``: blocks per window, the same ratio
+    up to padding).  Host-side numpy, as the reference's.
+    """
+    ptr = fmt.win_ptr if isinstance(fmt, BlockedMEBCRS) else fmt.row_pointers
+    counts = np.diff(ptr.cpu().numpy()).astype(np.float64)
+    mean = counts.mean() if counts.size else 0.0
+    if mean <= 0:
+        return 1.0
+    return float(max(np.percentile(counts, 99) / mean, 1.0))
 
 
 def block_format(fmt: MEBCRS, k_blk: int = 8, *,

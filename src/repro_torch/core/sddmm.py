@@ -86,12 +86,17 @@ def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
     Compose with SpMM by rebinding the values (:func:`with_values`).
     ``split_blk``/``schedule`` go to the block-parallel ``cuda_balanced``
     kernel; ``precision`` (``"fp32"``/``"bf16"``) casts Q and K first.
+    The tuned impl (``cuda_tuned``, ``returns_format``) takes the
+    canonical format and returns the blocked view at its tuned ``k_blk``
+    with the scores bound as its values.
     """
-    _dispatch.require("sddmm", impl, precision=precision)
-    q, k = cast_precision(precision, q, k)
-    return _dispatch.dispatch("sddmm", impl, fmt, q, k, k_blk=k_blk,
-                              **_optional(f_blk=f_blk, split_blk=split_blk,
-                                          schedule=schedule))
+    entry = _dispatch.require("sddmm", impl, precision=precision)
+    kwargs = _optional(f_blk=f_blk, split_blk=split_blk, schedule=schedule)
+    if entry.needs_canonical:       # the impl applies the level itself
+        kwargs.update(_optional(precision=precision))
+    else:
+        q, k = cast_precision(precision, q, k)
+    return _dispatch.dispatch("sddmm", impl, fmt, q, k, k_blk=k_blk, **kwargs)
 
 
 def attention(fmt, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,11 +108,14 @@ def attention(fmt, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``1/sqrt(F)`` and may be a 0-d tensor; ``split_blk``/``schedule`` go to
     the block-parallel ``cuda_balanced`` kernel; ``precision``
     (``"fp32"``/``"bf16"``) casts Q, K and V first."""
-    _dispatch.require("attention", impl, precision=precision)
-    q, k, v = cast_precision(precision, q, k, v)
+    entry = _dispatch.require("attention", impl, precision=precision)
+    kwargs = _optional(scale=scale, split_blk=split_blk, schedule=schedule)
+    if entry.needs_canonical:       # the impl applies the level itself
+        kwargs.update(_optional(precision=precision))
+    else:
+        q, k, v = cast_precision(precision, q, k, v)
     return _dispatch.dispatch("attention", impl, fmt, q, k, v, k_blk=k_blk,
-                              **_optional(scale=scale, split_blk=split_blk,
-                                          schedule=schedule))
+                              **kwargs)
 
 
 def with_values(blocked: BlockedMEBCRS, new_vals: torch.Tensor) -> BlockedMEBCRS:

@@ -146,12 +146,14 @@ def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
     against the impl's ``precisions``; the result is in B's dtype after
     the cast (bf16 for bf16 and int8).
     """
-    _dispatch.require("spmm", impl, precision=precision)
-    if precision is not None:
+    entry = _dispatch.require("spmm", impl, precision=precision)
+    kwargs = _optional(n_blk=n_blk, split_blk=split_blk, schedule=schedule)
+    if entry.needs_canonical:       # the impl applies the level itself
+        kwargs.update(_optional(precision=precision))
+    elif precision is not None:
         blocked = (fmt if isinstance(fmt, BlockedMEBCRS)
                    else block_format(fmt, k_blk, device=b.device))
         fmt, b = apply_precision(blocked, b, precision)
-    kwargs = _optional(n_blk=n_blk, split_blk=split_blk, schedule=schedule)
     return _dispatch.dispatch("spmm", impl, fmt, b, k_blk=k_blk, **kwargs)
 
 

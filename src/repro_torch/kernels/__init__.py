@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``), their ctypes
 wrappers with plain PyTorch versions and launch counters, the registry
-adapters (``ops``) and element-wise oracles (``ref``)."""
+adapters and tuned entry points (``ops``), the autotuner (``autotune``)
+and element-wise oracles (``ref``)."""
 
-from . import ops, ref
+from . import autotune, ops, ref
 from .attention_balanced_cuda import (attention_balanced_cuda,
                                       attention_balanced_plain)
 from .attention_cuda import (attention_cuda, attention_cuda_staged,
@@ -19,7 +20,8 @@ from .spmm_staged_cuda import spmm_staged_cuda, spmm_staged_plain
 
 __all__ = ["attention_balanced_cuda", "attention_balanced_plain",
            "attention_cuda", "attention_cuda_staged", "attention_plain",
-           "ops", "ref", "sddmm_balanced_cuda", "sddmm_balanced_plain",
+           "autotune", "ops", "ref", "sddmm_balanced_cuda",
+           "sddmm_balanced_plain",
            "sddmm_batched_cuda", "sddmm_batched_plain", "sddmm_cuda",
            "sddmm_plain", "spmm_balanced_cuda", "spmm_balanced_plain",
            "spmm_batched_cuda", "spmm_batched_plain", "spmm_cuda",

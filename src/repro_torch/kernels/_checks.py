@@ -5,10 +5,10 @@ CPU, launches its kernel when every tensor lies on one CUDA device, and
 raises on anything the kernel does not take: a combination of dtypes that
 is not one of its variants (the kernels never cast), non-contiguous
 tensors, non-int32 indices, or mixed devices.  Every wrapper takes
-float32; the window, head-grid and balanced SpMMs, SDDMMs and attentions
-also take bfloat16 operands, and the SpMMs int8 values with fp32
-per-K-block scales (DESIGN.md §13).  The two SpMM baselines, staged and
-non-coalesced, take float32 only.
+float32 and bfloat16 operands, and every SpMM but the staged baseline
+int8 values with fp32 per-K-block scales (DESIGN.md §13), as the
+reference's kernels do; each wrapper lists its combinations in a
+``VARIANTS`` tuple.
 """
 
 from __future__ import annotations
@@ -38,21 +38,15 @@ def variant(t: torch.Tensor) -> str:
             torch.int8: "int8"}[t.dtype]
 
 
-def forward_inputs(op: str, variants=None, **tensors: torch.Tensor) -> None:
+def forward_inputs(op: str, variants, **tensors: torch.Tensor) -> None:
     """Raise ``TypeError`` unless the tensors' dtypes, in keyword order,
-    are one of ``variants`` (tuples of dtypes; by default all float32),
-    and ``RuntimeError`` if one needs a gradient (:func:`forward_only`): a
-    launch would silently cut the graph.  The autograd Functions of
-    ``core/autodiff.py`` call the wrappers with gradients off."""
+    are one of ``variants`` (the wrapper's ``VARIANTS``: tuples of
+    dtypes), and ``RuntimeError`` if one needs a gradient
+    (:func:`forward_only`): a launch would silently cut the graph.  The
+    autograd Functions of ``core/autodiff.py`` call the wrappers with
+    gradients off."""
     got = tuple(t.dtype for t in tensors.values())
-    if variants is None:
-        for label, t in tensors.items():
-            if t.dtype != torch.float32:
-                raise TypeError(
-                    f"{op}: {label} is {t.dtype}; this kernel takes float32 "
-                    "only and never casts (its bf16/int8 variants are "
-                    "ROADMAP.md queue 2)")
-    elif got not in variants:
+    if got not in variants:
         names = ", ".join(f"{k}={t.dtype}" for k, t in tensors.items())
         raise TypeError(f"{op}: {names} is not one of the kernel's variants "
                         f"{[tuple(str(d) for d in v) for v in variants]}; it "

@@ -64,6 +64,7 @@ class GNNConfig:
     num_classes: int = 16
     num_layers: int = 5             # paper: 5-layer GCN
     impl: str = "blocked"           # "blocked" | "cuda" | "cuda_balanced"
+    #                                 | "cuda_tuned"
     dtype: torch.dtype = torch.float32
 
 

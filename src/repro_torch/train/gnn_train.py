@@ -4,8 +4,11 @@ The port's counterpart of ``examples/gnn_train.py``: trains GCN (SpMM
 aggregation) and AGNN (sparse attention) on a scaled paper graph.  The
 adjacency is wrapped in an autodiff plan (``ad_plan``), so ``--impl``
 selects any differentiable registry impl — ``blocked`` (plain PyTorch),
-``cuda`` (the window-parallel kernels) or ``cuda_balanced`` (the
-block-parallel kernels over a schedule) — and the backward pass runs the
+``cuda`` (the window-parallel kernels), ``cuda_balanced`` (the
+block-parallel kernels over a schedule) or ``cuda_tuned`` (the autotuner
+picks the route and tiles of each direction when the plan is built, at
+the model's hidden width; winners cached in
+``$REPRO_TORCH_AUTOTUNE_CACHE``) — and the backward pass runs the
 dispatched transpose-SpMM/SDDMM duality through the same kernels.
 
   PYTHONPATH=src python -m repro_torch.train.gnn_train [--graph GitHub]
@@ -69,7 +72,8 @@ def train_one(g, x_np, labels_np, mask_np, *, model: str, v: int, impl: str,
                     dtype=dtype)
     fmt = from_coo(g.rows, g.cols, g.vals, (g.num_nodes, g.num_nodes),
                    vector_size=v, dtype=dtype)
-    adj = ad_plan(fmt, impl=impl, device=device, precision=precision)
+    adj = ad_plan(fmt, impl=impl, n_example=cfg.hidden_dim, device=device,
+                  precision=precision)
     x = torch.from_numpy(x_np).to(device=device, dtype=dtype)
     labels = torch.from_numpy(labels_np).to(device)
     mask = torch.from_numpy(mask_np).to(device)
@@ -94,7 +98,8 @@ def main(argv=None) -> None:
     ap.add_argument("--epochs", type=int, default=60)
     ap.add_argument("--model", default="both", choices=["gcn", "agnn", "both"])
     ap.add_argument("--impl", default="blocked",
-                    choices=["blocked", "cuda", "cuda_balanced"])
+                    choices=["blocked", "cuda", "cuda_balanced",
+                             "cuda_tuned"])
     ap.add_argument("--steps", type=int, default=None,
                     help="smoke mode: run STEPS steps of one small config "
                          "and assert a finite loss decrease")

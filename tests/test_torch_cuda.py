@@ -14,12 +14,15 @@ variants of the window SpMM, the SDDMM and the fused attention are held
 to their plain versions within one bf16 ulp with at least 99% of the
 entries bitwise equal; the attention over value bands (DV > 128) and
 over the SDDMM/SpMM composition (D beyond its shared memory), and the
-window SpMM's 64-bit-index instantiation on a 4 GiB bf16 B.  The
-tensor-core SDDMM tile shared by the window, head-grid and balanced
-SDDMMs: the same bits per sampled row from all three and from a second
-launch, at odd F, F = 720 and 1,500, V = 16, k_blk 3, 4 and 16, H 1, 2
-and 12 with shared and per-head operands, fp32 and bf16 (bf16 bitwise the
-fp32 kernel on widened operands, rounded).  They skip on a host without a
+window SpMM's 64-bit-index instantiation on a 4 GiB bf16 B; the narrow
+variants of the two SpMM baselines; every kernel the autotuner times at
+k_blk 16 and 32, a tuned plan whose directions differ in k_blk and route
+against ``blocked``, and a sweep on the card.  The tensor-core SDDMM
+tile shared by the window, head-grid and balanced SDDMMs: the same bits
+per sampled row from all three and from a second launch, at odd F,
+F = 720 and 1,500, V = 16, k_blk 3, 4 and 16, H 1, 2 and 12 with shared
+and per-head operands, fp32 and bf16 (bf16 bitwise the fp32 kernel on
+widened operands, rounded).  They skip on a host without a
 CUDA device; on one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
@@ -30,7 +33,7 @@ import pytest
 import torch
 
 from repro_torch.core import (ad_plan, block_format, from_coo, from_dense,
-                              to_coo)
+                              to_coo, to_dense)
 from repro_torch.core.quantize import quantize_format
 from repro_torch.core.spmm import dequantized
 from repro_torch.core.sddmm import with_values
@@ -43,7 +46,8 @@ from repro_torch.kernels import (attention_balanced_cuda,
                                  sddmm_cuda, sddmm_plain, spmm_balanced_cuda,
                                  spmm_balanced_plain, spmm_batched_cuda,
                                  spmm_batched_plain, spmm_cuda,
-                                 spmm_noncoalesced_cuda, spmm_plain,
+                                 spmm_noncoalesced_cuda,
+                                 spmm_noncoalesced_plain, spmm_plain,
                                  spmm_staged_cuda, spmm_staged_plain)
 from repro_torch.kernels._combine import run_plan
 from repro_torch.kernels._window import SPLIT_BLK
@@ -817,3 +821,190 @@ def test_sddmm_tile_head_grids_on_card(device, case, h, dtype):
         else:
             torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------- narrow baselines, tuned route ----
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
+def test_narrow_spmm_baselines_on_card(device, case):
+    """Rows 2 (bf16, int8) and 5 (bf16): within one bf16 ulp of their plain
+    versions; the non-coalesced SpMM the window SpMM's variant bit for bit
+    on the windows that SpMM walks unsplit; int8 refused by the staged
+    SpMM, as by the reference's."""
+    m, k, density, empty, v, k_blk, n, f, dv = case
+    rng = np.random.default_rng(m * k + 5)
+    a = _matrix(rng, m, k, density, empty)
+    blocked = block_format(from_dense(a, vector_size=v), k_blk, device=device)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(
+        device).to(BF16)
+    unsplit = (torch.diff(blocked.win_ptr.long()) <= SPLIT_BLK
+               ).repeat_interleave(v)[:m]
+    views = {"bf16": with_values(blocked, blocked.vals.to(BF16)),
+             "int8": quantize_format(blocked)}
+    for var, view in views.items():
+        before = spmm_noncoalesced_cuda.variant_launches[var]
+        out = spmm_noncoalesced_cuda(view, b)
+        assert spmm_noncoalesced_cuda.variant_launches[var] == before + 1
+        assert torch.equal(out[unsplit], spmm_cuda(view, b)[unsplit])
+        _one_ulp(out, spmm_noncoalesced_plain(view, b))
+    out = spmm_staged_cuda(views["bf16"], b)
+    assert out.dtype == BF16
+    _one_ulp(out, spmm_staged_plain(views["bf16"], b))
+    with pytest.raises(ValueError, match="no int8 path"):
+        spmm_staged_cuda(views["int8"], b)
+    torch.cuda.synchronize()
+
+
+def _hub_fmt(rng):
+    """200 x 1600 with two hub windows (rows 0-15 at density 0.4: about
+    1,570 nonzero vectors each, 98 and 49 K-blocks at k_blk 16 and 32, so
+    the window SpMM splits them) over a sparse rest, and an empty
+    window."""
+    a = _matrix(rng, 200, 1600, 0.01, empty_rows=range(48, 56))
+    a[:16] = _matrix(rng, 16, 1600, 0.4)
+    return from_dense(a)
+
+
+@pytest.mark.parametrize("n", [32, 128])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("k_blk", [16, 32])
+def test_tuned_candidates_at_deep_k_blocks_on_card(device, k_blk, transposed,
+                                                   n):
+    """Every kernel the sweep times (rows 1 and 4 at each column tile and
+    split_blk 0 / 1, and on A rows 6, 8, 9, 10) at k_blk 16 and 32 against
+    its plain version, on a matrix with hub windows and on its transpose
+    (hub columns).  The window SpMM's split windows (more than SPLIT_BLK
+    K-blocks, summed by slices) are held against fp64 within the
+    running-sum bound, as in test_window_spmm_splits_long_windows_on_card."""
+    from repro_torch.core.format import blocked_view
+    rng = np.random.default_rng(k_blk + n)
+    fmt = _hub_fmt(rng)
+    fmt = fmt.transpose() if transposed else fmt
+    bl = blocked_view(fmt, k_blk, device)
+    m, k = fmt.shape
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    b = t(k, n)
+    per_win = torch.diff(bl.win_ptr.long())
+    split = (per_win > SPLIT_BLK).repeat_interleave(bl.vector_size)[:m]
+    a64 = to_dense(fmt).to(device).double()
+    terms = (per_win * k_blk).double().repeat_interleave(
+        bl.vector_size)[:m, None]
+    limit = ATOL + HUB_LAMBDA * terms.sqrt() * 2.0 ** -24 * (
+        a64.abs() @ b.double().abs())
+    exact = a64 @ b.double()
+    for n_blk in (64, 128, 256):
+        out = spmm_cuda(bl, b, n_blk=n_blk)
+        torch.testing.assert_close(out[~split], spmm_plain(bl, b)[~split],
+                                   rtol=RTOL, atol=ATOL)
+        assert bool(((out.double() - exact).abs() <= limit)[split].all())
+        for split in (0, 1):
+            sched = bl.schedule(split)
+            torch.testing.assert_close(
+                spmm_balanced_cuda(bl, b, schedule=sched, n_blk=n_blk),
+                spmm_balanced_plain(bl, b, sched), rtol=RTOL, atol=ATOL)
+    q, kk, vv = t(m, n), t(k, n), t(k, n)
+    scale = torch.tensor(0.7, device=device)
+    torch.testing.assert_close(sddmm_cuda(bl, q, kk), sddmm_plain(bl, q, kk),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(attention_cuda(bl, q, kk, vv, scale=scale),
+                               attention_plain(bl, q, kk, vv, scale=scale),
+                               rtol=RTOL, atol=ATOL)
+    sched = bl.schedule(1)
+    torch.testing.assert_close(sddmm_balanced_cuda(bl, q, kk, schedule=sched),
+                               sddmm_balanced_plain(bl, q, kk, sched),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        attention_balanced_cuda(bl, q, kk, vv, scale=scale, schedule=sched),
+        attention_balanced_plain(bl, q, kk, vv, sched, scale), rtol=RTOL,
+        atol=ATOL)
+    torch.cuda.synchronize()
+
+
+def _seed_tuned(cache, fmt, n, device, fwd, bwd):
+    """Put the winners ``fwd`` and ``bwd`` (k_blk, n_blk, split_blk) of a
+    cuda_tuned plan with ``n_example = n`` into ``cache``, so building the
+    plan sweeps nothing."""
+    from repro_torch.kernels import autotune
+    for f, cfg in ((fmt, fwd), (fmt.transpose(), bwd)):
+        key = autotune.matrix_stats_key(f, n, "spmm", device=device,
+                                        dtype=torch.float32)
+        cache.put(autotune.sweep_key(key),
+                  autotune.TuneConfig(cfg[0], cfg[1], 1.0, split_blk=cfg[2]))
+    key = autotune.matrix_stats_key(fmt, n, "sddmm", device=device,
+                                    dtype=torch.float32)
+    cache.put(autotune.sweep_key(key, k_blks=(fwd[0],), split_blks=(0,)),
+              autotune.TuneConfig(fwd[0], n, 1.0))
+
+
+@pytest.mark.parametrize("model", ["gcn", "agnn"])
+def test_tuned_plan_directions_differ_on_card(device, model, tmp_path):
+    """A cuda_tuned plan with A on the window kernels at k_blk 16 and A^T
+    on the balanced ones at k_blk 8 (seeded winners): one step's gradients
+    within 1e-4 of blocked, each direction on its own kernel."""
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(3)
+    a = _matrix(rng, 300, 300, 0.02) + np.eye(300, dtype=np.float32)
+    a[:8] = _matrix(rng, 8, 300, 0.6)          # a hub window of A
+    fmt = from_dense(a)
+    hidden = 32 if model == "gcn" else 16
+    cache = autotune.AutotuneCache(str(tmp_path / "cache.json"))
+    _seed_tuned(cache, fmt, hidden, device, (16, 64, 0), (8, 128, 1))
+    autotune.reset_counters()
+    plan = ad_plan(fmt, impl="cuda_tuned", n_example=hidden, cache=cache,
+                   device=device)
+    assert not autotune.timed
+    assert (plan.fwd.k_blk, plan.bwd.k_blk, plan.n_blk, plan.n_blk_t) == (
+        16, 8, 64, 128)
+    assert plan.fwd_sched is None and plan.bwd_sched.split_blk == 1
+    x = torch.from_numpy(rng.standard_normal((300, 32)).astype(np.float32)).to(device)
+    kw = dict(model=model, in_dim=32, hidden_dim=hidden, num_classes=4,
+              num_layers=3)
+    grads = {}
+    for name, adj in (("cuda_tuned", plan),
+                      ("blocked", ad_plan(fmt, impl="blocked",
+                                          device=device))):
+        cfg = gnn.GNNConfig(impl=name, **kw)
+        net = (gnn.GCN if model == "gcn" else gnn.AGNN)(cfg, device=device)
+        before = (spmm_cuda.launches, spmm_balanced_cuda.launches)
+        net(adj, x).square().mean().backward()
+        grads[name] = [p.grad for p in net.parameters()]
+        if name == "cuda_tuned":
+            fwd, bwd = (spmm_cuda.launches - before[0],
+                        spmm_balanced_cuda.launches - before[1])
+            # GCN: 3 forward SpMMs on A, 2 dB on A^T; AGNN: dQ on A, dV
+            # and dK on A^T, per layer
+            assert (fwd, bwd) == ((3, 2) if model == "gcn" else (3, 6))
+    # the hub window's products summed in another order (k_blk 16 against
+    # 8), and GCN's gradients reach a few hundred on this matrix: each is
+    # held at rtol 1e-4 and 1e-4 of its own largest entry (chip_smoke.py
+    # phase 4b's floor)
+    for got, want in zip(grads["cuda_tuned"], grads["blocked"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+def test_tuned_sweep_on_card_times_every_candidate_and_caches(device,
+                                                               tmp_path):
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(4)
+    fmt = _hub_fmt(rng)
+    cache = autotune.AutotuneCache(str(tmp_path / "cache.json"))
+    autotune.reset_counters()
+    plan = ad_plan(fmt, impl="cuda_tuned", n_example=128, cache=cache,
+                   device=device)
+    assert autotune.failed_candidates == 0, autotune.last_error
+    # A and A^T: 3 k_blks x 2 routes x 2 tiles; the SDDMM: one
+    assert len(autotune.timed) == 2 * 12 + 1
+    assert all(key.split("|")[9:11] == ["cuda", "kernel"]
+               for key, _ in autotune.timed)
+    again = ad_plan(from_dense(to_dense(fmt).numpy()), impl="cuda_tuned",
+                    n_example=128, cache=autotune.AutotuneCache(cache.path),
+                    device=device)
+    assert len(autotune.timed) == 25
+    assert (again.fwd.k_blk, again.bwd.k_blk, again.n_blk, again.n_blk_t) == (
+        plan.fwd.k_blk, plan.bwd.k_blk, plan.n_blk, plan.n_blk_t)
+

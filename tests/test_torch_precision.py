@@ -451,14 +451,14 @@ def test_gnn_train_smoke_cli_precisions(flags, capsys):
 
 
 def test_dispatch_precision_gate_names_the_capable_impls():
-    # the two SpMM baselines are fp32 only (ROADMAP.md queue 2); every
-    # other kernel impl takes the reference's narrow levels
+    # the staged SpMM baseline has no int8 level, as the reference's;
+    # every other SpMM impl takes the reference's narrow levels
     with pytest.raises(ValueError) as exc:
-        dispatch.require("spmm", "cuda_staged", precision="bf16")
+        dispatch.require("spmm", "cuda_staged", precision="int8")
     assert str(exc.value) == (
         "impl 'cuda_staged' of op 'spmm' does not support precision "
-        "'bf16' (supports: fp32); impls with 'bf16': blocked, cuda, "
-        "cuda_balanced, cuda_batched")
+        "'int8' (supports: fp32, bf16); impls with 'int8': blocked, cuda, "
+        "cuda_balanced, cuda_batched, cuda_noncoalesced, cuda_tuned")
     # the reference's text, up to the list of its own impls
     with pytest.raises(ValueError) as exc:
         dispatch.require("spmm", "coo_segment", precision="int8")
@@ -466,9 +466,10 @@ def test_dispatch_precision_gate_names_the_capable_impls():
         jdispatch.require("spmm", "coo_segment", precision="int8")
     assert (str(exc.value).split("; impls with")[0]
             == str(jexc.value).split("; impls with")[0])
-    for op, impl in (("spmm", "cuda_staged"), ("spmm", "cuda_noncoalesced")):
-        assert dispatch.get(op, impl).precisions == ("fp32",)
-    for op, impl, want in (("spmm", "cuda_batched", ("fp32", "bf16", "int8")),
+    for op, impl, want in (("spmm", "cuda_staged", ("fp32", "bf16")),
+                           ("spmm", "cuda_noncoalesced",
+                            ("fp32", "bf16", "int8")),
+                           ("spmm", "cuda_batched", ("fp32", "bf16", "int8")),
                            ("spmm", "cuda_balanced", ("fp32", "bf16", "int8")),
                            ("sddmm", "cuda_balanced", ("fp32", "bf16")),
                            ("attention", "cuda_balanced", ("fp32", "bf16"))):
@@ -479,7 +480,7 @@ def test_dispatch_precision_gate_names_the_capable_impls():
         dispatch.require("sddmm", "cuda", precision="int8")
     with pytest.raises(ValueError, match="does not support precision"):
         ad_plan(from_dense(np.eye(16, dtype=np.float32)),
-                impl="cuda_staged", device="cpu", precision="bf16")
+                impl="cuda_staged", device="cpu", precision="int8")
     # a plan on cuda_balanced now builds at every narrow level
     for prec in ("bf16", "int8"):
         plan = ad_plan(from_dense(np.eye(16, dtype=np.float32)),
@@ -489,7 +490,8 @@ def test_dispatch_precision_gate_names_the_capable_impls():
     with pytest.raises(ValueError, match="does not support precision"):
         spmm(port, torch.ones(port.shape[1], 4), impl="coo_segment",
              precision="bf16")
-    # fp32-only kernels refuse narrow operands and name the roadmap
+    # the two baselines, fp32 only before, run their bf16 variants: their
+    # plain versions, the window SpMM's function
     from repro_torch.kernels import (spmm_balanced_cuda, spmm_balanced_plain,
                                      spmm_noncoalesced_cuda, spmm_plain,
                                      spmm_staged_cuda)
@@ -497,8 +499,7 @@ def test_dispatch_precision_gate_names_the_capable_impls():
     b16 = _bf16(np.random.default_rng(14).standard_normal(
         (port.shape[1], 4)).astype(np.float32))
     for fn in (spmm_staged_cuda, spmm_noncoalesced_cuda):
-        with pytest.raises(TypeError, match="ROADMAP.md"):
-            fn(p16, b16)
+        assert torch.equal(fn(p16, b16), spmm_plain(p16, b16))
     # the balanced SpMM, refused here before, runs its bf16 variant: its
     # plain version, within one bf16 ulp of the window SpMM's
     got = spmm_balanced_cuda(p16, b16)
