@@ -99,6 +99,23 @@ a non-zero exit at the first phase that fails:
      and AGNN in fp32 and GCN in bf16 on ``cuda_tuned``, the first loss and
      every gradient against ``blocked``, a falling loss, and the launch
      counters against the kernels each direction's winner names;
+     4i. the hardened runtime on the card: the conformance harness
+     (``repro_torch.testing.conformance``) over the whole registry at
+     every precision on the 14 vendored matrices of ``tests/data``
+     against the dense oracle, and its self-test (a broken impl reported
+     failing); the fault suite (``repro_torch.testing.faults``) for
+     ``spmm``/``cuda``, ``sddmm``/``cuda`` and
+     ``attention``/``cuda_fused_attn``, strict and not strict, every
+     record in its expected mode (the injected launch failure raises in
+     both, as no kernel rung below takes it and the card's ladder tries
+     no plain rung), and one recovery per op from ``cuda_balanced`` to
+     the next kernel rung, each one ``FallbackWarning``; a bf16 overflow rescued at fp32 by
+     ``guard_nonfinite`` and counted once, a finite result kept bit for
+     bit, and the guard's cost on the Amazon replica; and
+     ``validate(check="full")`` on the Amazon replica's A and Aᵀ views and
+     schedules, timed.  A ``FallbackWarning`` anywhere else is an error,
+     and ``dispatch_fallback`` must count those three recoveries and
+     nothing else over the whole run;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
      never calls), the window-parallel SpMM also on the transposes (the
@@ -130,6 +147,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -1257,6 +1275,189 @@ def check_head_grids_edge(rng) -> None:
     torch.cuda.synchronize()
 
 
+# Phase 4i: the fault classes the card run drives, and the modes each
+# must end in.  kernel_launch_failure raises strict or not: on CUDA
+# operands the ladder keeps its kernel rungs, and none below the refusing
+# one takes the refused argument.  The recoveries on the card are
+# run_rung_recovery's, one per op.
+FAULT_RUNS = (("spmm", "cuda"), ("sddmm", "cuda"),
+              ("attention", "cuda_fused_attn"))
+FAULT_MODE = {"format": "raise", "input": "raise", "config": "raise",
+              "runtime": "raise", "counter": "counter", "cache": "recover"}
+OVERFLOW = 3.3999e38  # finite in fp32, inf in bf16
+
+
+def check_hardened_runtime(plan, bplan, b, card: str) -> dict:
+    """Phase 4i: the conformance harness over the whole registry on the
+    vendored matrices and its self-test, the fault suite strict and not
+    strict, the non-finite rescue, and the full audit of the Amazon
+    replica's views and schedules.  Returns the phase's numbers; the
+    fallbacks it recovers on purpose (one per op of ``FAULT_RUNS``) are
+    ``dispatch_fallback``'s only counts."""
+    import torch
+
+    from repro_torch.core import metrics, spmm
+    from repro_torch.core.dispatch import FallbackWarning
+    from repro_torch.core.format import from_dense
+    from repro_torch.core.sddmm import with_values
+    from repro_torch.core.validate import validate
+    from repro_torch.data.datasets import load_vendored
+    from repro_torch.kernels import autotune
+    from repro_torch.testing import conformance, faults
+
+    out = {"card": card}
+    # (a) every registered (op, impl, precision) on the 14 matrices
+    failed_before = autotune.failed_candidates
+    t0 = time.time()
+    samples = load_vendored()
+    records = conformance.run_conformance(samples, device=DEVICE)
+    torch.cuda.synchronize()
+    t_conf = time.time() - t0
+    summary = conformance.summarize(records)
+    print(f"  conformance: {summary['total']} cases on "
+          f"{len(summary['matrices'])} matrices x "
+          f"{summary['impl_pairs_covered']} (op, impl) pairs: "
+          f"{summary['pass']} pass, {summary['fail']} fail, "
+          f"{summary['skip']} skip (attention on the non-square) in "
+          f"{t_conf:.1f} s; {card}")
+    for key, row in summary["by_impl"].items():
+        print(f"    {key:32s} {row['pass']:3d} pass {row['fail']:3d} fail "
+              f"{row['skip']:3d} skip")
+    if summary["fail"]:
+        print(conformance.format_report(records))
+        raise SystemExit(f"FAIL conformance: {summary['fail']} cases fail")
+    if autotune.failed_candidates != failed_before:
+        raise SystemExit(f"FAIL conformance: the tuned impls' sweeps had "
+                         f"{autotune.failed_candidates - failed_before} "
+                         f"failed candidates ({autotune.last_error})")
+    conformance.self_test(device=DEVICE)
+    print("  conformance self-test: the broken SpMM impl is reported "
+          "failing on every case")
+    out["conformance"] = {k: summary[k] for k in (
+        "total", "pass", "fail", "skip", "impl_pairs_covered", "by_impl")}
+    out["conformance"]["seconds"] = t_conf
+
+    # (b) the fault suite on CUDA tensors, and one recovery per op from a
+    # kernel rung to the next
+    n_before = metrics.counters().get("dispatch_fallback", 0)
+    if n_before:
+        raise SystemExit(f"FAIL: dispatch_fallback counted {n_before} "
+                         "before the fault phase")
+    t0 = time.time()
+    modes = {}
+    for op, impl in FAULT_RUNS:
+        for strict in (True, False):
+            recs = faults.run_fault_suite(op, impl, strict=strict,
+                                          device=DEVICE)
+            for rec in recs:
+                kind, invariants = faults.FAULTS[rec["fault"]]
+                want = FAULT_MODE[kind]
+                if rec["mode"] != want or (invariants and rec["detail"]
+                                           not in invariants):
+                    raise SystemExit(f"FAIL fault {rec['fault']} on "
+                                     f"{op}/{impl} strict={strict}: {rec}")
+            modes[f"{op}/{impl}/{'strict' if strict else 'degrade'}"] = {
+                rec["fault"]: f"{rec['mode']}: {rec['detail']}"
+                for rec in recs}
+    for op, _ in FAULT_RUNS:
+        rec = faults.run_rung_recovery(op, device=DEVICE)
+        modes[f"{op}/cuda_balanced/degrade"] = {
+            rec["fault"]: f"{rec['mode']}: {rec['detail']}"}
+    torch.cuda.synchronize()
+    t_faults = time.time() - t0
+    n_recovered = metrics.counters().get("dispatch_fallback", 0) - n_before
+    if n_recovered != len(FAULT_RUNS):
+        raise SystemExit(f"FAIL faults: dispatch_fallback counted "
+                         f"{n_recovered}, not one recovery per op")
+    for key, recs in modes.items():
+        print(f"  faults {key}: " + "; ".join(
+            f"{name} {what}" for name, what in recs.items()))
+    print(f"  fault suite: {len(FAULT_RUNS) * 2} runs of "
+          f"{len(faults.FAULTS)} classes and {len(FAULT_RUNS)} kernel-rung "
+          f"recoveries in {t_faults:.1f} s, every record "
+          "raise/recover/counter as expected, dispatch_fallback = "
+          f"{n_recovered} (the {len(FAULT_RUNS)} expected recoveries)")
+    out["faults"] = {"modes": modes, "seconds": t_faults,
+                     "dispatch_fallback": n_recovered}
+
+    # (c) the non-finite rescue: one entry overflows bf16
+    rng = np.random.default_rng(14)
+    a = ((rng.random((40, 40)) < 0.3)
+         * rng.standard_normal((40, 40))).astype(np.float32)
+    a[3, 5] = OVERFLOW
+    fmt = from_dense(a)
+    bb = torch.from_numpy((rng.standard_normal((40, 16)) * 1e-5)
+                          .astype(np.float32)).to(DEVICE)
+    narrow = spmm(fmt, bb, impl="cuda", precision="bf16")
+    if bool(torch.isfinite(narrow).all()):
+        raise SystemExit("FAIL rescue: the bf16 product did not overflow")
+    metrics.reset_counters("guard_nonfinite_rerun")
+    with warnings.catch_warnings(record=True) as wlog:
+        warnings.simplefilter("always")
+        rescued = spmm(fmt, bb, impl="cuda", precision="bf16",
+                       guard_nonfinite=True)
+    warned = [w for w in wlog if issubclass(w.category, FallbackWarning)]
+    ref = a.astype(np.float64) @ bb.cpu().double().numpy()
+    got = rescued.cpu().double().numpy()
+    if (rescued.dtype != torch.float32 or len(warned) != 1
+            or "non-finite" not in str(warned[0].message)
+            or metrics.counters().get("guard_nonfinite_rerun") != 1
+            or not np.allclose(got, ref, rtol=1e-4, atol=1e-12)):
+        raise SystemExit(f"FAIL rescue: dtype {rescued.dtype}, "
+                         f"{len(warned)} warnings, counter "
+                         f"{metrics.counters().get('guard_nonfinite_rerun')},"
+                         f" max rel err {np.abs(got - ref).max()}")
+    err_rescue = float(np.abs(got - ref).max() / np.abs(ref).max())
+    benign = spmm(plan.fwd, b, impl="cuda", precision="bf16")
+    guarded = spmm(plan.fwd, b, impl="cuda", precision="bf16",
+                   guard_nonfinite=True)
+    if guarded.dtype != torch.float32 or not torch.equal(benign.float(),
+                                                         guarded):
+        raise SystemExit("FAIL rescue: the guard changed a finite bf16 "
+                         "result")
+    # the guard's cost on the Amazon replica's A at N = 128: the finiteness
+    # read on a finite result, and the fp32 re-run after an overflow
+    vals = plan.fwd.vals.clone()
+    vals[torch.nonzero(plan.fwd.mask)[0].unbind()] = OVERFLOW
+    poisoned = with_values(plan.fwd, vals)
+    t_plain = cuda_ms(lambda: spmm(plan.fwd, b, impl="cuda",
+                                   precision="bf16"))
+    t_checked = cuda_ms(lambda: spmm(plan.fwd, b, impl="cuda",
+                                     precision="bf16", guard_nonfinite=True))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FallbackWarning)
+        t_rerun = cuda_ms(lambda: spmm(poisoned, b, impl="cuda",
+                                       precision="bf16",
+                                       guard_nonfinite=True))
+    t_fp32 = cuda_ms(lambda: spmm(plan.fwd, b, impl="cuda",
+                                  precision="fp32"))
+    metrics.reset_counters("guard_nonfinite_rerun")
+    print(f"  rescue: bf16 overflow at {OVERFLOW:g} re-run at fp32, max "
+          f"error {err_rescue:.2e} of the largest fp64 entry, counted once; "
+          "a finite bf16 result kept bit for bit")
+    print(f"  guard on Amazon A, N=128 (ms): bf16 {t_plain:.4f}, bf16 "
+          f"guarded {t_checked:.4f}, overflow + fp32 re-run {t_rerun:.4f}, "
+          f"fp32 alone {t_fp32:.4f}; {card}")
+    out["guard"] = {"max_rel_err": err_rescue, "bf16_ms": t_plain,
+                    "bf16_guarded_ms": t_checked,
+                    "overflow_rerun_ms": t_rerun, "fp32_ms": t_fp32}
+
+    # (d) the full audit at scale: A and A^T, their blocked views and the
+    # balanced schedules (split_blk = 1)
+    timings = {}
+    for name, obj, view in (("A blocked", plan.fwd, None),
+                            ("A^T blocked", plan.bwd, None),
+                            ("A schedule", bplan.fwd_sched, bplan.fwd),
+                            ("A^T schedule", bplan.bwd_sched, bplan.bwd)):
+        t0 = time.time()
+        validate(obj, blocked=view, check="full")
+        timings[name] = time.time() - t0
+    print("  validate(check='full') on the Amazon replica (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in timings.items()) + f"; {card}")
+    out["validate_full_s"] = timings
+    return out
+
+
 def attention_setup(rng) -> dict:
     """The multi-head attention configuration on the card: the pattern,
     its ``cuda`` and ``cuda_balanced`` plans, q, k and v (the reference
@@ -1374,6 +1575,12 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # No silent degradation: a fallback anywhere is an error, except the
+    # fault phase's expected recoveries (4i), which catch their own.
+    from repro_torch.core import metrics as runtime_metrics
+    from repro_torch.core.dispatch import FallbackWarning
+    warnings.simplefilter("error", FallbackWarning)
+    runtime_metrics.reset_counters()
     t_start = time.time()
 
     phase("1. card")
@@ -2516,6 +2723,12 @@ def main() -> None:
                             for key_, c in autotune.timed]}
     torch.cuda.synchronize()
 
+    phase("4i. hardened runtime and conformance on the card: the registry "
+          "on the vendored matrices, the fault suite, the non-finite "
+          "rescue, full validation at scale")
+    hardened = check_hardened_runtime(plan, bplan, b, card)
+    reset_counts()
+
     phase("5. timing (CUDA events around back-to-back calls, median of runs)")
     csr = torch.sparse_coo_tensor(
         torch.from_numpy(np.stack([g.rows, g.cols])),
@@ -3327,11 +3540,16 @@ def main() -> None:
     for name, n_launch in launches.items():
         if n_launch == 0:
             raise SystemExit(f"FAIL: the {name} kernel never ran on the main path")
+    n_fallback = runtime_metrics.counters().get("dispatch_fallback", 0)
+    if n_fallback != len(FAULT_RUNS):
+        raise SystemExit(f"FAIL: dispatch_fallback counted {n_fallback}, "
+                         "beyond the fault phase's expected recoveries")
 
     print(json.dumps({"end_to_end": e2e, "training": train,
                       "sparse_attention": attn_result,
                       "sparse_attention_bf16": attn16_result,
                       "attention_wide": wide, "tuned": tuned,
+                      "hardened_runtime": hardened,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))

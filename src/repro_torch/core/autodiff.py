@@ -89,6 +89,11 @@ class ADPlan:
     # given); "int8" quantizes the forward SpMM's values, every other op
     # runs at bf16.
     precision: Optional[str] = None
+    # Non-finite rescue (DESIGN.md §15), armed only at bf16/int8: the
+    # forward SpMM re-runs at fp32 when its narrow output is not finite
+    # and returns fp32 either way; the backward stays the straight-through
+    # duality.
+    guard_nonfinite: bool = False
 
     @property
     def vals(self) -> torch.Tensor:
@@ -183,8 +188,8 @@ def _exec_impl(impl: str, sched: Schedule | None) -> str:
 
 def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
             n_blk: int = 128, split_blk: int = 1, n_example: int = 64,
-            cache=None, device=None,
-            precision: Optional[str] = None) -> ADPlan:
+            cache=None, device=None, precision: Optional[str] = None,
+            guard_nonfinite: bool = False) -> ADPlan:
     """Build (and memoize on ``fmt``) the plan, on ``device`` (the card
     unless ``device`` says otherwise).
 
@@ -210,9 +215,22 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     the fused attention too), so a combination a kernel lacks fails
     before a step runs; plans of one pattern at several levels share
     their arrays.
+
+    ``guard_nonfinite=True`` arms the non-finite rescue on a bf16 or int8
+    plan: each forward SpMM reads whether its output is finite (one host
+    sync) and, when it is not, re-runs at fp32, with the warning, log
+    entry and counter of :func:`~repro_torch.core.dispatch.rescue_nonfinite`;
+    the guarded forward returns fp32.  The
+    flag is dropped on fp32 and ``None`` plans, as the reference's.
     """
     device = resolve_device(device)
     validate_precision(precision)
+    if guard_nonfinite and precision in ("bf16", "int8"):
+        return dataclasses.replace(
+            ad_plan(fmt, impl=impl, k_blk=k_blk, n_blk=n_blk,
+                    split_blk=split_blk, n_example=n_example, cache=cache,
+                    device=device, precision=precision),
+            guard_nonfinite=True)
     if precision is not None:
         ops = ("spmm", "sddmm") + (("attention",) if impl in _PLAN_IMPLS
                                    else ())
@@ -402,8 +420,15 @@ class _SpmmAD(torch.autograd.Function):
         ctx.impl, ctx.plan = impl, plan
         ctx.save_for_backward(vals, b)
         # masked entries are structural zeros
-        return _run_spmm(impl, plan, vals * plan.fwd.mask, b,
-                         transposed=False, precision=plan.precision)
+        vals_m = vals * plan.fwd.mask
+        out = _run_spmm(impl, plan, vals_m, b, transposed=False,
+                        precision=plan.precision)
+        if not plan.guard_nonfinite:
+            return out
+        return _dispatch.rescue_nonfinite(
+            "spmm", impl, plan.precision, out,
+            lambda: _run_spmm(impl, plan, vals_m, b, transposed=False,
+                              precision="fp32"))
 
     @staticmethod
     def backward(ctx, g):

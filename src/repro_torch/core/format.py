@@ -221,21 +221,27 @@ class Schedule:
 
 def from_coo(rows, cols, vals, shape: Tuple[int, int], vector_size: int = 8,
              dtype: torch.dtype = torch.float32, *,
-             duplicates: str = "sum") -> MEBCRS:
+             duplicates: str = "sum", check: Optional[str] = None) -> MEBCRS:
     """Build ME-BCRS (on the CPU) from COO triplets.
 
-    ``duplicates="sum"`` coalesces repeated ``(row, col)`` coordinates;
-    ``"error"`` raises a ``duplicate-coords`` :class:`ValidationError`.
+    ``duplicates="sum"`` coalesces repeated ``(row, col)`` coordinates
+    (at ``check="full"`` a ``ValidationWarning`` says how many);
+    ``"error"`` raises a ``duplicate-coords`` :class:`ValidationError`, the
+    setting for triplets from an external producer.  ``check`` follows
+    :func:`~repro_torch.core.validate.resolve_check` (``None`` → ambient
+    level); the built format is audited at that level before it is
+    returned.
     """
     if duplicates not in ("sum", "error"):
         raise ValueError(f"duplicates must be 'sum' or 'error', "
                          f"got {duplicates!r}")
+    level = _validate.resolve_check(check)
     m, k = shape
     v = vector_size
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     vals = np.asarray(vals)
-    _validate.check_coo(rows, cols, shape, duplicates)
+    _validate.check_coo(rows, cols, shape, duplicates, level)
 
     w = -(-m // v)
     win = rows // v
@@ -258,7 +264,7 @@ def from_coo(rows, cols, vals, shape: Tuple[int, int], vector_size: int = 8,
     np.add.at(row_pointers, vec_win + 1, 1)
     row_pointers = np.cumsum(row_pointers, dtype=np.int32)
 
-    return MEBCRS(
+    fmt = MEBCRS(
         row_pointers=torch.from_numpy(row_pointers),
         column_indices=torch.from_numpy(vec_col),
         values=torch.from_numpy(values).to(dtype),
@@ -266,6 +272,9 @@ def from_coo(rows, cols, vals, shape: Tuple[int, int], vector_size: int = 8,
         shape=(m, k),
         vector_size=v,
     )
+    if level != "none":
+        _validate.validate_format(fmt, check=level)
+    return fmt
 
 
 def from_dense(a, vector_size: int = 8, dtype=None) -> MEBCRS:
@@ -363,16 +372,20 @@ def window_skew(fmt) -> float:
     return float(max(np.percentile(counts, 99) / mean, 1.0))
 
 
-def block_format(fmt: MEBCRS, k_blk: int = 8, *,
-                 device=None) -> BlockedMEBCRS:
+def block_format(fmt: MEBCRS, k_blk: int = 8, *, device=None,
+                 check: Optional[str] = None) -> BlockedMEBCRS:
     """Pad each window's vectors to a multiple of ``k_blk`` → blocked view
     on ``device`` (the card unless ``device`` says otherwise).
 
     Padding vectors get value 0, mask False and column 0, so their product
     contributes nothing (the paper's arithmetic elimination of the last
-    block's residue, resolved at translation time).
+    block's residue, resolved at translation time).  ``check`` audits the
+    input format and the blocked view (``None`` → ambient level).
     """
     device = resolve_device(device)
+    level = _validate.resolve_check(check)
+    if level != "none":
+        _validate.validate_format(fmt, check=level)
     _validate.check_block_config(k_blk)
     rp = fmt.row_pointers.cpu().numpy().astype(np.int64)
     counts = np.diff(rp)
@@ -402,23 +415,31 @@ def block_format(fmt: MEBCRS, k_blk: int = 8, *,
     cols[dst] = fmt.column_indices.cpu()
     mask[dst] = fmt.mask.cpu()
 
-    return BlockedMEBCRS(
+    blocked = BlockedMEBCRS(
         vals=vals, cols=cols, mask=mask,
         block_win=torch.from_numpy(block_win),
         win_ptr=torch.from_numpy(win_ptr),
         shape=fmt.shape, vector_size=v, k_blk=k_blk,
-    ).to(device)
+    )
+    if level != "none":
+        _validate.validate_blocked(blocked, check=level)
+    return blocked.to(device)
 
 
-def build_schedule(blocked: BlockedMEBCRS, split_blk: int = 1) -> Schedule:
+def build_schedule(blocked: BlockedMEBCRS, split_blk: int = 1,
+                   check: Optional[str] = None) -> Schedule:
     """Split windows into segments of at most ``split_blk`` K-blocks; an
     empty window keeps one zero-length store-only segment.
 
     ``split_blk = 0`` disables splitting: one segment per window, the
     window-parallel assignment in schedule form.  Host-side numpy, like
-    :func:`block_format`; the schedule lands on ``blocked``'s device and is
-    checked by :func:`~repro_torch.core.validate.check_schedule`.
+    :func:`block_format`; the schedule lands on ``blocked``'s device.
+    ``check`` audits the input view and the built schedule against it
+    (``None`` → ambient level).
     """
+    level = _validate.resolve_check(check)
+    if level != "none":
+        _validate.validate_blocked(blocked, check=level)
     if split_blk < 0:
         raise ValueError(f"split_blk must be >= 0, got {split_blk}")
     wp = blocked.win_ptr.cpu().numpy().astype(np.int64)
@@ -451,5 +472,6 @@ def build_schedule(blocked: BlockedMEBCRS, split_blk: int = 1) -> Schedule:
         split_blk=split_blk,
         num_blocks=int(wp[-1]),
     )
-    _validate.check_schedule(sched, wp)
+    if level != "none":
+        _validate.validate_schedule(sched, blocked, check=level)
     return sched.to(blocked.win_ptr.device)

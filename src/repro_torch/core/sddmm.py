@@ -20,10 +20,11 @@ import math
 import torch
 
 from . import dispatch as _dispatch
+from . import validate as _validate
 from .format import BlockedMEBCRS, block_format, to_coo
 from .quantize import cast_precision
 from .softmax import sparse_softmax
-from .spmm import _optional, _spmm_blocked_impl
+from .spmm import _optional, _robust, _spmm_blocked_impl
 
 __all__ = ["sddmm", "sddmm_blocked", "sddmm_dense_ref", "sddmm_coo",
            "attention", "with_values"]
@@ -80,7 +81,8 @@ def sddmm_coo(rows: torch.Tensor, cols: torch.Tensor, q: torch.Tensor,
 def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
           k_blk: int = 8, f_blk: int | None = None,
           split_blk: int | None = None, schedule=None,
-          precision: str | None = None):
+          precision: str | None = None, check: str | None = None,
+          strict: bool | None = None, guard_nonfinite: bool = False):
     """SDDMM dispatch through the registry → blocked-layout values.
 
     Compose with SpMM by rebinding the values (:func:`with_values`).
@@ -88,10 +90,17 @@ def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
     kernel; ``precision`` (``"fp32"``/``"bf16"``) casts Q and K first.
     The tuned impl (``cuda_tuned``, ``returns_format``) takes the
     canonical format and returns the blocked view at its tuned ``k_blk``
-    with the scores bound as its values.
+    with the scores bound as its values.  ``check``, ``strict`` and
+    ``guard_nonfinite`` as in :func:`~repro_torch.core.spmm.spmm` (Q and
+    K guarded).
     """
-    entry = _dispatch.require("sddmm", impl, precision=precision)
+    _validate.guard_call(check, fmt, q=q, k=k)
     kwargs = _optional(f_blk=f_blk, split_blk=split_blk, schedule=schedule)
+    if strict is not None or guard_nonfinite:
+        return _robust("sddmm", impl, (fmt, q, k),
+                       dict(k_blk=k_blk, **kwargs), precision, strict,
+                       guard_nonfinite)
+    entry = _dispatch.require("sddmm", impl, precision=precision)
     if entry.needs_canonical:       # the impl applies the level itself
         kwargs.update(_optional(precision=precision))
     else:
@@ -102,14 +111,26 @@ def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
 def attention(fmt, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               impl: str = "blocked", *, scale=None, k_blk: int = 8,
               split_blk: int | None = None, schedule=None,
-              precision: str | None = None):
+              n_blk: int | None = None, precision: str | None = None,
+              check: str | None = None, strict: bool | None = None,
+              guard_nonfinite: bool = False):
     """Sparse attention ``softmax_sparse(scale · mask ⊙ QKᵀ) @ V`` through
     the registry (``dispatch.impls("attention")``).  ``scale`` defaults to
     ``1/sqrt(F)`` and may be a 0-d tensor; ``split_blk``/``schedule`` go to
-    the block-parallel ``cuda_balanced`` kernel; ``precision``
-    (``"fp32"``/``"bf16"``) casts Q, K and V first."""
+    the block-parallel ``cuda_balanced`` kernel, ``n_blk`` to the SpMM of
+    the three-pass ``cuda_staged``; ``precision`` (``"fp32"``/``"bf16"``)
+    casts Q, K and V first.  ``"blocked"`` is the plain three-pass
+    composition, the last rung of the fallback ladder.  ``check``,
+    ``strict`` and ``guard_nonfinite`` as in
+    :func:`~repro_torch.core.spmm.spmm` (Q, K and V guarded)."""
+    _validate.guard_call(check, fmt, q=q, k=k, v=v)
+    kwargs = _optional(scale=scale, split_blk=split_blk, schedule=schedule,
+                       n_blk=n_blk)
+    if strict is not None or guard_nonfinite:
+        return _robust("attention", impl, (fmt, q, k, v),
+                       dict(k_blk=k_blk, **kwargs), precision, strict,
+                       guard_nonfinite)
     entry = _dispatch.require("attention", impl, precision=precision)
-    kwargs = _optional(scale=scale, split_blk=split_blk, schedule=schedule)
     if entry.needs_canonical:       # the impl applies the level itself
         kwargs.update(_optional(precision=precision))
     else:
@@ -167,3 +188,15 @@ _dispatch.register("sddmm", "coo", _sddmm_coo_adapter)
 _dispatch.register("attention", "blocked", _attention_blocked_adapter,
                    differentiable=True, batched=True,
                    precisions=("fp32", "bf16"))
+
+
+def _dense_at_precision(args, precision: str, k_blk: int):
+    """``(fmt, *dense)`` with the dense operands cast to ``precision``, as
+    :func:`sddmm` and :func:`attention` cast them (the fallback ladder's
+    hook)."""
+    del k_blk  # the format is not touched
+    return (args[0], *cast_precision(precision, *args[1:]))
+
+
+_dispatch.register_precision("sddmm", _dense_at_precision)
+_dispatch.register_precision("attention", _dense_at_precision)

@@ -26,6 +26,7 @@ import dataclasses
 import torch
 
 from . import dispatch as _dispatch
+from . import validate as _validate
 from .format import BlockedMEBCRS, block_format, to_coo
 from .quantize import (dequantize_block_values, quantize_block_values,
                        validate_precision)
@@ -132,9 +133,36 @@ def _optional(**kwargs) -> dict:
     return {key: val for key, val in kwargs.items() if val is not None}
 
 
+def _spmm_at_precision(args, precision: str, k_blk: int):
+    """``(fmt, b)`` at ``precision``, as :func:`spmm` casts them (the
+    fallback ladder's hook, :func:`~repro_torch.core.dispatch.
+    register_precision`)."""
+    fmt, b = args
+    blocked = (fmt if isinstance(fmt, BlockedMEBCRS)
+               else block_format(fmt, k_blk, device=b.device))
+    return apply_precision(blocked, b, precision)
+
+
+def _robust(op: str, impl: str, operands, kwargs: dict, precision,
+           strict, guard_nonfinite: bool):
+    """The entry points' opt-in path through
+    :func:`~repro_torch.core.dispatch.robust_dispatch`, as the
+    reference's: ``require(precision=...)`` only when ``strict`` is
+    ``None``, and ``guard_nonfinite`` alone means strict (no silent
+    degradation, only the fp32 rescue)."""
+    if precision is not None and strict is None:
+        _dispatch.require(op, impl, precision=precision)
+    return _dispatch.robust_dispatch(
+        op, impl, *operands, strict=True if strict is None else bool(strict),
+        guard_nonfinite=guard_nonfinite,
+        **kwargs, **_optional(precision=precision))
+
+
 def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
          n_blk: int | None = None, split_blk: int | None = None,
-         schedule=None, precision: str | None = None) -> torch.Tensor:
+         schedule=None, precision: str | None = None,
+         check: str | None = None, strict: bool | None = None,
+         guard_nonfinite: bool = False) -> torch.Tensor:
     """SpMM dispatch through the registry (``dispatch.impls("spmm")``).
 
     ``fmt`` is the canonical :class:`~repro_torch.core.format.MEBCRS`
@@ -145,15 +173,28 @@ def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
     ``"bf16"``, ``"int8"``; ``None`` = operand dtypes as given) is checked
     against the impl's ``precisions``; the result is in B's dtype after
     the cast (bf16 for bf16 and int8).
+
+    The hardened runtime (DESIGN.md §15): ``check`` audits ``fmt`` and
+    guards ``b`` first (``None`` → ambient
+    :func:`~repro_torch.core.validate.check_level`, by default ``"none"``:
+    no validation code runs).  ``strict``/``guard_nonfinite`` go through
+    :func:`~repro_torch.core.dispatch.robust_dispatch`: ``strict=False``
+    degrades down the fallback ladder when the impl fails (one
+    ``FallbackWarning``), ``strict=True`` re-raises the impl's error, and
+    ``guard_nonfinite=True`` re-runs a bf16/int8 call at fp32 when its
+    output is not finite and returns fp32.  ``strict=None`` (the default)
+    with no guard is the plain dispatch.
     """
-    entry = _dispatch.require("spmm", impl, precision=precision)
+    _validate.guard_call(check, fmt, b=b)
     kwargs = _optional(n_blk=n_blk, split_blk=split_blk, schedule=schedule)
+    if strict is not None or guard_nonfinite:
+        return _robust("spmm", impl, (fmt, b), dict(k_blk=k_blk, **kwargs),
+                      precision, strict, guard_nonfinite)
+    entry = _dispatch.require("spmm", impl, precision=precision)
     if entry.needs_canonical:       # the impl applies the level itself
         kwargs.update(_optional(precision=precision))
     elif precision is not None:
-        blocked = (fmt if isinstance(fmt, BlockedMEBCRS)
-                   else block_format(fmt, k_blk, device=b.device))
-        fmt, b = apply_precision(blocked, b, precision)
+        fmt, b = _spmm_at_precision((fmt, b), precision, k_blk)
     return _dispatch.dispatch("spmm", impl, fmt, b, k_blk=k_blk, **kwargs)
 
 
@@ -181,3 +222,4 @@ _dispatch.register("spmm", "blocked", _spmm_blocked_adapter,
                    differentiable=True, batched=True,
                    precisions=("fp32", "bf16", "int8"))
 _dispatch.register("spmm", "coo_segment", _spmm_coo_adapter)
+_dispatch.register_precision("spmm", _spmm_at_precision)

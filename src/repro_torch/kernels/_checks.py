@@ -1,8 +1,11 @@
 """Input checks shared by the kernel wrappers.
 
-A wrapper runs its plain PyTorch version when every tensor lies on the
+A wrapper checks its arguments first (vector size, operand ranks and
+shapes, column tile, head count and grid limits, the schedule's owner),
+so the CPU and the card refuse the same arguments with the same message.
+Then it runs its plain PyTorch version when every tensor lies on the
 CPU, launches its kernel when every tensor lies on one CUDA device, and
-raises on anything the kernel does not take: a combination of dtypes that
+raises on anything else the kernel does not take: a combination of dtypes that
 is not one of its variants (the kernels never cast), non-contiguous
 tensors, non-int32 indices, or mixed devices.  Every wrapper takes
 float32 and bfloat16 operands, and every SpMM but the staged baseline
@@ -18,7 +21,8 @@ import torch
 from repro_torch.core.autodiff import forward_only
 
 __all__ = ["on_cpu", "forward_inputs", "kernel_inputs", "heads",
-           "head_stride", "int32_max", "dtype_code", "variant"]
+           "head_stride", "int32_max", "dtype_code", "variant",
+           "vector_size", "column_tile"]
 
 int32_max = 2**31 - 1
 
@@ -65,6 +69,37 @@ def on_cpu(op: str, **tensors: torch.Tensor) -> bool:
                          f"one CUDA device, got "
                          f"{ {k: str(t.device) for k, t in tensors.items()} }")
     return False
+
+
+def vector_size(op: str, blocked) -> int:
+    """``blocked``'s vector size V, raising unless the kernels take it
+    (8 or 16)."""
+    v = blocked.vector_size
+    if v not in (8, 16):
+        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
+    return v
+
+
+def schedule_owner(op: str, schedule, blocked) -> None:
+    """Raise unless ``schedule`` schedules ``blocked``'s blocks: as many
+    as the view holds, or none for the all-empty view, whose one dummy
+    block no window owns (told apart from a one-block view by one read of
+    ``win_ptr``, made only for a zero-block schedule)."""
+    nb = blocked.num_blocks
+    if schedule.num_blocks == nb or (
+            schedule.num_blocks == 0 and nb == 1
+            and int(blocked.win_ptr[-1]) == 0):
+        return
+    raise ValueError(f"{op}: the schedule is not this view's "
+                     f"({schedule.num_blocks} scheduled blocks, "
+                     f"{nb} in the view)")
+
+
+def column_tile(op: str, n_blk: int, hi: int) -> None:
+    """Raise unless ``n_blk`` is a multiple of 32 in ``[32, hi]``."""
+    if not (n_blk % 32 == 0 and 32 <= n_blk <= hi):
+        raise ValueError(f"{op}: n_blk={n_blk} must be a multiple of 32 in "
+                         f"[32, {hi}]")
 
 
 def kernel_inputs(op: str, indices: dict, dense: dict) -> None:

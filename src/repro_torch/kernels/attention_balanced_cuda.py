@@ -123,17 +123,8 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     else:
         _checks.forward_inputs(op, VARIANTS, q=q, k=k, v=v)
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2), v=(v, 2))
-    if _checks.on_cpu(op, seg_win=schedule.seg_win,
-                      seg_meta=schedule.seg_meta, cols=blocked.cols,
-                      mask=blocked.mask, q=q, k=k, v=v):
-        return attention_balanced_plain(blocked, q, k, v, schedule, scale,
-                                        run_blk)
-    plan = run_plan(op, schedule, blocked.num_windows, run_blk)
-    tree = plan.tree
     m, mc = blocked.shape
-    vsz = blocked.vector_size
-    if vsz not in (8, 16):
-        raise ValueError(f"{op}: vector_size {vsz} not in (8, 16)")
+    vsz = _checks.vector_size(op, blocked)
     if blocked.mask.dtype != torch.bool:
         raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
     if (q.shape[-2] != m or k.shape[-2] != mc or v.shape[-2] != mc
@@ -141,8 +132,17 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
         raise ValueError(f"{op}: need q ([H,] {m}, D), k ([H,] {mc}, D), "
                          f"v ([H,] {mc}, DV); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    # raises when the schedule is another view's (memoized on it)
+    plan = run_plan(op, schedule, blocked.num_windows, run_blk)
+    _checks.schedule_owner(op, schedule, blocked)
     if max(m, plan.num_runs) > _checks.int32_max or h > 65535:
         raise ValueError(f"{op}: shape too large for the kernel's grid")
+    if _checks.on_cpu(op, seg_win=schedule.seg_win,
+                      seg_meta=schedule.seg_meta, cols=blocked.cols,
+                      mask=blocked.mask, q=q, k=k, v=v):
+        return attention_balanced_plain(blocked, q, k, v, schedule, scale,
+                                        run_blk)
+    tree = plan.tree
     d, dv = q.shape[-1], v.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)

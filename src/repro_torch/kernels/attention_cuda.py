@@ -41,6 +41,7 @@ from repro_torch.core.sddmm import attention_staged, with_values
 from repro_torch.core.softmax import sparse_softmax
 
 from . import _build, _checks
+from ._window import MAX_THREADS
 from .sddmm_batched_cuda import sddmm_batched_cuda
 from .spmm_batched_cuda import spmm_batched_cuda
 
@@ -117,14 +118,8 @@ def attention_cuda(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
     else:
         _checks.forward_inputs(op, VARIANTS, q=q, k=k, v=v)
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2), v=(v, 2))
-    tensors = dict(win_ptr=blocked.win_ptr, cols=blocked.cols,
-                   mask=blocked.mask, q=q, k=k, v=v)
-    if _checks.on_cpu(op, **tensors):
-        return attention_plain(blocked, q, k, v, scale)
     m, mc = blocked.shape
-    vsz = blocked.vector_size
-    if vsz not in (8, 16):
-        raise ValueError(f"{op}: vector_size {vsz} not in (8, 16)")
+    vsz = _checks.vector_size(op, blocked)
     if blocked.mask.dtype != torch.bool:
         raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
     if (q.shape[-2] != m or k.shape[-2] != mc or v.shape[-2] != mc
@@ -134,6 +129,10 @@ def attention_cuda(blocked: BlockedMEBCRS, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if h > 65535:
         raise ValueError(f"{op}: {h} heads, the kernel's grid takes 65,535")
+    tensors = dict(win_ptr=blocked.win_ptr, cols=blocked.cols,
+                   mask=blocked.mask, q=q, k=k, v=v)
+    if _checks.on_cpu(op, **tensors):
+        return attention_plain(blocked, q, k, v, scale)
     d, dv, k_blk = q.shape[-1], v.shape[-1], blocked.k_blk
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -170,18 +169,21 @@ attention_cuda.variant_launches = {"fp32": 0, "bf16": 0}
 
 def attention_cuda_staged(blocked: BlockedMEBCRS, q: torch.Tensor,
                           k: torch.Tensor, v: torch.Tensor, *,
-                          scale=None) -> torch.Tensor:
+                          scale=None, n_blk: int = 128) -> torch.Tensor:
     """The three-pass attention of the kernels: the batched SDDMM, the
     sparse softmax (plain PyTorch, as the reference's is XLA), then the
-    batched SpMM, one launch each for every head; operands and result as
-    :func:`attention_cuda`.  The (``[H,]`` NNZP, V) scores and
-    probabilities pass through device memory: the traffic the fused kernel
-    keeps on chip.  bf16 operands run the kernels' bf16 variants; the
-    softmax runs in fp32 and the probabilities go to V's dtype."""
+    batched SpMM at column tile ``n_blk``, one launch each for every head;
+    operands and result as :func:`attention_cuda`.  The (``[H,]`` NNZP, V)
+    scores and probabilities pass through device memory: the traffic the
+    fused kernel keeps on chip.  bf16 operands run the kernels' bf16
+    variants; the softmax runs in fp32 and the probabilities go to V's
+    dtype.  A tile the SpMM refuses is refused before the SDDMM runs."""
+    _checks.column_tile("attention_cuda_staged", n_blk, MAX_THREADS)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scores = sddmm_batched_cuda(blocked, q, k)
     # the softmax in fp32 whatever the scores' dtype, as the reference's
     # (attention_pallas.py:443); the probabilities in V's
     probs = sparse_softmax(blocked, scores.float() * scale)
-    return spmm_batched_cuda(with_values(blocked, probs.to(v.dtype)), v)
+    return spmm_batched_cuda(with_values(blocked, probs.to(v.dtype)), v,
+                             n_blk=n_blk)

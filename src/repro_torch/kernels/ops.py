@@ -186,9 +186,10 @@ def _sddmm_batched_adapter(fmt, q, k, *, k_blk: int = 8, f_blk=None):
     return sddmm_batched_cuda(_ensure_blocked(fmt, k_blk, q.device), q, k)
 
 
-def _attention_staged_adapter(fmt, q, k, v, *, scale=None, k_blk: int = 8):
+def _attention_staged_adapter(fmt, q, k, v, *, scale=None, k_blk: int = 8,
+                              n_blk: int = 128):
     return attention_cuda_staged(_ensure_blocked(fmt, k_blk, q.device), q, k,
-                                 v, scale=scale)
+                                 v, scale=scale, n_blk=n_blk)
 
 
 def _spmm_balanced_adapter(fmt, b, *, k_blk: int = 8, n_blk: int = 128,
@@ -270,13 +271,13 @@ _dispatch.register("attention", "cuda_staged", _attention_staged_adapter,
 # Block-parallel load-balanced impls (DESIGN.md §11): uniform-segment grids
 # driven by a host-built Schedule, for skewed matrices.
 _dispatch.register("spmm", "cuda_balanced", _spmm_balanced_adapter,
-                   differentiable=True, batched=True,
+                   differentiable=True, batched=True, load_balanced=True,
                    precisions=("fp32", "bf16", "int8"))
 _dispatch.register("sddmm", "cuda_balanced", _sddmm_balanced_adapter,
-                   differentiable=True, batched=True,
+                   differentiable=True, batched=True, load_balanced=True,
                    precisions=("fp32", "bf16"))
 _dispatch.register("attention", "cuda_balanced", _attention_balanced_adapter,
-                   differentiable=True, batched=True,
+                   differentiable=True, batched=True, load_balanced=True,
                    precisions=("fp32", "bf16"))
 # The SpMM baselines of the paper's ablations (forward only).
 _dispatch.register("spmm", "cuda_staged", _spmm_staged_adapter,

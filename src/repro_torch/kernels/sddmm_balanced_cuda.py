@@ -69,10 +69,21 @@ def sddmm_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
         schedule = blocked.schedule(split_blk)
     _checks.forward_inputs(op, VARIANTS, q=q, k=k)
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2))
+    m, mc = blocked.shape
+    v = _checks.vector_size(op, blocked)
+    if blocked.mask.dtype != torch.bool:
+        raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
+    if q.shape[-2] != m or k.shape[-2] != mc or q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"{op}: need q ([H,] {m}, F) and k ([H,] {mc}, F), "
+                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    if max(m, mc, q.shape[-1], schedule.num_blocks) > _checks.int32_max \
+            or h > 65535:
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
+    _checks.schedule_owner(op, schedule, blocked)
     if schedule.num_blocks == 0:
-        # A zero-block schedule (the all-empty matrix): zeros without a
+        # The all-empty view's zero-block schedule: zeros without a
         # launch, as the reference.
-        out = torch.zeros((h, blocked.cols.shape[0], blocked.vector_size),
+        out = torch.zeros((h, blocked.cols.shape[0], v),
                           dtype=q.dtype, device=q.device)
         return out if batched else out[0]
     tensors = dict(blk_id=schedule.blk_id, blk_win=schedule.blk_win,
@@ -82,23 +93,7 @@ def sddmm_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     _checks.kernel_inputs(
         op, {k_: tensors[k_] for k_ in ("blk_id", "blk_win", "cols")},
         {"mask": blocked.mask, "q": q, "k": k})
-    m, mc = blocked.shape
-    v = blocked.vector_size
-    if v not in (8, 16):
-        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
-    if blocked.mask.dtype != torch.bool:
-        raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
-    if q.shape[-2] != m or k.shape[-2] != mc or q.shape[-1] != k.shape[-1]:
-        raise ValueError(f"{op}: need q ([H,] {m}, F) and k ([H,] {mc}, F), "
-                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
     nnzp = blocked.cols.shape[0]
-    if max(m, mc, q.shape[-1], schedule.num_blocks) > _checks.int32_max \
-            or h > 65535:
-        raise ValueError(f"{op}: shape too large for the kernel's grid")
-    if schedule.num_blocks != blocked.num_blocks:
-        raise ValueError(f"{op}: the schedule is not this view's "
-                         f"({schedule.num_blocks} scheduled blocks, "
-                         f"{blocked.num_blocks} in the view)")
     # every block of a non-empty view is scheduled, so every row is written
     out = torch.empty((h, nnzp, v), dtype=q.dtype, device=q.device)
     err = _build.library("sddmm_balanced").sddmm_balanced_launch(

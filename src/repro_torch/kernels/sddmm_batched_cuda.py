@@ -48,6 +48,16 @@ def sddmm_batched_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     h, batched = _checks.heads(op, q=(q, 2), k=(k, 2))
     if not batched:
         return sddmm_cuda(blocked, q, k)
+    m, mc = blocked.shape
+    v = _checks.vector_size(op, blocked)
+    if blocked.mask.dtype != torch.bool:
+        raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
+    if q.shape[-2] != m or k.shape[-2] != mc or q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"{op}: need q ([H,] {m}, F) and k ([H,] {mc}, F), "
+                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    if (max(m, mc, q.shape[-1], blocked.num_blocks) > _checks.int32_max
+            or h > 65535):
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
     tensors = dict(block_win=blocked.block_win, cols=blocked.cols,
                    mask=blocked.mask, q=q, k=k)
     if _checks.on_cpu(op, **tensors):
@@ -55,19 +65,7 @@ def sddmm_batched_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     _checks.kernel_inputs(op, {"block_win": blocked.block_win,
                                "cols": blocked.cols},
                           {"mask": blocked.mask, "q": q, "k": k})
-    m, mc = blocked.shape
-    v = blocked.vector_size
-    if v not in (8, 16):
-        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
-    if blocked.mask.dtype != torch.bool:
-        raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
-    if q.shape[-2] != m or k.shape[-2] != mc or q.shape[-1] != k.shape[-1]:
-        raise ValueError(f"{op}: need q ([H,] {m}, F) and k ([H,] {mc}, F), "
-                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
     nnzp = blocked.cols.shape[0]
-    if (max(m, mc, q.shape[-1], blocked.num_blocks) > _checks.int32_max
-            or h > 65535):
-        raise ValueError(f"{op}: shape too large for the kernel's grid")
     out = torch.empty((h, nnzp, v), dtype=q.dtype, device=q.device)
     err = _build.library("sddmm_batched").sddmm_batched_launch(
         blocked.block_win.data_ptr(), blocked.cols.data_ptr(), q.data_ptr(),

@@ -40,6 +40,16 @@ def sddmm_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     ``(NNZP, V)`` in Q's dtype."""
     op = "sddmm_cuda"
     _checks.forward_inputs(op, VARIANTS, q=q, k=k)
+    m, mc = blocked.shape
+    v = _checks.vector_size(op, blocked)
+    if blocked.mask.dtype != torch.bool:
+        raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
+    if q.dim() != 2 or k.dim() != 2 or q.shape[0] != m or k.shape[0] != mc \
+            or q.shape[1] != k.shape[1]:
+        raise ValueError(f"{op}: need q ({m}, F) and k ({mc}, F), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if max(m, mc, q.shape[1], blocked.num_blocks) > _checks.int32_max:
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
     tensors = dict(block_win=blocked.block_win, cols=blocked.cols,
                    mask=blocked.mask, q=q, k=k)
     if _checks.on_cpu(op, **tensors):
@@ -47,19 +57,7 @@ def sddmm_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     _checks.kernel_inputs(op, {"block_win": blocked.block_win,
                                "cols": blocked.cols},
                           {"mask": blocked.mask, "q": q, "k": k})
-    m, mc = blocked.shape
-    v = blocked.vector_size
-    if v not in (8, 16):
-        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
-    if blocked.mask.dtype != torch.bool:
-        raise TypeError(f"{op}: mask must be bool, got {blocked.mask.dtype}")
-    if q.dim() != 2 or k.dim() != 2 or q.shape[0] != m or k.shape[0] != mc \
-            or q.shape[1] != k.shape[1]:
-        raise ValueError(f"{op}: need q ({m}, F) and k ({mc}, F), got "
-                         f"{tuple(q.shape)} and {tuple(k.shape)}")
     nnzp = blocked.cols.shape[0]
-    if max(m, mc, q.shape[1], blocked.num_blocks) > _checks.int32_max:
-        raise ValueError(f"{op}: shape too large for the kernel's grid")
     out = torch.empty((nnzp, v), dtype=q.dtype, device=q.device)
     err = _build.library("sddmm").sddmm_launch(
         blocked.block_win.data_ptr(), blocked.cols.data_ptr(), q.data_ptr(),

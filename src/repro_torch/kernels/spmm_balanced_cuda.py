@@ -113,33 +113,31 @@ def spmm_balanced_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
         schedule = blocked.schedule(split_blk)
     scales = _variant_inputs(op, blocked, b)
     h, batched = _checks.heads(op, vals=(blocked.vals, 2), b=(b, 2))
+    m, k = blocked.shape
+    v = _checks.vector_size(op, blocked)
+    if b.shape[-2] != k:
+        raise ValueError(f"{op}: b must be ([H,] {k}, N), got {tuple(b.shape)}")
+    _checks.column_tile(op, n_blk, MAX_TILE)
+    # raises when the schedule is another view's (memoized on it)
+    plan = run_plan(op, schedule, blocked.num_windows, run_blk)
+    _checks.schedule_owner(op, schedule, blocked)
+    n = b.shape[-1]
+    n_tile = min(n_blk, max(32, -(-n // 32) * 32))
+    if (max(m, n, plan.num_runs) > _checks.int32_max
+            or -(-n // n_tile) > 65535 or h > 65535):
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
     tensors = dict(seg_win=schedule.seg_win, seg_meta=schedule.seg_meta,
                    cols=blocked.cols, vals=blocked.vals, b=b)
     if scales is not None:
         tensors["scales"] = scales
     if _checks.on_cpu(op, **tensors):
         return spmm_balanced_plain(blocked, b, schedule, run_blk)
-    plan = run_plan(op, schedule, blocked.num_windows, run_blk)
     tree = plan.tree
     _checks.kernel_inputs(
         op, {"run_ptr": plan.run_ptr, "pieces": plan.pieces,
              "tree_meta": tree.meta, "cols": blocked.cols},
         {k_: t for k_, t in tensors.items()
          if k_ in ("vals", "b", "scales")})
-    m, k = blocked.shape
-    v = blocked.vector_size
-    if v not in (8, 16):
-        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
-    if b.shape[-2] != k:
-        raise ValueError(f"{op}: b must be ([H,] {k}, N), got {tuple(b.shape)}")
-    if not (n_blk % 32 == 0 and 32 <= n_blk <= MAX_TILE):
-        raise ValueError(f"{op}: n_blk={n_blk} must be a multiple of 32 in "
-                         f"[32, {MAX_TILE}]")
-    n = b.shape[-1]
-    n_tile = min(n_blk, max(32, -(-n // 32) * 32))
-    if (max(m, n, plan.num_runs) > _checks.int32_max
-            or -(-n // n_tile) > 65535 or h > 65535):
-        raise ValueError(f"{op}: shape too large for the kernel's grid")
     c = torch.empty((h, m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c if batched else c[0]

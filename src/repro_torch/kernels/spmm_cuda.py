@@ -78,6 +78,15 @@ def spmm_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
     split."""
     op = "spmm_cuda"
     scales = _variant_inputs(op, blocked, b)
+    m, k = blocked.shape
+    v = _checks.vector_size(op, blocked)
+    if b.dim() != 2 or b.shape[0] != k:
+        raise ValueError(f"{op}: b must be ({k}, N), got {tuple(b.shape)}")
+    _checks.column_tile(op, n_blk, MAX_THREADS)
+    n = b.shape[1]
+    n_tile = min(n_blk, max(32, -(-n // 32) * 32))
+    if max(m, n) > _checks.int32_max or -(-n // n_tile) > 65535:
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
     tensors = dict(win_ptr=blocked.win_ptr, cols=blocked.cols,
                    vals=blocked.vals, b=b)
     if scales is not None:
@@ -87,19 +96,6 @@ def spmm_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
     _checks.kernel_inputs(op, {"win_ptr": blocked.win_ptr, "cols": blocked.cols},
                           {k: t for k, t in tensors.items()
                            if k not in ("win_ptr", "cols")})
-    m, k = blocked.shape
-    v = blocked.vector_size
-    if v not in (8, 16):
-        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
-    if b.dim() != 2 or b.shape[0] != k:
-        raise ValueError(f"{op}: b must be ({k}, N), got {tuple(b.shape)}")
-    if not (n_blk % 32 == 0 and 32 <= n_blk <= MAX_THREADS):
-        raise ValueError(f"{op}: n_blk={n_blk} must be a multiple of 32 in "
-                         f"[32, {MAX_THREADS}]")
-    n = b.shape[1]
-    n_tile = min(n_blk, max(32, -(-n // 32) * 32))
-    if max(m, n) > _checks.int32_max or -(-n // n_tile) > 65535:
-        raise ValueError(f"{op}: shape too large for the kernel's grid")
     c = torch.empty((m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c

@@ -50,6 +50,10 @@ def spmm_noncoalesced_cuda(blocked: BlockedMEBCRS,
     if blocked.vals.dim() != 2 or b.dim() != 2 or b.shape[0] != k:
         raise ValueError(f"{op}: need vals (NNZP, V) and b ({k}, N), got "
                          f"{tuple(blocked.vals.shape)} and {tuple(b.shape)}")
+    v = _checks.vector_size(op, blocked)
+    n = b.shape[1]
+    if max(m, n) > _checks.int32_max or -(-n // 4) > 65535:
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
     tensors = dict(win_ptr=blocked.win_ptr, cols=blocked.cols,
                    vals=blocked.vals, b=b)
     if scales is not None:
@@ -59,12 +63,6 @@ def spmm_noncoalesced_cuda(blocked: BlockedMEBCRS,
     _checks.kernel_inputs(op, {"win_ptr": blocked.win_ptr, "cols": blocked.cols},
                           {k_: t for k_, t in tensors.items()
                            if k_ not in ("win_ptr", "cols")})
-    v = blocked.vector_size
-    if v not in (8, 16):
-        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
-    n = b.shape[1]
-    if max(m, n) > _checks.int32_max or -(-n // 4) > 65535:
-        raise ValueError(f"{op}: shape too large for the kernel's grid")
     c = torch.empty((m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c

@@ -69,23 +69,19 @@ def spmm_staged_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
     if blocked.vals.dim() != 2 or b.dim() != 2 or b.shape[0] != k:
         raise ValueError(f"{op}: need vals (NNZP, V) and b ({k}, N), got "
                          f"{tuple(blocked.vals.shape)} and {tuple(b.shape)}")
+    v = _checks.vector_size(op, blocked)
+    _checks.column_tile(op, n_blk, 1024)
+    n = b.shape[1]
+    n_tile = min(n_blk, max(32, -(-n // 32) * 32))
+    if (max(m, n, blocked.num_blocks) > _checks.int32_max
+            or -(-n // n_tile) > 65535):
+        raise ValueError(f"{op}: shape too large for the kernel's grid")
     if _checks.on_cpu(op, block_win=blocked.block_win, cols=blocked.cols,
                       vals=blocked.vals, b=b):
         return spmm_staged_plain(blocked, b)
     _checks.kernel_inputs(op, {"block_win": blocked.block_win,
                                "cols": blocked.cols},
                           {"vals": blocked.vals, "b": b})
-    v = blocked.vector_size
-    if v not in (8, 16):
-        raise ValueError(f"{op}: vector_size {v} not in (8, 16)")
-    if not (n_blk % 32 == 0 and 32 <= n_blk <= 1024):
-        raise ValueError(f"{op}: n_blk={n_blk} must be a multiple of 32 in "
-                         "[32, 1024]")
-    n = b.shape[1]
-    n_tile = min(n_blk, max(32, -(-n // 32) * 32))
-    if (max(m, n, blocked.num_blocks) > _checks.int32_max
-            or -(-n // n_tile) > 65535):
-        raise ValueError(f"{op}: shape too large for the kernel's grid")
     if m == 0 or n == 0:
         return torch.zeros((m, n), dtype=b.dtype, device=b.device)
     gath = b[blocked.cols.long()]                  # the staged gather

@@ -8,7 +8,8 @@ slice groups and thread-block clusters; the tensor-core attention at the
 edge widths), the head-grid kernels and the non-coalesced SpMM bitwise
 against the one-head launches they stand for (the non-coalesced SpMM on
 the windows the SpMM does not split), the launch counters, the refusals
-of the wrappers, and gradients of a train step and of multi-head
+of the wrappers (the same arguments and messages as on CPU tensors), the
+bf16 overflow rescued by ``guard_nonfinite``, and gradients of a train step and of multi-head
 attention against the plain ``blocked`` impl.  The bf16 and int8
 variants of the window SpMM, the SDDMM and the fused attention are held
 to their plain versions within one bf16 ulp with at least 99% of the
@@ -1008,3 +1009,120 @@ def test_tuned_sweep_on_card_times_every_candidate_and_caches(device,
     assert (again.fwd.k_blk, again.bwd.k_blk, again.n_blk, again.n_blk_t) == (
         plan.fwd.k_blk, plan.bwd.k_blk, plan.n_blk, plan.n_blk_t)
 
+
+
+def _refusals(dev):
+    """What the ten wrappers say, on ``dev``, to a column tile of 0, a
+    wrongly shaped operand, vector size 4 and another view's schedule
+    (the all-empty view's among them): each call's message, or
+    ``"ran"``."""
+    rng = np.random.default_rng(0)
+    a = _matrix(rng, 40, 36, 0.3)
+    views = [block_format(from_dense(a, vector_size=v), 8, device=dev)
+             for v in (8, 4)]
+    # the all-empty view's zero-block schedule, as many windows as views[0]
+    empty = block_format(from_dense(np.zeros((40, 36), np.float32)), 8,
+                         device=dev).schedule(1)
+
+    def d(*shape):
+        return torch.ones(shape, device=dev)
+
+    calls = [
+        lambda bl: spmm_cuda(bl, d(36, 16), n_blk=0),
+        lambda bl: spmm_cuda(bl, d(35, 16)),
+        lambda bl: spmm_batched_cuda(bl, d(2, 36, 16), n_blk=0),
+        lambda bl: spmm_batched_cuda(bl, d(2, 35, 16)),
+        lambda bl: spmm_balanced_cuda(bl, d(36, 16), n_blk=0),
+        lambda bl: spmm_balanced_cuda(bl, d(35, 16)),
+        lambda bl: spmm_staged_cuda(bl, d(36, 16), n_blk=0),
+        lambda bl: spmm_staged_cuda(bl, d(35, 16)),
+        lambda bl: spmm_noncoalesced_cuda(bl, d(35, 16)),
+        lambda bl: sddmm_cuda(bl, d(40, 8), d(36, 7)),
+        lambda bl: sddmm_batched_cuda(bl, d(2, 41, 8), d(36, 8)),
+        lambda bl: sddmm_balanced_cuda(bl, d(40, 8), d(37, 8)),
+        lambda bl: sddmm_balanced_cuda(bl, d(40, 8), d(36, 8),
+                                       schedule=views[1 - views.index(bl)]
+                                       .schedule(1)),
+        lambda bl: sddmm_balanced_cuda(bl, d(40, 8), d(36, 8),
+                                       schedule=empty),
+        lambda bl: spmm_balanced_cuda(bl, d(36, 16), schedule=empty),
+        lambda bl: attention_balanced_cuda(bl, d(40, 8), d(36, 8), d(36, 4),
+                                           schedule=empty),
+        lambda bl: attention_cuda(bl, d(40, 8), d(36, 8), d(35, 4)),
+        lambda bl: attention_cuda_staged(bl, d(40, 8), d(36, 8), d(36, 4),
+                                         n_blk=0),
+        lambda bl: attention_balanced_cuda(bl, d(40, 8), d(36, 7), d(36, 4)),
+    ]
+    said = []
+    for call in calls:
+        for bl in views:
+            try:
+                call(bl)
+                said.append("ran")
+            except ValueError as e:
+                said.append(str(e))
+    return said
+
+
+def test_wrappers_refuse_the_same_arguments_on_cpu_and_card(device):
+    """The argument checks run before the device branch: the CPU and the
+    card refuse the same arguments with the same message."""
+    on_card = _refusals(device)
+    torch.cuda.synchronize()
+    assert on_card == _refusals("cpu")
+    assert "ran" not in on_card
+
+
+def test_the_ladder_keeps_to_kernel_rungs_on_card(device):
+    """On CUDA operands a refused kernel never gives way to a plain rung:
+    a refusal no kernel rung below takes raises, and another view's
+    schedule on ``cuda_balanced`` is served by the next kernel rung."""
+    from repro_torch.core import dispatch, metrics, spmm
+    from repro_torch.testing import faults
+
+    rng = np.random.default_rng(15)
+    fmt = from_dense(_matrix(rng, 40, 36, 0.3))
+    b = torch.ones((36, 16), device=device)
+    metrics.reset_counters("dispatch_fallback")
+    with dispatch.record_calls() as log:
+        with pytest.raises(RuntimeError, match="kernel rungs only"):
+            spmm(fmt, b, impl="cuda", n_blk=0, strict=False)
+    assert log == [("spmm", "cuda")]
+    for op in ("spmm", "sddmm", "attention"):
+        rec = faults.run_rung_recovery(op, device=device)
+        assert rec["detail"].startswith("fallback:cuda_balanced->cuda")
+    assert metrics.counters()["dispatch_fallback"] == 3
+
+
+def test_guard_nonfinite_rescues_bf16_overflow_on_card(device):
+    from repro_torch.core import dispatch, metrics, spmm, spmm_ad
+
+    rng = np.random.default_rng(14)
+    a = _matrix(rng, 40, 40, 0.3)
+    a[3, 5] = 3.3999e38             # finite in fp32, inf in bf16
+    fmt = from_dense(a)
+    b = torch.from_numpy((rng.standard_normal((40, 16)) * 1e-5)
+                         .astype(np.float32)).to(device)
+    assert not torch.isfinite(spmm(fmt, b, impl="cuda",
+                                   precision="bf16")).all()
+    metrics.reset_counters("guard_nonfinite_rerun")
+    with pytest.warns(dispatch.FallbackWarning, match="non-finite"):
+        out = spmm(fmt, b, impl="cuda", precision="bf16",
+                   guard_nonfinite=True)
+    assert out.dtype == torch.float32
+    ref = a.astype(np.float64) @ b.cpu().double().numpy()
+    np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=1e-4,
+                               atol=1e-12)
+    assert metrics.counters()["guard_nonfinite_rerun"] == 1
+    plan = ad_plan(fmt, impl="cuda", precision="bf16", guard_nonfinite=True,
+                   device=device)
+    with pytest.warns(dispatch.FallbackWarning, match="non-finite"):
+        fwd = spmm_ad(plan, plan.fwd.vals, b)
+    assert fwd.dtype == torch.float32 and torch.isfinite(fwd).all()
+    assert metrics.counters()["guard_nonfinite_rerun"] == 2
+    benign = from_dense(_matrix(rng, 40, 40, 0.3))
+    plain = spmm(benign, b, impl="cuda", precision="bf16")
+    guarded = spmm(benign, b, impl="cuda", precision="bf16",
+                   guard_nonfinite=True)
+    assert torch.equal(plain.float(), guarded)
+    assert metrics.counters()["guard_nonfinite_rerun"] == 2

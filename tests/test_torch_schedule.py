@@ -14,7 +14,7 @@ from repro.core.autodiff import ad_plan as jax_ad_plan
 from repro.data.datasets import load_vendored
 from repro_torch.core import ad_plan
 from repro_torch.core import format as tf
-from repro_torch.core.validate import ValidationError, check_schedule
+from repro_torch.core.validate import ValidationError, validate_schedule
 from repro_torch.kernels._combine import COMBINE_FANIN, run_plan
 
 SCHEDULE = ("seg_win", "seg_meta", "blk_id", "blk_win")
@@ -186,18 +186,17 @@ def test_schedule_checks_name_the_broken_invariant():
     s = load_vendored(["hub_96"])[0]
     port, _ = _views(s.rows, s.cols, s.vals, s.shape, k_blk=4)
     sched = port.schedule(1)
-    wp = port.win_ptr.numpy().astype(np.int64)
     meta = sched.seg_meta.clone()
     meta[0, 2] = 0                                    # first flag dropped
     with pytest.raises(ValidationError, match="seg-flags"):
-        check_schedule(dataclasses.replace(sched, seg_meta=meta), wp)
+        validate_schedule(dataclasses.replace(sched, seg_meta=meta), port)
     meta = sched.seg_meta.clone()
     meta[1, 0] += 1                                   # a block skipped
     with pytest.raises(ValidationError, match="seg-coverage"):
-        check_schedule(dataclasses.replace(sched, seg_meta=meta), wp)
+        validate_schedule(dataclasses.replace(sched, seg_meta=meta), port)
     seg_win = sched.seg_win.clone()
     seg_win[1] = seg_win[-1]                          # windows interleaved
     with pytest.raises(ValidationError, match="seg-coverage"):
-        check_schedule(dataclasses.replace(sched, seg_win=seg_win), wp)
+        validate_schedule(dataclasses.replace(sched, seg_win=seg_win), port)
     with pytest.raises(ValueError, match="split_blk"):
         tf.build_schedule(port, -1)
