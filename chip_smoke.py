@@ -115,7 +115,21 @@ a non-zero exit at the first phase that fails:
      ``validate(check="full")`` on the Amazon replica's A and Aᵀ views and
      schedules, timed.  A ``FallbackWarning`` anywhere else is an error,
      and ``dispatch_fallback`` must count those three recoveries and
-     nothing else over the whole run;
+     nothing else over the whole run (the conformance covers the sharded
+     impls on a one-rank NCCL mesh of its own);
+     4j. the multi-device layer: (a) a one-rank NCCL group (a
+     ``FileStore`` in a temporary directory) and its (1, 1) mesh; GCN and
+     AGNN forwards on ``ad_plan(impl="cuda_sharded")`` and
+     ``"cuda_sharded_overlap"`` (2 segment batches) against the
+     ``cuda_balanced`` plan's logits, three train steps of each against
+     ``blocked`` at the train gates, a bf16 GCN step at the precision
+     gates, the launch counters against the layers' (twice as many on
+     the overlapped route); (b) at P = 2 and 4 ranks, on A and on Aᵀ,
+     each rank's local launch of rows 4 (N = 128), 8 (F = 32) and 10
+     (D = DV = 32, window-aligned) against its plain version, the ranks'
+     sum against the unsharded launch (hub windows against fp64), and
+     each rank's ms, segments and blocks beside ``device_balance``'s
+     modelled skew: one card runs every rank, rank after rank;
   5. timing with CUDA events: each kernel, its plain version and one
      PyTorch library call computing the same function (a yardstick the port
      never calls), the window-parallel SpMM also on the transposes (the
@@ -126,10 +140,11 @@ a non-zero exit at the first phase that fails:
      SDDMM on the Amazon replica with its K gathers folded into cache and
      a device copy of its bound's bytes (what holds it off the bound), each
      forward and train step with its peak memory (the ``cuda_tuned`` ones
-     beside the fixed routes', and the sweeps' wall time);
+     beside the fixed routes', and the sweeps' wall time; the sharded
+     routes' steps at P = 1 beside ``cuda_balanced``'s);
   6. where the time goes: ``torch.profiler`` over one forward and one train
-     step of each model and route (``cuda_tuned`` too), device time by
-     kernel and the device's idle share.
+     step of each model and route (``cuda_tuned`` and the sharded routes
+     too), device time by kernel and the device's idle share.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -137,6 +152,7 @@ It prints one ``{"kernels": [...]}`` line, and last
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1458,6 +1474,95 @@ def check_hardened_runtime(plan, bplan, b, card: str) -> dict:
     return out
 
 
+# Phase 4j: the data sizes each view is partitioned over (one card runs
+# every rank's launch, rank after rank), and the sharded routes' segment
+# batches per rank.
+SHARD_RANKS = (2, 4)
+OVERLAP_BATCHES = 2
+
+
+def check_rank_local(label: str, blocked, b, h, v) -> dict:
+    """Phase 4j (b) on one view: at each P of ``SHARD_RANKS``, each rank's
+    local launch of rows 4 (``b``, N = 128), 8 (Q = K = ``h``, F = 32) and
+    10 (Q = K = ``h``, V = ``v``, D = DV = 32, on the window-aligned
+    partition) against its plain version on the rank's schedule; the
+    rank-ordered sums against the unsharded ``cuda_balanced`` launches at
+    the kernel tolerance (the SpMM's hub windows, cut across ranks,
+    against fp64 through :func:`check_hub_windows`); and each rank's ms,
+    segments and blocks, the slowest rank's ms over the mean beside
+    ``device_balance``'s modelled ratio.  Returns the numbers."""
+    import torch
+
+    from repro_torch.distributed import (attention_sharded_local,
+                                         device_balance, sddmm_sharded_local,
+                                         sharded_schedule,
+                                         spmm_sharded_local)
+    from repro_torch.kernels import (attention_balanced_cuda,
+                                     attention_balanced_plain,
+                                     sddmm_balanced_cuda,
+                                     sddmm_balanced_plain,
+                                     spmm_balanced_cuda, spmm_balanced_plain)
+
+    whole = {"spmm": spmm_balanced_cuda(blocked, b),
+             "sddmm": sddmm_balanced_cuda(blocked, h, h),
+             "attn": attention_balanced_cuda(blocked, h, h, v)}
+    out = {}
+    for p in SHARD_RANKS:
+        part = sharded_schedule(blocked, p)
+        aligned = sharded_schedule(blocked, p, window_split=False)
+        runs = {
+            "spmm": (part, lambda r: spmm_sharded_local(blocked, b, part, r),
+                     lambda r: spmm_balanced_plain(blocked, b,
+                                                   part.local(r))),
+            "sddmm": (part,
+                      lambda r: sddmm_sharded_local(blocked, h, h, part, r),
+                      lambda r: sddmm_balanced_plain(blocked, h, h,
+                                                     part.local(r))),
+            "attn": (aligned,
+                     lambda r: attention_sharded_local(blocked, h, h, v,
+                                                       aligned, r),
+                     lambda r: attention_balanced_plain(
+                         blocked, h, h, v, aligned.local(r))),
+        }
+        row = {}
+        for name, (pt, run, plain) in runs.items():
+            total, ranks = None, []
+            for r in range(p):
+                got = run(r)
+                err = compare(f"{label} P={p} {name} rank {r} local launch vs "
+                              "its plain version", got, plain(r), KERNEL_RTOL,
+                              KERNEL_ATOL, show=False)
+                loc = pt.local(r)
+                ranks.append({"ms": cuda_ms(lambda: run(r)),
+                              "segments": loc.num_segments,
+                              "blocks": loc.num_blocks, "max_abs_err": err})
+                total = got if total is None else total + got
+            per_win = torch.diff(blocked.win_ptr.long())
+            hubs = bool((per_win > HUB_OF_MEDIAN * per_win.median()).any())
+            if name == "spmm" and hubs:
+                vals = blocked.vals[None]
+                check_hub_windows(f"{label} P={p} spmm, the ranks' sum vs "
+                                  "the unsharded launch", blocked, vals,
+                                  b[None], total[None], whole[name][None])
+            else:
+                compare(f"{label} P={p} {name}, the ranks' sum vs the "
+                        "unsharded launch", total, whole[name], KERNEL_RTOL,
+                        KERNEL_ATOL)
+            ms = [x["ms"] for x in ranks]
+            model = device_balance(blocked, p,
+                                   window_split=name != "attn")
+            row[name] = {"ranks": ranks,
+                         "max_over_mean_ms": max(ms) / statistics.mean(ms),
+                         "modelled_max_over_mean": model["max_over_mean"]}
+            print(f"  {label} P={p} {name}: per rank " + "; ".join(
+                f"{x['ms']:.4f} ms, {x['segments']} segments, "
+                f"{x['blocks']} blocks" for x in ranks)
+                + f" | slowest / mean {row[name]['max_over_mean_ms']:.3f}, "
+                f"modelled {model['max_over_mean']:.3f}", flush=True)
+        out[f"P{p}"] = row
+    return out
+
+
 def attention_setup(rng) -> dict:
     """The multi-head attention configuration on the card: the pattern,
     its ``cuda`` and ``cuda_balanced`` plans, q, k and v (the reference
@@ -2729,6 +2834,132 @@ def main() -> None:
     hardened = check_hardened_runtime(plan, bplan, b, card)
     reset_counts()
 
+    phase("4j. multi-device: the sharded routes on a one-rank NCCL mesh, "
+          f"and every rank's local launches at P in {SHARD_RANKS}")
+    # (a) a real one-rank NCCL group (a FileStore in a temporary
+    # directory) and its (1, 1) mesh, kept open for phase 5's step times
+    from repro_torch.distributed import batch_costs
+    from repro_torch.launch.mesh import one_rank_mesh
+
+    mesh_stack = contextlib.ExitStack()
+    mesh = mesh_stack.enter_context(one_rank_mesh(DEVICE))
+    print(f"  process group: backend {torch.distributed.get_backend()}, "
+          f"world {torch.distributed.get_world_size()}; mesh {mesh}")
+    t0 = time.time()
+    splans = {"cuda_sharded": ad_plan(fmt, impl="cuda_sharded", k_blk=8,
+                                      split_blk=1, device=DEVICE, mesh=mesh),
+              "cuda_sharded_overlap": ad_plan(
+                  fmt, impl="cuda_sharded_overlap", k_blk=8, split_blk=1,
+                  device=DEVICE, mesh=mesh, overlap_batches=OVERLAP_BATCHES)}
+    splan16 = ad_plan(fmt16, impl="cuda_sharded", k_blk=8, split_blk=1,
+                      device=DEVICE, mesh=mesh)
+    print(f"  sharded plans (partitions of A, A^T and A window-aligned, "
+          f"{OVERLAP_BATCHES} segment batches on the overlapped route) "
+          f"{time.time() - t0:.1f} s on the host")
+    batches = {impl: 1 if impl == "cuda_sharded" else OVERLAP_BATCHES
+               for impl in splans}
+    sharded = {"forward": {}, "train": {}}
+    sharded_nets = {}
+    for impl, sp in splans.items():
+        nb = batches[impl]
+        fwd_runs = {
+            "gcn": (lambda: gcn_forward(gcn.params(), sp, x, dataclasses.
+                                        replace(cfgs["gcn"], impl=impl)),
+                    lambda: gcn_forward(gcn.params(), bplan, x, bal["gcn"]),
+                    expect(spmm_balanced=nb * n_layers)),
+            "agnn": (lambda: agnn_forward(agnn.params(), sp, x, dataclasses.
+                                          replace(cfgs["agnn"], impl=impl)),
+                     lambda: agnn_forward(agnn.params(), bplan, x,
+                                          bal["agnn"]),
+                     expect(attention_balanced=nb * n_layers)),
+        }
+        with torch.inference_mode():
+            for model, (run, ref_run, want) in fwd_runs.items():
+                reset_counts()
+                out = run()
+                torch.cuda.synchronize()
+                got = counts()
+                if got != want:
+                    raise SystemExit(f"FAIL {model}/{impl} forward: launch "
+                                     f"counts {got} != {want}")
+                for k_name in launches:
+                    launches[k_name] += got[k_name]
+                ref = ref_run()
+                f_err = compare(f"{model}/{impl} forward logits vs the "
+                                "cuda_balanced plan's", out, ref, E2E_RTOL,
+                                E2E_ATOL * ref.abs().max().item())
+                sharded["forward"][f"{model}_{impl}"] = {
+                    "max_abs_err": f_err, "launches": got}
+        for model in ("gcn", "agnn"):
+            net, step = make(model, impl)
+            sharded_nets[(model, impl)] = (net, step, sp, x)
+            ref_loss, ref_grads = step_refs[model]
+            want = {k_: v_ * nb for k_, v_ in train_expect(
+                model, "cuda_balanced").items()}
+            losses = []
+            for i in range(TRAIN_STEPS):
+                reset_counts()
+                loss, _ = step(sp, x, labels, train_mask)
+                torch.cuda.synchronize()
+                got = counts()
+                if got != want:
+                    raise SystemExit(f"FAIL train {model}/{impl} step {i}: "
+                                     f"launch counts {got} != {want}")
+                for k_name in launches:
+                    launches[k_name] += got[k_name]
+                losses.append(loss.item())
+                if i == 0:
+                    compare(f"train {model}/{impl}: step-1 loss vs blocked",
+                            loss, ref_loss, GRAD_RTOL, 0.0)
+                    tol = GRAD_ATOL_OF_MAX * max(
+                        gr.abs().max().item() for gr in ref_grads)
+                    for j, (p_, want_g) in enumerate(zip(net.parameters(),
+                                                         ref_grads)):
+                        compare(f"train {model}/{impl}: step-1 grad of "
+                                f"parameter {j} {tuple(p_.shape)}", p_.grad,
+                                want_g, GRAD_RTOL, tol, show=j == 0)
+            print(f"  {model}/{impl}: losses {losses}; launches per step "
+                  f"{got}")
+            if not (all(map(math.isfinite, losses))
+                    and all(b_ < a_ for a_, b_ in zip(losses, losses[1:]))):
+                raise SystemExit(f"FAIL train {model}/{impl}: losses "
+                                 f"{losses} are not finite and decreasing")
+            sharded["train"][f"{model}_{impl}"] = {"losses": losses,
+                                                   "launches_per_step": got}
+    # a bf16 GCN step on the bulk route at the precision gates (4e's)
+    net, step = make_narrow("gcn", bf16, "cuda_sharded")
+    sharded_nets[("gcn_bf16", "cuda_sharded")] = (net, step, splan16, x16)
+    ref_loss, ref_grads = step_refs["gcn_bf16"]
+    reset_counts()
+    loss, _ = step(splan16, x16, labels, train_mask)
+    torch.cuda.synchronize()
+    got, want = counts(), narrow_expect("gcn_bf16", "cuda_balanced")
+    if got != want:
+        raise SystemExit(f"FAIL train gcn_bf16/cuda_sharded: launch counts "
+                         f"{got} != {want}")
+    for k_name in launches:
+        launches[k_name] += got[k_name]
+    compare("train gcn_bf16/cuda_sharded: step-1 loss vs blocked at bf16",
+            torch.tensor(loss.item()), torch.tensor(ref_loss),
+            NARROW_LOSS_RTOL, 0.0)
+    grad_tol = NARROW_GRAD_ULPS * 2.0 ** -7 * max(
+        gr.abs().max().item() for gr in ref_grads)
+    for j, (p_, want_g) in enumerate(zip(net.parameters(), ref_grads)):
+        compare(f"train gcn_bf16/cuda_sharded: step-1 grad of parameter {j}",
+                p_.grad.float(), want_g, 0.0, grad_tol, show=j == 0)
+    sharded["train"]["gcn_bf16_cuda_sharded"] = {"step1_loss": loss.item(),
+                                                 "launches_per_step": got}
+    # (b) every rank's local launch at P = 2 and 4, one rank after another
+    # on this card, on A and on A^T
+    sharded["ranks"] = {
+        "A": check_rank_local("Amazon A", bplan.fwd, b, h32, v32),
+        "A^T": check_rank_local("Amazon A^T", bplan.bwd, b, h32, v32)}
+    sharded["batch_costs"] = {
+        f"P{p}": batch_costs(bplan.fwd, p, OVERLAP_BATCHES)["costs"].tolist()
+        for p in SHARD_RANKS}
+    sharded["card"] = card
+    reset_counts()
+
     phase("5. timing (CUDA events around back-to-back calls, median of runs)")
     csr = torch.sparse_coo_tensor(
         torch.from_numpy(np.stack([g.rows, g.cols])),
@@ -3114,6 +3345,19 @@ def main() -> None:
             "ms": t_fwd, "peak_bytes": torch.cuda.max_memory_allocated()}
         print(f"  {name}/{impl}: train step {t_step:.3f} ms (peak memory "
               f"{peak / 2**30:.3f} GiB), forward {t_fwd:.3f} ms")
+    # the sharded routes (4j) at P = 1 on the one-rank NCCL mesh, beside
+    # cuda_balanced's: a one-rank reading, not a scaling claim
+    for (name, impl), (net, step, adj, xx) in sharded_nets.items():
+        torch.cuda.reset_peak_memory_stats()
+        t_step = cuda_ms(lambda: step(adj, xx, labels, train_mask), reps=3,
+                         batch=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        sharded["train"][f"{name}_{impl}"].update(step_ms=t_step,
+                                                  peak_bytes=peak)
+        base = train[f"{name}_cuda_balanced"].get("step_ms")
+        print(f"  {name}/{impl} (P = 1): train step {t_step:.3f} ms "
+              f"(cuda_balanced {base:.3f} ms), peak memory "
+              f"{peak / 2**30:.3f} GiB")
     # the tuned route (4h): a train step and a forward of each model,
     # beside the fixed routes' from the same run
     for name, (net, step, tp, xx) in tuned_nets.items():
@@ -3211,6 +3455,12 @@ def main() -> None:
         print(f"  train step {name}/cuda_tuned:")
         train[f"{name}_cuda_tuned"].update(profile_run(
             lambda: step(tp, xx, labels, train_mask)))
+    for (name, impl), (net, step, adj, xx) in sharded_nets.items():
+        print(f"  train step {name}/{impl} (P = 1):")
+        sharded["train"][f"{name}_{impl}"].update(profile_run(
+            lambda: step(adj, xx, labels, train_mask)))
+    del sharded_nets, splans, splan16
+    mesh_stack.close()       # the one-rank NCCL group of phase 4j
     for name, (run, _) in attn_fwd.items():
         print(f"  attention forward {name}:")
         with torch.inference_mode():
@@ -3550,6 +3800,7 @@ def main() -> None:
                       "sparse_attention_bf16": attn16_result,
                       "attention_wide": wide, "tuned": tuned,
                       "hardened_runtime": hardened,
+                      "multi_device": sharded,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))

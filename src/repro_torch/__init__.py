@@ -8,6 +8,10 @@ by hand for ``sm_90a`` (``kernels/csrc``), built with ``nvcc`` at first
 use and bound with ``ctypes``.  The layout mirrors ``repro``: the
 counterpart of ``repro/core/format.py`` is ``repro_torch/core/format.py``.
 
+The multi-device layer (``distributed/``, ``launch/mesh.py``) runs the
+balanced kernels rank-locally over a ``torch.distributed`` ``DeviceMesh``
+(NCCL on the card, gloo on the CPU).
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.
 """

@@ -18,10 +18,15 @@ on the host, everything these ops need about one pattern:
   * ``perm`` — a gather map re-laying ``fwd``-layout values into ``bwd``
     layout (:meth:`ADPlan.transpose_vals`),
   * ``fwd_sched`` / ``bwd_sched`` — the block-parallel schedules of A and
-    Aᵀ, present per direction: both for ``impl="cuda_balanced"``, the
-    directions whose sweep chose the block-parallel kernel for
-    ``impl="cuda_tuned"`` (scheduled independently: hub columns of A
-    become hub windows of Aᵀ),
+    Aᵀ, present per direction: both for ``impl="cuda_balanced"`` and the
+    sharded impls, the directions whose sweep chose the block-parallel
+    kernel for ``impl="cuda_tuned"`` (scheduled independently: hub
+    columns of A become hub windows of Aᵀ),
+  * ``fwd_part`` / ``bwd_part`` / ``fwd_part_wa`` and ``mesh`` — for
+    ``impl="cuda_sharded"`` and ``"cuda_sharded_overlap"``, each
+    direction's schedule partitioned over the mesh's ``"data"`` dim
+    (DESIGN.md §12): cuts inside hub windows allowed for the SpMMs and
+    the SDDMM, window-aligned for the attention,
 
 plus the tile parameters each direction runs with.  ``impl="cuda_tuned"``
 resolves the autotuner when the plan is built (the forward SpMM, the
@@ -31,7 +36,12 @@ runs the window-parallel kernel, or the block-parallel one when it has a
 schedule, at its own ``k_blk`` and column tile.  :func:`spmm_ad`,
 :func:`sddmm_ad` and :func:`attention_ad` are ``torch.autograd.Function``s
 whose backward dispatches the duality through the registry; a cotangent
-that no input needs launches nothing (``ctx.needs_input_grad``).
+that no input needs launches nothing (``ctx.needs_input_grad``).  On a
+sharded plan the forward, both duality ops (dB on Aᵀ over ``bwd_part``,
+dVals over ``fwd_part``) and the attention's recompute each run one
+rank-local launch and their collective inside the explicit backward
+call, so autograd never differentiates a collective; every rank holds
+the whole operands, outputs and gradients.
 :func:`attention_ad` runs the single-pass kernel forward and recomputes
 the scores backward (FlashAttention-style), so no score tensor is kept.
 
@@ -94,6 +104,18 @@ class ADPlan:
     # and returns fp32 either way; the backward stays the straight-through
     # duality.
     guard_nonfinite: bool = False
+    # Multi-device partitions (DESIGN.md §12) of the sharded impls over
+    # the mesh's "data" dim: fwd_part / bwd_part may cut inside hub
+    # windows (the reduce adds the partials), fwd_part_wa is the
+    # window-aligned one the attention needs.
+    fwd_part: Optional[object] = None   # a ShardedSchedule
+    bwd_part: Optional[object] = None
+    fwd_part_wa: Optional[object] = None
+    mesh: Optional[object] = None       # torch DeviceMesh
+    # Segment batches per rank of impl="cuda_sharded_overlap" (DESIGN.md
+    # §14): the partitions carry this many and every call runs the ring
+    # at that depth; 1 elsewhere.
+    overlap_batches: int = 1
 
     @property
     def vals(self) -> torch.Tensor:
@@ -149,7 +171,9 @@ def _blocked_perm(blocked_a: BlockedMEBCRS,
     return perm
 
 
-_PLAN_IMPLS = ("blocked", "cuda", "cuda_balanced", "cuda_tuned")
+_PLAN_IMPLS = ("blocked", "cuda", "cuda_balanced", "cuda_tuned",
+               "cuda_sharded", "cuda_sharded_overlap")
+_SHARDED = ("cuda_sharded", "cuda_sharded_overlap")
 
 
 def _dense_precision(precision: Optional[str]) -> Optional[str]:
@@ -188,7 +212,9 @@ def _exec_impl(impl: str, sched: Schedule | None) -> str:
 
 def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
             n_blk: int = 128, split_blk: int = 1, n_example: int = 64,
-            cache=None, device=None, precision: Optional[str] = None,
+            cache=None, device=None, mesh=None,
+            overlap_batches: Optional[int] = None,
+            precision: Optional[str] = None,
             guard_nonfinite: bool = False) -> ADPlan:
     """Build (and memoize on ``fmt``) the plan, on ``device`` (the card
     unless ``device`` says otherwise).
@@ -206,7 +232,17 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     feature columns in the format's dtype on ``device``, and the SDDMM's
     sweep is pinned to A's ``k_blk`` (dVals land in the forward layout).
     ``n_blk`` is the column tile of the forward SpMM and of the transpose
-    SpMM (``n_blk_t``), which only the tuner sets apart.  The reference's
+    SpMM (``n_blk_t``), which only the tuner sets apart.
+    ``impl="cuda_sharded"`` partitions the schedules of A and Aᵀ over
+    ``mesh``'s ``"data"`` dim (``mesh`` or the ambient
+    :func:`~repro_torch.distributed.ctx.activation_mesh`; a
+    ``DeviceMesh`` on ``device``'s type), so the forward and both duality
+    ops run one rank-local launch per rank and an ``all_reduce``;
+    ``"cuda_sharded_overlap"`` cuts each rank's range into
+    ``overlap_batches`` segment batches (default 2) and runs the
+    send/recv ring instead.  ``mesh=`` on a single-device impl and
+    ``overlap_batches != 1`` on any impl but the overlapped one raise.
+    The reference's
     ``f_blk`` has no counterpart: the port's SDDMM kernels walk the whole
     feature dimension in one pass.  ``precision``
     (``None``, ``"fp32"``, ``"bf16"``, ``"int8"``) fixes the level of every
@@ -229,7 +265,8 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
         return dataclasses.replace(
             ad_plan(fmt, impl=impl, k_blk=k_blk, n_blk=n_blk,
                     split_blk=split_blk, n_example=n_example, cache=cache,
-                    device=device, precision=precision),
+                    device=device, mesh=mesh,
+                    overlap_batches=overlap_batches, precision=precision),
             guard_nonfinite=True)
     if precision is not None:
         ops = ("spmm", "sddmm") + (("attention",) if impl in _PLAN_IMPLS
@@ -245,12 +282,33 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     if impl not in _PLAN_IMPLS:
         raise NotImplementedError(
             f"ad_plan(impl={impl!r}): the port builds plans for "
-            f"{', '.join(map(repr, _PLAN_IMPLS))}; sharded plans are "
-            "ROADMAP.md queue 1 item 6 (multi-device)")
+            f"{', '.join(map(repr, _PLAN_IMPLS))}")
     if isinstance(fmt, BlockedMEBCRS):
         raise ValueError("ad_plan needs the canonical MEBCRS (it blocks "
                          "both A and its transpose itself)")
-    key = (impl, k_blk, n_blk, int(split_blk), str(device))
+    entry = _dispatch.get("spmm", impl)
+    if overlap_batches is None:
+        overlap_batches = 2 if entry.overlapped else 1
+    elif not entry.overlapped and overlap_batches != 1:
+        raise ValueError(
+            f"ad_plan(overlap_batches={overlap_batches}) needs an "
+            f"overlapped impl (got impl={impl!r}); only "
+            f"'cuda_sharded_overlap' pipelines segment batches")
+    if entry.multi_device:
+        from repro_torch.distributed.ctx import _resolve_mesh
+
+        mesh = _resolve_mesh(mesh)
+        if mesh.device_type != device.type:
+            raise ValueError(f"ad_plan: the mesh is on "
+                             f"{mesh.device_type!r}, the plan on "
+                             f"{device.type!r}")
+    elif mesh is not None:
+        raise ValueError(
+            f"ad_plan(mesh=...) is only meaningful for a multi-device "
+            f"impl like 'cuda_sharded' (got impl={impl!r}); dropping "
+            f"the mesh would silently run single-device")
+    key = (impl, k_blk, n_blk, int(split_blk), str(device), mesh,
+           int(overlap_batches))
     memo = getattr(fmt, "_ad_plans", None)
     if memo is None:
         memo = {}
@@ -265,7 +323,8 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     if precision is not None:
         if key + (precision,) not in memo:
             base = ad_plan(fmt, impl=impl, k_blk=k_blk, n_blk=n_blk,
-                           split_blk=split_blk, device=device)
+                           split_blk=split_blk, device=device, mesh=mesh,
+                           overlap_batches=overlap_batches)
             memo[key + (precision,)] = dataclasses.replace(
                 base, precision=precision)
         return memo[key + (precision,)]
@@ -276,13 +335,32 @@ def ad_plan(fmt: MEBCRS, *, impl: str = "blocked", k_blk: int = 8,
     blocked_t = blocked_view(fmt.transpose(), k_blk, device)
     perm = torch.from_numpy(_blocked_perm(blocked_f, blocked_t))
     scheds = {}
-    if impl == "cuda_balanced":
+    if impl == "cuda_balanced" or impl in _SHARDED:
         scheds = {"fwd_sched": blocked_f.schedule(split_blk),
                   "bwd_sched": blocked_t.schedule(split_blk)}
+    if impl in _SHARDED:
+        scheds.update(_partitions(blocked_f, blocked_t, mesh, split_blk,
+                                  n_blk, overlap_batches))
     plan = ADPlan(fwd=blocked_f, bwd=blocked_t, perm=perm.to(device),
                   impl=impl, n_blk=n_blk, n_blk_t=n_blk, **scheds)
     memo[key] = plan
     return plan
+
+
+def _partitions(blocked_f: BlockedMEBCRS, blocked_t: BlockedMEBCRS, mesh,
+                split_blk: int, n_blk: int, n_batches: int) -> dict:
+    """A sharded plan's partitions over the mesh's data dim: A's and Aᵀ's
+    with cuts inside hub windows allowed, and A's window-aligned one for
+    the attention, each with ``n_batches`` segment batches per rank."""
+    from repro_torch.distributed.sparse_shard import _axis, sharded_schedule
+
+    ndev = _axis(mesh, "data")
+    kw = dict(split_blk=split_blk, n_blk=n_blk, n_batches=n_batches)
+    return {"fwd_part": sharded_schedule(blocked_f, ndev, **kw),
+            "bwd_part": sharded_schedule(blocked_t, ndev, **kw),
+            "fwd_part_wa": sharded_schedule(blocked_f, ndev,
+                                            window_split=False, **kw),
+            "mesh": mesh, "overlap_batches": n_batches}
 
 
 def _tuned_plan(fmt: MEBCRS, n_example: int, cache, device,
@@ -363,6 +441,10 @@ def _run_spmm(impl: str, plan: ADPlan, vals, b, *, transposed: bool,
     if impl == "cuda_balanced":
         # this direction's own schedule: Aᵀ's skew differs from A's
         kwargs["schedule"] = sched
+    elif impl in _SHARDED:
+        # this direction's own partition: dB runs on Aᵀ's
+        kwargs.update(schedule=sched, mesh=plan.mesh,
+                      part=plan.bwd_part if transposed else plan.fwd_part)
     name = _head_impl("spmm", impl, vals, b)
     _dispatch.require("spmm", name, precision=precision)
     blocked, b = apply_precision(with_values(blocked, vals.contiguous()), b,
@@ -378,6 +460,9 @@ def _run_sddmm(impl: str, plan: ADPlan, q, k,
     impl = _exec_impl(impl, plan.fwd_sched)
     if impl == "cuda_balanced":
         kwargs["schedule"] = plan.fwd_sched
+    elif impl in _SHARDED:
+        kwargs.update(schedule=plan.fwd_sched, mesh=plan.mesh,
+                      part=plan.fwd_part)
     name = _head_impl("sddmm", impl, q, k)
     precision = _dense_precision(precision)
     _dispatch.require("sddmm", name, precision=precision)
@@ -465,9 +550,13 @@ class _SddmmAD(torch.autograd.Function):
 def _attention_kernel(impl: str, plan: ADPlan, q, k, v, scale):
     """The single-pass kernel of ``impl`` at the plan's precision:
     window-parallel for ``cuda``, over the forward schedule for
-    ``cuda_balanced`` (and ``cuda_tuned`` where A's sweep chose it)."""
+    ``cuda_balanced`` (and ``cuda_tuned`` where A's sweep chose it), over
+    the window-aligned partition for the sharded impls."""
     impl = _exec_impl(impl, plan.fwd_sched)
     extra = {"schedule": plan.fwd_sched} if impl == "cuda_balanced" else {}
+    if impl in _SHARDED:
+        extra = {"schedule": plan.fwd_sched, "mesh": plan.mesh,
+                 "part": plan.fwd_part_wa}
     name = _head_impl("attention", impl, q, k, v)
     _dispatch.require("attention", name, precision=plan.precision)
     q, k, v = cast_precision(plan.precision, q, k, v)
@@ -561,8 +650,9 @@ def attention_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor,
     gradient.  ``impl="cuda"`` runs the single-pass kernel
     (``"cuda_fused_attn"``) and ``"cuda_balanced"`` its block-parallel
     version over the forward schedule, ``"cuda_tuned"`` the one its plan
-    chose for A; all keep the scores out of device memory and recompute
-    them backward.  ``"blocked"`` runs the staged
+    chose for A, the sharded impls the block-parallel one per rank over
+    the window-aligned partition; all keep the scores out of device
+    memory and recompute them backward.  ``"blocked"`` runs the staged
     SDDMM → sparse softmax → SpMM composition.  Attention has no int8
     level: an int8 plan runs all of it, the recompute backward included,
     at bf16.
@@ -575,7 +665,7 @@ def attention_ad(plan: ADPlan, q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
-    if impl in ("cuda", "cuda_balanced", "cuda_tuned"):
+    if impl in ("cuda", "cuda_balanced", "cuda_tuned") + _SHARDED:
         return _AttentionAD.apply(impl, plan, q, k, v, scale)
     probs = _softmax_probs(impl, plan, q, k, scale)
     return _SpmmAD.apply(impl, plan, probs.to(v.dtype), v)

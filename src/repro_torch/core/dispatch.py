@@ -33,6 +33,13 @@ softmax → SpMM).  Impl names:
                    ``cuda_fused_attn_tuned`` the same for attention; the
                    counterparts of ``pallas_tuned`` and
                    ``pallas_fused_attn_tuned``
+  cuda_sharded     one rank-local launch of the block-parallel kernels per
+                   rank of a ``DeviceMesh`` and an ``all_reduce``
+                   (``distributed/sparse_shard.py``); ``cuda_sharded_overlap``
+                   the same over segment batches on a send/recv ring
+                   (``distributed/sparse_shard_overlap.py``); the
+                   counterparts of ``pallas_sharded`` and
+                   ``pallas_sharded_overlap``
 
 Capability flags, enforced by :func:`require`:
 
@@ -54,6 +61,12 @@ Capability flags, enforced by :func:`require`:
                   segments (the block-parallel ``cuda_balanced`` kernels)
                   and takes ``schedule=`` / ``split_blk=``, which the
                   fallback ladder drops on the rungs without the flag;
+  multi_device    the impl runs one rank-local launch per rank of a mesh
+                  over a partitioned schedule and takes ``mesh=`` /
+                  ``part=``; every rank returns the whole output;
+  overlapped      the impl pipelines the reduce behind compute over
+                  segment batches on a send/recv ring and takes
+                  ``n_batches=`` (``ADPlan.overlap_batches``);
 
 plus the ``precisions`` tuple (DESIGN.md §13): the precision levels the
 impl runs at, a subset of ``("fp32", "bf16", "int8")``; every impl
@@ -111,6 +124,8 @@ class OpImpl:
     needs_canonical: bool = False
     returns_format: bool = False
     load_balanced: bool = False
+    multi_device: bool = False
+    overlapped: bool = False
     precisions: Tuple[str, ...] = ("fp32",)
 
 
@@ -119,7 +134,9 @@ _REGISTRY: Dict[Tuple[str, str], OpImpl] = {}
 # Modules that register implementations at import time; ``get`` imports
 # them lazily so the table is complete whichever layer touches it first.
 _PROVIDERS = ("repro_torch.core.spmm", "repro_torch.core.sddmm",
-              "repro_torch.kernels.ops")
+              "repro_torch.kernels.ops",
+              "repro_torch.distributed.sparse_shard",
+              "repro_torch.distributed.sparse_shard_overlap")
 _loaded = False
 _lock = threading.Lock()
 
@@ -253,13 +270,14 @@ class FallbackWarning(UserWarning):
 # baselines cuda_staged and cuda_noncoalesced) enter at the default tier.
 # The sddmm ladder ends at ``blocked``: the ``coo`` impl returns edge
 # values (NNZ,), another output contract than the blocked-layout rungs.
-# The reference's sharded rungs wait for the port's multi-device layer.
 _LADDERS: Dict[str, Tuple[str, ...]] = {
-    "spmm": ("cuda_tuned", "cuda_balanced", "cuda_batched", "cuda",
-             "blocked", "coo_segment"),
-    "sddmm": ("cuda_tuned", "cuda_balanced", "cuda_batched", "cuda",
-              "blocked"),
-    "attention": ("cuda_fused_attn_tuned", "cuda_balanced",
+    "spmm": ("cuda_sharded_overlap", "cuda_sharded", "cuda_tuned",
+             "cuda_balanced", "cuda_batched", "cuda", "blocked",
+             "coo_segment"),
+    "sddmm": ("cuda_sharded_overlap", "cuda_sharded", "cuda_tuned",
+              "cuda_balanced", "cuda_batched", "cuda", "blocked"),
+    "attention": ("cuda_sharded_overlap", "cuda_sharded",
+                  "cuda_fused_attn_tuned", "cuda_balanced",
                   "cuda_fused_attn", "cuda_staged", "blocked"),
 }
 _DEFAULT_TIER = {"spmm": "cuda", "sddmm": "cuda", "attention": "cuda_staged"}
@@ -356,15 +374,22 @@ def _adapt_kwargs(entry: OpImpl, kwargs: Dict) -> Dict:
     """Project a request's kwargs onto what a ladder rung understands.
 
     ``schedule``/``split_blk`` are dropped for rungs without the
-    ``load_balanced`` capability; a ``precision`` the rung lacks widens
-    along ``_PRECISION_FALLBACK``; then the rung's signature filters
-    anything it cannot accept, ``precision`` aside (:func:`_call` applies
-    it to the operands of the rungs that take them already cast).
+    ``load_balanced`` capability, ``mesh``/``part`` for rungs without
+    ``multi_device`` and ``n_batches`` for rungs without ``overlapped``; a
+    ``precision`` the rung lacks widens along ``_PRECISION_FALLBACK``;
+    then the rung's signature filters anything it cannot accept,
+    ``precision`` aside (:func:`_call` applies it to the operands of the
+    rungs that take them already cast).
     """
     kw = dict(kwargs)
     if not entry.load_balanced:
         kw.pop("schedule", None)
         kw.pop("split_blk", None)
+    if not entry.multi_device:
+        kw.pop("mesh", None)
+        kw.pop("part", None)
+    if not entry.overlapped:
+        kw.pop("n_batches", None)
     prec = kw.get("precision")
     if prec is not None and prec not in entry.precisions:
         for cand in _PRECISION_FALLBACK.get(prec, ()):

@@ -39,6 +39,7 @@ __all__ = [
     "MEBCRS",
     "BlockedMEBCRS",
     "Schedule",
+    "LocalRange",
     "build_schedule",
     "resolve_device",
     "from_dense",
@@ -194,7 +195,15 @@ class Schedule:
     zeros, so the all-empty matrix is a valid zero-block schedule.  The
     balanced CUDA SpMM and attention kernels walk it in runs of consecutive
     segments and merge the windows that runs cut through a combine tree of
-    their own (``repro_torch.kernels._combine``)."""
+    their own (``repro_torch.kernels._combine``).
+
+    A **rank-local** schedule (``local`` set) is one rank's contiguous
+    range of a full schedule's segments, as
+    :meth:`~repro_torch.distributed.sparse_shard.ShardedSchedule.local`
+    cuts it: window ids and block ids stay global, the first/last flags
+    are recomputed for the range, and ``local`` records where the range
+    sits, so the kernels take it for its view's and write only its
+    rows."""
 
     seg_win: torch.Tensor
     seg_meta: torch.Tensor
@@ -202,6 +211,7 @@ class Schedule:
     blk_win: torch.Tensor
     split_blk: int            # max K-blocks per segment (0 = unsplit)
     num_blocks: int           # total scheduled K-blocks (0 iff all-empty)
+    local: Optional["LocalRange"] = None
 
     _TENSORS = ("seg_win", "seg_meta", "blk_id", "blk_win")
 
@@ -212,6 +222,23 @@ class Schedule:
     def to(self, device) -> "Schedule":
         """A copy with every tensor on ``device``."""
         return _to_device(self, self._TENSORS, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalRange:
+    """Where a rank-local :class:`Schedule` sits in its view's full one:
+    the full schedule's block count (0 for the all-empty view) and window
+    count, which the kernels check the view against, and the windows and
+    K-blocks the local segments touch, ``[win_lo, win_hi)`` and
+    ``[blk_lo, blk_hi)``: the output rows and value rows the rank
+    writes."""
+
+    view_blocks: int
+    view_windows: int
+    win_lo: int
+    win_hi: int
+    blk_lo: int
+    blk_hi: int
 
 
 # ---------------------------------------------------------------------------

@@ -80,14 +80,17 @@ def sddmm_coo(rows: torch.Tensor, cols: torch.Tensor, q: torch.Tensor,
 
 def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
           k_blk: int = 8, f_blk: int | None = None,
-          split_blk: int | None = None, schedule=None,
+          split_blk: int | None = None, schedule=None, mesh=None,
+          part=None, n_batches: int | None = None,
           precision: str | None = None, check: str | None = None,
           strict: bool | None = None, guard_nonfinite: bool = False):
     """SDDMM dispatch through the registry → blocked-layout values.
 
     Compose with SpMM by rebinding the values (:func:`with_values`).
     ``split_blk``/``schedule`` go to the block-parallel ``cuda_balanced``
-    kernel; ``precision`` (``"fp32"``/``"bf16"``) casts Q and K first.
+    kernel, ``mesh``/``part``/``n_batches`` to the multi-device
+    ``cuda_sharded*`` impls; ``precision`` (``"fp32"``/``"bf16"``) casts
+    Q and K first.
     The tuned impl (``cuda_tuned``, ``returns_format``) takes the
     canonical format and returns the blocked view at its tuned ``k_blk``
     with the scores bound as its values.  ``check``, ``strict`` and
@@ -95,7 +98,8 @@ def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
     K guarded).
     """
     _validate.guard_call(check, fmt, q=q, k=k)
-    kwargs = _optional(f_blk=f_blk, split_blk=split_blk, schedule=schedule)
+    kwargs = _optional(f_blk=f_blk, split_blk=split_blk, schedule=schedule,
+                       mesh=mesh, part=part, n_batches=n_batches)
     if strict is not None or guard_nonfinite:
         return _robust("sddmm", impl, (fmt, q, k),
                        dict(k_blk=k_blk, **kwargs), precision, strict,
@@ -110,14 +114,17 @@ def sddmm(fmt, q: torch.Tensor, k: torch.Tensor, impl: str = "blocked",
 
 def attention(fmt, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               impl: str = "blocked", *, scale=None, k_blk: int = 8,
-              split_blk: int | None = None, schedule=None,
+              split_blk: int | None = None, schedule=None, mesh=None,
+              part=None, n_batches: int | None = None,
               n_blk: int | None = None, precision: str | None = None,
               check: str | None = None, strict: bool | None = None,
               guard_nonfinite: bool = False):
     """Sparse attention ``softmax_sparse(scale · mask ⊙ QKᵀ) @ V`` through
     the registry (``dispatch.impls("attention")``).  ``scale`` defaults to
     ``1/sqrt(F)`` and may be a 0-d tensor; ``split_blk``/``schedule`` go to
-    the block-parallel ``cuda_balanced`` kernel, ``n_blk`` to the SpMM of
+    the block-parallel ``cuda_balanced`` kernel, ``mesh``/``part``/
+    ``n_batches`` to the multi-device ``cuda_sharded*`` impls (a
+    window-aligned partition), ``n_blk`` to the SpMM of
     the three-pass ``cuda_staged``; ``precision`` (``"fp32"``/``"bf16"``)
     casts Q, K and V first.  ``"blocked"`` is the plain three-pass
     composition, the last rung of the fallback ladder.  ``check``,
@@ -125,7 +132,7 @@ def attention(fmt, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`~repro_torch.core.spmm.spmm` (Q, K and V guarded)."""
     _validate.guard_call(check, fmt, q=q, k=k, v=v)
     kwargs = _optional(scale=scale, split_blk=split_blk, schedule=schedule,
-                       n_blk=n_blk)
+                       mesh=mesh, part=part, n_batches=n_batches, n_blk=n_blk)
     if strict is not None or guard_nonfinite:
         return _robust("attention", impl, (fmt, q, k, v),
                        dict(k_blk=k_blk, **kwargs), precision, strict,

@@ -160,7 +160,8 @@ def _robust(op: str, impl: str, operands, kwargs: dict, precision,
 
 def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
          n_blk: int | None = None, split_blk: int | None = None,
-         schedule=None, precision: str | None = None,
+         schedule=None, mesh=None, part=None, n_batches: int | None = None,
+         precision: str | None = None,
          check: str | None = None, strict: bool | None = None,
          guard_nonfinite: bool = False) -> torch.Tensor:
     """SpMM dispatch through the registry (``dispatch.impls("spmm")``).
@@ -169,7 +170,11 @@ def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
     (blocked on ``b``'s device with ``k_blk``) or a ``BlockedMEBCRS``;
     ``n_blk`` sets the column tile of the ``cuda*`` kernels;
     ``split_blk``/``schedule`` parameterize the block-parallel
-    ``cuda_balanced`` kernel (DESIGN.md §11).  ``precision`` (``"fp32"``,
+    ``cuda_balanced`` kernel (DESIGN.md §11); ``mesh``/``part`` the
+    multi-device ``cuda_sharded`` impls (a ``DeviceMesh`` and a
+    :class:`~repro_torch.distributed.sparse_shard.ShardedSchedule`) and
+    ``n_batches`` the pipeline depth of ``cuda_sharded_overlap``
+    (DESIGN.md §12, §14).  ``precision`` (``"fp32"``,
     ``"bf16"``, ``"int8"``; ``None`` = operand dtypes as given) is checked
     against the impl's ``precisions``; the result is in B's dtype after
     the cast (bf16 for bf16 and int8).
@@ -186,7 +191,8 @@ def spmm(fmt, b: torch.Tensor, impl: str = "blocked", k_blk: int = 8,
     with no guard is the plain dispatch.
     """
     _validate.guard_call(check, fmt, b=b)
-    kwargs = _optional(n_blk=n_blk, split_blk=split_blk, schedule=schedule)
+    kwargs = _optional(n_blk=n_blk, split_blk=split_blk, schedule=schedule,
+                       mesh=mesh, part=part, n_batches=n_batches)
     if strict is not None or guard_nonfinite:
         return _robust("spmm", impl, (fmt, b), dict(k_blk=k_blk, **kwargs),
                       precision, strict, guard_nonfinite)

@@ -53,6 +53,7 @@ __all__ = [
     "validate_format",
     "validate_blocked",
     "validate_schedule",
+    "validate_sharded",
     "cheap_guard",
     "guard_operand",
     "guard_call",
@@ -408,6 +409,61 @@ def validate_schedule(sched, blocked=None, check: Optional[str] = "full"):
     return sched
 
 
+def validate_sharded(part, blocked=None, check: Optional[str] = "full"):
+    """Audit a :class:`~repro_torch.distributed.sparse_shard.
+    ShardedSchedule`: its stacked shapes and, with ``blocked`` given, that
+    each rank's ``row_own`` is exactly the rows of its segments' windows,
+    that every output row has an owner, and that every scheduled value
+    row has exactly one (the reference's invariants, in its order)."""
+    level = resolve_check(check)
+    if level == "none":
+        return part
+    if level == "cheap":
+        cheap_guard(bool((part.seg_meta[:, :, 1] >= 0).all()), "seg-flags",
+                    "sharded segment lengths must be >= 0")
+        return part
+
+    d = part.num_devices
+    sw = _np(part.seg_win)
+    sm = _np(part.seg_meta)
+    row_own = _np(part.row_own)
+    blk_own = _np(part.blk_own)
+    _require(sw.ndim == 2 and sw.shape[0] == d and sm.shape[:2] == sw.shape
+             and sm.shape[2] == 4, "shard-shape",
+             f"seg_win/seg_meta shapes {sw.shape}/{sm.shape} inconsistent "
+             f"with num_devices={d}")
+    _require(row_own.shape[0] == d and blk_own.shape[0] == d, "shard-shape",
+             f"ownership masks must lead with num_devices={d}")
+    _require(bool(np.all(sm[:, :, 1] >= 0)), "seg-flags",
+             "sharded segment lengths must be >= 0")
+    if blocked is not None:
+        w = blocked.num_windows
+        # pad segments carry seg_win == W (one past the last window)
+        _require(bool(sw.min() >= 0 and sw.max() <= w), "seg-coverage",
+                 f"sharded seg_win outside [0, {w}]")
+        m = blocked.shape[0]
+        v = blocked.vector_size
+        wptr = _np(blocked.win_ptr)
+        # a straddled window is owned by every rank holding one of its
+        # segments: the reduce adds the partials
+        for dev in range(d):
+            wins = np.unique(sw[dev][sw[dev] < w])
+            rows = (wins[:, None] * v + np.arange(v)).reshape(-1)
+            expect = np.zeros(m, bool)
+            expect[rows[rows < m]] = True
+            _require(np.array_equal(row_own[dev], expect),
+                     "row-own-consistent",
+                     f"device {dev}'s row_own disagrees with its segments")
+        _require(bool(row_own.any(axis=0).all()), "row-own-cover",
+                 "some output rows are owned by no device")
+        owned_rows = int(wptr[-1]) * blocked.k_blk
+        blk_count = blk_own[:, :owned_rows].astype(np.int64).sum(axis=0)
+        _require(bool(np.all(blk_count == 1)), "blk-own-unique",
+                 "each scheduled K-block value row must be owned by "
+                 "exactly one device")
+    return part
+
+
 def guard_call(check: Optional[str], fmt, **operands) -> None:
     """An entry point's validation at the resolved ``check`` level: the
     format audited (:func:`validate`) and each dense operand guarded
@@ -420,9 +476,9 @@ def guard_call(check: Optional[str], fmt, **operands) -> None:
 
 
 def validate(obj, blocked=None, check: Optional[str] = "full"):
-    """Type-dispatching audit of any of the format stack's three types.
-    (The reference's fourth, ``ShardedSchedule``, waits for the port's
-    multi-device layer.)"""
+    """Type-dispatching audit of any of the format stack's four types."""
+    from repro_torch.distributed.sparse_shard import ShardedSchedule
+
     from .format import BlockedMEBCRS, MEBCRS, Schedule
 
     if isinstance(obj, MEBCRS):
@@ -431,6 +487,8 @@ def validate(obj, blocked=None, check: Optional[str] = "full"):
         return validate_blocked(obj, check=check)
     if isinstance(obj, Schedule):
         return validate_schedule(obj, blocked=blocked, check=check)
+    if isinstance(obj, ShardedSchedule):
+        return validate_sharded(obj, blocked=blocked, check=check)
     raise TypeError(f"cannot validate object of type {type(obj).__name__}")
 
 

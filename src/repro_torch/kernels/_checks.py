@@ -22,7 +22,7 @@ from repro_torch.core.autodiff import forward_only
 
 __all__ = ["on_cpu", "forward_inputs", "kernel_inputs", "heads",
            "head_stride", "int32_max", "dtype_code", "variant",
-           "vector_size", "column_tile"]
+           "vector_size", "column_tile", "zero_outside"]
 
 int32_max = 2**31 - 1
 
@@ -84,15 +84,28 @@ def schedule_owner(op: str, schedule, blocked) -> None:
     """Raise unless ``schedule`` schedules ``blocked``'s blocks: as many
     as the view holds, or none for the all-empty view, whose one dummy
     block no window owns (told apart from a one-block view by one read of
-    ``win_ptr``, made only for a zero-block schedule)."""
+    ``win_ptr``, made only for a zero-block schedule).  A rank-local
+    schedule is held to the full schedule it was cut from, by the block
+    count its ``local`` range records."""
     nb = blocked.num_blocks
-    if schedule.num_blocks == nb or (
-            schedule.num_blocks == 0 and nb == 1
-            and int(blocked.win_ptr[-1]) == 0):
+    total = (schedule.num_blocks if schedule.local is None
+             else schedule.local.view_blocks)
+    if total == nb or (total == 0 and nb == 1
+                       and int(blocked.win_ptr[-1]) == 0):
         return
     raise ValueError(f"{op}: the schedule is not this view's "
-                     f"({schedule.num_blocks} scheduled blocks, "
-                     f"{nb} in the view)")
+                     f"({total} scheduled blocks, {nb} in the view)")
+
+
+def zero_outside(out: torch.Tensor, lo: int, hi: int) -> None:
+    """Store zeros in the rows of ``out`` (``(H, R, C)``) outside
+    ``[lo, hi)``: the rows a rank-local schedule does not write.  The
+    kernels allocate without filling because a full schedule writes every
+    row; a local one writes only its windows (SpMM, attention) or its
+    blocks (SDDMM).  Zeros are stored, not multiplied in, so whatever the
+    allocation held never leaks."""
+    out[:, :lo] = 0
+    out[:, hi:] = 0
 
 
 def column_tile(op: str, n_blk: int, hi: int) -> None:

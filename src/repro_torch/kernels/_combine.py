@@ -159,7 +159,12 @@ def _plan_arrays(seg_win: np.ndarray, seg_meta: np.ndarray, w: int,
         return (np.zeros(1, np.int64), np.zeros((0, 4), np.int64),
                 np.zeros(w + 1, np.int64))
     cuts = _run_cuts(seg_meta, run_blk)
-    pos = np.concatenate([[0], np.cumsum(seg_meta[:, 1])])
+    # The segments walk one contiguous block range in order: block
+    # positions count from its first block (0 for a full schedule, the
+    # rank's first for a rank-local one).
+    real = np.nonzero(seg_meta[:, 1])[0]
+    base = int(seg_meta[real[0], 0]) if real.size else 0
+    pos = base + np.concatenate([[0], np.cumsum(seg_meta[:, 1])])
     first = np.nonzero(seg_meta[:, 2])[0]
     start = np.unique(np.concatenate([cuts[:-1], first]))   # piece starts
     end = np.append(start[1:], ns)
@@ -177,7 +182,9 @@ def run_plan(op: str, schedule: Schedule, num_windows: int,
     """The :class:`RunPlan` of ``schedule`` in runs of about ``run_blk``
     K-blocks, on the schedule's device, memoized on the schedule.  Raises
     ``ValueError`` naming ``op`` when the schedule does not cover
-    ``num_windows`` windows (it belongs to another view)."""
+    ``num_windows`` windows (it belongs to another view); a rank-local
+    schedule covers the windows its :class:`~repro_torch.core.format.
+    LocalRange` records, with pieces only in its own range."""
     if run_blk < 1:
         raise ValueError(f"{op}: run_blk must be >= 1, got {run_blk}")
     plans = getattr(schedule, "_run_plans", None)
@@ -187,10 +194,13 @@ def run_plan(op: str, schedule: Schedule, num_windows: int,
     plan = plans.get(run_blk)
     if plan is None:
         # every window keeps at least one segment and seg_win ascends, so
-        # the schedule's window count is its last segment's window + 1
+        # a full schedule's window count is its last segment's window + 1
         sw = schedule.seg_win.cpu().numpy().astype(np.int64)
         meta = schedule.seg_meta.cpu().numpy().astype(np.int64)
-        w = int(sw[-1]) + 1 if sw.size else 0
+        if schedule.local is not None:
+            w = schedule.local.view_windows
+        else:
+            w = int(sw[-1]) + 1 if sw.size else 0
         run_ptr, pieces, win_ent = _plan_arrays(sw, meta, w, run_blk)
         tmeta, levels, tree_entries = _tree_arrays(win_ent)
         dev = schedule.seg_win.device

@@ -113,7 +113,9 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
     ``k ([H,] Mc, D)``, ``v ([H,] Mc, DV)`` → ``([H,] M, DV)`` in V's
     dtype (fp32 or bf16 operands).  ``scale`` (default ``1/sqrt(D)``) may
     be a 0-d tensor; it is folded into Q before the launch, in fp32 and
-    rounded to Q's dtype."""
+    rounded to Q's dtype.  Over a rank-local schedule (window-aligned:
+    the softmax of a window never crosses ranks) the output holds the
+    rank's windows' rows, zeros elsewhere."""
     op = "attention_balanced_cuda"
     if schedule is None:
         schedule = blocked.schedule(split_blk)
@@ -151,9 +153,15 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
         op, {"run_ptr": plan.run_ptr, "pieces": plan.pieces,
              "tree_meta": tree.meta, "cols": blocked.cols},
         {"mask": blocked.mask, "q": qs, "k": k, "v": v})
+    loc = schedule.local
+    if loc is not None and plan.num_runs == 0:   # a store-only rank
+        out = torch.zeros((h, m, dv), dtype=v.dtype, device=q.device)
+        return out if batched else out[0]
     out = torch.empty((h, m, dv), dtype=v.dtype, device=q.device)
     if m == 0 or dv == 0:
         return out if batched else out[0]
+    if loc is not None:
+        _checks.zero_outside(out, loc.win_lo * vsz, loc.win_hi * vsz)
     # Scratch of the combine tree: each run edge's (acc, m, l) in fp32, and
     # the entries of its upper levels with acc and l in fp64 (none when no
     # run cuts a window).

@@ -25,12 +25,14 @@ Cache location: ``$REPRO_TORCH_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro_torch/autotune_cache.json``; the JAX package's cache is
 another file, so the two packages never share a winner.
 
+``tune_spmm``'s ``overlap_batches`` axis (``>= 1``) times the sharded
+overlap pipeline (``spmm_sharded_overlap``) at that depth over a mesh;
+the mesh's data size joins the key (``|d{data}``), as the reference's.
+
 Differences from the reference: the SDDMM kernels stream all of F through
 registers, so the SDDMM sweep's ``f_blk`` candidates collapse to one
-(the winner records F); a candidate is timed on operands already at its
-precision (the cast or quantization is not part of its time); and the
-overlap axis (``overlap_batches > 0``, the sharded pipeline) raises, since
-the port has no multi-device path yet.
+(the winner records F); and a candidate is timed on operands already at
+its precision (the cast or quantization is not part of its time).
 """
 
 from __future__ import annotations
@@ -307,14 +309,6 @@ def _median_ms(fn, device: torch.device, reps: int, warmup: int = 1,
     return float(statistics.median(times))
 
 
-def _no_overlap(overlap_batches: Sequence[int]) -> None:
-    if any(ob > 0 for ob in overlap_batches):
-        raise NotImplementedError(
-            "autotune overlap_batches > 0 times the sharded overlap "
-            "pipeline, which the port does not have yet (ROADMAP.md queue 1 "
-            "item 6, multi-device)")
-
-
 def sweep_key(stats_key: str, *, k_blks: Sequence[int] = DEFAULT_K_BLKS,
               n_blks: Sequence[int] = DEFAULT_N_BLKS,
               split_blks: Sequence[int] = DEFAULT_SPLIT_BLKS,
@@ -334,8 +328,8 @@ def _sweep(fmt: MEBCRS, run_cfg, tile, key: str, *, device,
            split_blks: Sequence[int], precisions: Sequence[str],
            overlap_batches: Sequence[int] = (0,), reps: int,
            cache: Optional[AutotuneCache]) -> TuneConfig:
-    """Time ``run_cfg(blocked, n_tile, split, prec)`` over the candidate
-    grid (``tile(n_blk)`` is the tile a candidate ``n_blk`` runs; equal
+    """Time ``run_cfg(blocked, n_tile, split, prec, ob)`` over the
+    candidate grid (``tile(n_blk)`` is the tile a candidate ``n_blk`` runs; equal
     tiles are timed once) and cache the fastest.  A candidate that raises
     is logged, counted in :data:`failed_candidates` and skipped."""
     global failed_candidates, last_error
@@ -343,7 +337,6 @@ def _sweep(fmt: MEBCRS, run_cfg, tile, key: str, *, device,
 
     for prec in precisions:
         validate_precision(prec)
-    _no_overlap(overlap_batches)
     cache = cache if cache is not None else default_cache()
     key = sweep_key(key, k_blks=k_blks, n_blks=n_blks, split_blks=split_blks,
                     precisions=precisions, overlap_batches=overlap_batches)
@@ -368,7 +361,7 @@ def _sweep(fmt: MEBCRS, run_cfg, tile, key: str, *, device,
                         # keep-alive: one candidate that fails must not end
                         # the sweep; it is counted and skipped
                         try:
-                            fn = run_cfg(blocked, eff, split, prec)
+                            fn = run_cfg(blocked, eff, split, prec, ob)
                             ms = _median_ms(fn, device, reps=reps)
                         except Exception as e:
                             n_failed += 1
@@ -376,7 +369,7 @@ def _sweep(fmt: MEBCRS, run_cfg, tile, key: str, *, device,
                             last_exc = e
                             last_error = (
                                 f"k_blk={k_blk}, n_blk={eff}, split={split}, "
-                                f"prec={prec}: {type(e).__name__}: "
+                                f"prec={prec}, ob={ob}: {type(e).__name__}: "
                                 f"{str(e)[:200]}")
                             logger.warning("autotune candidate %s failed",
                                            last_error)
@@ -422,7 +415,8 @@ def tune_spmm(fmt: MEBCRS, b_dense: torch.Tensor, *,
               n_blks: Sequence[int] = DEFAULT_N_BLKS,
               split_blks: Sequence[int] = DEFAULT_SPLIT_BLKS,
               precisions: Sequence[str] = ("fp32",),
-              overlap_batches: Sequence[int] = (0,), reps: int = 3,
+              overlap_batches: Sequence[int] = (0,), mesh=None,
+              reps: int = 3,
               cache: Optional[AutotuneCache] = None) -> TuneConfig:
     """Pick ``(k_blk, n_blk, split_blk)`` for SpMM on this matrix class.
 
@@ -430,17 +424,31 @@ def tune_spmm(fmt: MEBCRS, b_dense: torch.Tensor, *,
     for a 3-D ``b_dense``, one launch for every head, the path batched
     callers run), ``>= 1`` ``spmm_balanced_cuda`` over the schedule of
     that cap.  ``precisions`` adds the dtype axis; the winner's level is
-    ``TuneConfig.precision``.  Timed on ``b_dense``'s device.
+    ``TuneConfig.precision``.  ``overlap_batches`` adds the sharded
+    overlap axis: candidates ``>= 1`` time ``spmm_sharded_overlap`` at
+    that depth over ``mesh`` (or the ambient one), and ``0`` the
+    single-device kernels.  Timed on ``b_dense``'s device.
     """
     from .spmm_balanced_cuda import spmm_balanced_cuda
     from .spmm_batched_cuda import spmm_batched_cuda
     from .spmm_cuda import spmm_cuda
 
-    _no_overlap(overlap_batches)
+    overlap = any(ob > 0 for ob in overlap_batches)
+    if overlap:
+        from repro_torch.distributed.ctx import _resolve_mesh
+
+        mesh = _resolve_mesh(mesh)
     batch = b_dense.shape[0] if b_dense.dim() == 3 else 1
 
-    def run(blocked, n_blk, split, prec):
+    def run(blocked, n_blk, split, prec, ob):
         bl, bb = _at_precision(blocked, b_dense, prec)
+        if ob:
+            from repro_torch.distributed.sparse_shard_overlap import (
+                spmm_sharded_overlap)
+
+            return lambda: spmm_sharded_overlap(
+                bl, bb, mesh=mesh, split_blk=split, n_blk=n_blk,
+                n_batches=ob)
         if split:
             sched = blocked.schedule(split)
             return lambda: spmm_balanced_cuda(bl, bb, schedule=sched,
@@ -451,6 +459,10 @@ def tune_spmm(fmt: MEBCRS, b_dense: torch.Tensor, *,
     n = b_dense.shape[-1]
     key = matrix_stats_key(fmt, n, "spmm", device=b_dense.device,
                            dtype=b_dense.dtype, batch=batch)
+    if overlap:
+        from repro_torch.distributed.sparse_shard import _axis
+
+        key = f"{key}|d{_axis(mesh, 'data')}"
     return _sweep(fmt, run, _spmm_tile(n), key, device=b_dense.device,
                   k_blks=k_blks, n_blks=n_blks, split_blks=split_blks,
                   precisions=precisions, overlap_batches=overlap_batches,
@@ -478,7 +490,7 @@ def tune_sddmm(fmt: MEBCRS, q: torch.Tensor, k: torch.Tensor, *,
 
     batch = next((x.shape[0] for x in (q, k) if x.dim() == 3), 1)
 
-    def run(blocked, _f, split, prec):
+    def run(blocked, _f, split, prec, _ob):
         qq, kk = _cast(prec, q, k)
         if split:
             sched = blocked.schedule(split)
@@ -514,7 +526,7 @@ def tune_attention(fmt: MEBCRS, q: torch.Tensor, k: torch.Tensor,
     key = matrix_stats_key(fmt, d, "attn", device=q.device, dtype=q.dtype,
                            batch=batch)
 
-    def run(blocked, _dv, split, prec):
+    def run(blocked, _dv, split, prec, _ob):
         qq, kk, vv = _cast(prec, q, k, v)
         if split:
             sched = blocked.schedule(split)

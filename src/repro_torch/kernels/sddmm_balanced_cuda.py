@@ -63,7 +63,9 @@ def sddmm_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
                         split_blk: int = 1) -> torch.Tensor:
     """Sampled ``Q Kᵀ`` at ``blocked``'s pattern over ``schedule``'s block
     list (built with ``split_blk`` when omitted), fp32 or bf16 operands
-    with fp32 dots, as blocked-layout values in Q's dtype."""
+    with fp32 dots, as blocked-layout values in Q's dtype; over a
+    rank-local schedule, the rows of the rank's blocks and zeros
+    elsewhere."""
     op = "sddmm_balanced_cuda"
     if schedule is None:
         schedule = blocked.schedule(split_blk)
@@ -81,8 +83,8 @@ def sddmm_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
         raise ValueError(f"{op}: shape too large for the kernel's grid")
     _checks.schedule_owner(op, schedule, blocked)
     if schedule.num_blocks == 0:
-        # The all-empty view's zero-block schedule: zeros without a
-        # launch, as the reference.
+        # The all-empty view's zero-block schedule (or a rank that holds
+        # no block): zeros without a launch, as the reference.
         out = torch.zeros((h, blocked.cols.shape[0], v),
                           dtype=q.dtype, device=q.device)
         return out if batched else out[0]
@@ -94,8 +96,13 @@ def sddmm_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
         op, {k_: tensors[k_] for k_ in ("blk_id", "blk_win", "cols")},
         {"mask": blocked.mask, "q": q, "k": k})
     nnzp = blocked.cols.shape[0]
-    # every block of a non-empty view is scheduled, so every row is written
+    # every block of a non-empty view is scheduled, so every row is
+    # written; a rank-local schedule writes only its blocks' rows
     out = torch.empty((h, nnzp, v), dtype=q.dtype, device=q.device)
+    loc = schedule.local
+    if loc is not None:
+        k_blk = blocked.k_blk
+        _checks.zero_outside(out, loc.blk_lo * k_blk, loc.blk_hi * k_blk)
     err = _build.library("sddmm_balanced").sddmm_balanced_launch(
         schedule.blk_id.data_ptr(), schedule.blk_win.data_ptr(),
         blocked.cols.data_ptr(), q.data_ptr(), k.data_ptr(),

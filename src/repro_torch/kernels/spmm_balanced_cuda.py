@@ -107,7 +107,8 @@ def spmm_balanced_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
     B's dtype, block-parallel over ``schedule`` (built from ``blocked``
     with ``split_blk`` when omitted) in runs of about ``run_blk``
     K-blocks; ``n_blk`` is the column tile (threads per block, a multiple
-    of 32 up to 256)."""
+    of 32 up to 256).  Over a rank-local schedule C is the rank's
+    partial: its windows' rows, zeros elsewhere."""
     op = "spmm_balanced_cuda"
     if schedule is None:
         schedule = blocked.schedule(split_blk)
@@ -138,9 +139,15 @@ def spmm_balanced_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
              "tree_meta": tree.meta, "cols": blocked.cols},
         {k_: t for k_, t in tensors.items()
          if k_ in ("vals", "b", "scales")})
+    loc = schedule.local
+    if loc is not None and plan.num_runs == 0:   # a store-only rank
+        c = torch.zeros((h, m, n), dtype=b.dtype, device=b.device)
+        return c if batched else c[0]
     c = torch.empty((h, m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c if batched else c[0]
+    if loc is not None:
+        _checks.zero_outside(c, loc.win_lo * v, loc.win_hi * v)
     # Scratch of the combine tree: the run edges' fp32 partials and the
     # fp64 entries of its upper levels (none when no run cuts a window).
     part = part2 = None

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.models.layers``'s ``sparse_attention`` and
 ``sparse_attention_staged`` (the reference module's GQA, MoE and Mamba
-layers are ROADMAP.md queue 1 item 7, the LM stack).  The pattern (a
+layers are ROADMAP.md queue 1, the LM stack).  The pattern (a
 local window plus strided global keys, say) is shared by the heads; the
 scores and probabilities are per head, and stay in the blocked ME-BCRS
 layout.

@@ -14,6 +14,14 @@ registered ``(op, impl, precision)`` of the port against the dense oracle
 on the vendored real matrices (``tests/data``)::
 
     python -m repro_torch.testing.conformance --datasets tridiag_64
+
+:mod:`repro_torch.testing.multirank` runs the sharded ops on several
+gloo ranks of the CPU (one spawn, a ``FileStore`` rendezvous), for the
+tests that hold the multi-device layer against the reference;
+:mod:`repro_torch.testing.multicard` runs the sharded GNN routes across
+cards under torchrun against the one-card route and times them::
+
+    torchrun --nproc_per_node=4 -m repro_torch.testing.multicard
 """
 
 from .conformance import (

@@ -8,8 +8,9 @@ correct on real matrices.  For each loaded
 
   1. enumerates every registered ``(op, impl, precision)`` combination
      (:func:`enumerate_cases`) plus the ``split`` variant of the
-     ``load_balanced`` impls: nothing is hand-listed, so a newly
-     registered impl is covered the day it lands;
+     ``load_balanced`` impls and the ``overlap`` variant (two segment
+     batches) of the ``overlapped`` ones: nothing is hand-listed, so a
+     newly registered impl is covered the day it lands;
   2. runs each against the dense numpy oracle under the per-
      ``(op, precision)`` tolerance ladder (DESIGN.md §13):
      fp32 ≈ 2e-4, bf16 ≈ 2e-2, int8 ≈ 5e-2, with the atol scaled by the
@@ -23,8 +24,9 @@ SDDMM) are read through ``to_coo``, the edge-value ``coo`` impl is
 compared in ``to_coo`` order, and the ``*_batched`` impls get H = 2
 stacked operands against a stacked oracle.  Operands and impls run on a
 ``device=`` argument (the card unless it says otherwise); the tuned impls
-sweep into a temporary autotune cache.  The reference's ``overlap``
-variants and sharded impls wait for the port's multi-device layer.
+sweep into a temporary autotune cache; the ``multi_device`` impls run on
+a one-rank ``(1, 1)`` mesh of that device, as the reference's
+``_conformance_mesh`` (the group it starts ends with the run).
 
 :func:`self_test` proves the harness catches a wrong kernel: it registers
 a deliberately broken impl and raises
@@ -56,6 +58,7 @@ from repro_torch.core import dispatch as _dispatch
 from repro_torch.core.format import (block_format, resolve_device, to_coo)
 from repro_torch.core.sddmm import attention, sddmm, with_values
 from repro_torch.core.spmm import spmm
+from repro_torch.launch.mesh import one_rank_mesh
 
 __all__ = [
     "ConformanceCase",
@@ -82,9 +85,10 @@ class ConformanceCase:
     """One (op, impl, precision, variant) combination to execute.
 
     ``variant``: ``"base"`` (plain call; ``*_batched`` impls get H = 2
-    stacked operands) or ``"split"`` (``split_blk=2`` on load-balanced
-    impls, fp32 only: the variants probe the schedule, precision expands
-    on the base variant).
+    stacked operands), ``"split"`` (``split_blk=2`` on load-balanced
+    impls) or ``"overlap"`` (``n_batches=2`` on overlapped impls); the
+    variants run at fp32 only: they probe the schedule, precision expands
+    on the base variant.
     """
 
     op: str
@@ -132,6 +136,8 @@ def enumerate_cases(ops: Sequence[str] = OPS,
                 continue
             if entry.load_balanced:
                 cases.append(ConformanceCase(op, name, "fp32", "split"))
+            if entry.overlapped:
+                cases.append(ConformanceCase(op, name, "fp32", "overlap"))
     return cases
 
 
@@ -204,8 +210,12 @@ def run_case(case: ConformanceCase, sample, operands) -> ConformanceRecord:
     kw: Dict[str, object] = {"impl": case.impl}
     if case.precision != "fp32":
         kw["precision"] = case.precision
+    if entry.multi_device:
+        kw["mesh"] = operands["mesh"]
     if case.variant == "split":
         kw["split_blk"] = 2
+    if case.variant == "overlap":
+        kw["n_batches"] = 2
 
     def blocked_view():
         if "blocked" not in operands:
@@ -324,10 +334,14 @@ def run_conformance(samples=None, ops: Sequence[str] = OPS,
         samples = load_vendored()
     cases = enumerate_cases(ops, impl_names, precisions)
     records: List[ConformanceRecord] = []
-    with _temporary_autotune_cache():
+    sharded = any(_dispatch.get(c.op, c.impl).multi_device for c in cases)
+    with _temporary_autotune_cache(), (
+            one_rank_mesh(device) if sharded
+            else contextlib.nullcontext()) as mesh:
         for sample in samples:
             operands = _operands_for(sample, np.random.default_rng(seed),
                                      device)
+            operands["mesh"] = mesh
             for case in cases:
                 record = run_case(case, sample, operands)
                 records.append(record)

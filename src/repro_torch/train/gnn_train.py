@@ -5,16 +5,24 @@ aggregation) and AGNN (sparse attention) on a scaled paper graph.  The
 adjacency is wrapped in an autodiff plan (``ad_plan``), so ``--impl``
 selects any differentiable registry impl — ``blocked`` (plain PyTorch),
 ``cuda`` (the window-parallel kernels), ``cuda_balanced`` (the
-block-parallel kernels over a schedule) or ``cuda_tuned`` (the autotuner
+block-parallel kernels over a schedule), ``cuda_tuned`` (the autotuner
 picks the route and tiles of each direction when the plan is built, at
 the model's hidden width; winners cached in
-``$REPRO_TORCH_AUTOTUNE_CACHE``) — and the backward pass runs the
+``$REPRO_TORCH_AUTOTUNE_CACHE``) or ``cuda_sharded`` /
+``cuda_sharded_overlap`` (one rank-local launch of the block-parallel
+kernels per rank of ``--mesh DATA,MODEL`` and an ``all_reduce``, or a
+send/recv ring over segment batches) — and the backward pass runs the
 dispatched transpose-SpMM/SDDMM duality through the same kernels.
 
   PYTHONPATH=src python -m repro_torch.train.gnn_train [--graph GitHub]
   PYTHONPATH=src python -m repro_torch.train.gnn_train --steps 2 \\
       --impl cuda --device cpu [--dtype bf16 | --int8]
       # smoke: one small config, asserts a finite, decreasing loss
+  torchrun --nproc_per_node=N -m repro_torch.train.gnn_train --steps 2 \
+      --impl cuda_sharded --mesh N,1
+      # N ranks, one card each (gloo with --device cpu)
+
+A sharded impl without ``--mesh`` runs on a one-rank mesh.
 
 The full run trains each model at the reference's (V, dtype) pairs,
 (8, f32), (16, f32) and (8, bf16).  ``--dtype bf16`` runs the smoke in
@@ -35,6 +43,7 @@ import torch
 
 from repro_torch.core import ad_plan, from_coo
 from repro_torch.core.format import resolve_device
+from repro_torch.launch.mesh import mesh_from_arg
 from repro_torch.models.gnn import AGNN, GCN, GNNConfig, make_train_step
 from repro_torch.sparse.graphs import make_dataset
 
@@ -59,9 +68,10 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 def train_one(g, x_np, labels_np, mask_np, *, model: str, v: int, impl: str,
               epochs: int, num_classes: int = 8, in_dim: int = 64,
               lr: float = 5e-3, device=None, dtype=torch.float32,
-              precision=None):
+              precision=None, mesh=None):
     """Train one (model, V, dtype, impl) configuration for ``epochs``
-    steps; ``precision`` is the plan's (``"int8"`` on fp32 masters).
+    steps; ``precision`` is the plan's (``"int8"`` on fp32 masters),
+    ``mesh`` the sharded impls' ``DeviceMesh``.
     Returns the losses, the last step's accuracy and ms per step (host
     clock, ending in a synchronise on the card)."""
     device = resolve_device(device)
@@ -73,7 +83,7 @@ def train_one(g, x_np, labels_np, mask_np, *, model: str, v: int, impl: str,
     fmt = from_coo(g.rows, g.cols, g.vals, (g.num_nodes, g.num_nodes),
                    vector_size=v, dtype=dtype)
     adj = ad_plan(fmt, impl=impl, n_example=cfg.hidden_dim, device=device,
-                  precision=precision)
+                  mesh=mesh, precision=precision)
     x = torch.from_numpy(x_np).to(device=device, dtype=dtype)
     labels = torch.from_numpy(labels_np).to(device)
     mask = torch.from_numpy(mask_np).to(device)
@@ -99,7 +109,11 @@ def main(argv=None) -> None:
     ap.add_argument("--model", default="both", choices=["gcn", "agnn", "both"])
     ap.add_argument("--impl", default="blocked",
                     choices=["blocked", "cuda", "cuda_balanced",
-                             "cuda_tuned"])
+                             "cuda_tuned", "cuda_sharded",
+                             "cuda_sharded_overlap"])
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="the sharded impls' mesh (run DATA*MODEL ranks "
+                         "under torchrun); default 1,1")
     ap.add_argument("--steps", type=int, default=None,
                     help="smoke mode: run STEPS steps of one small config "
                          "and assert a finite loss decrease")
@@ -117,6 +131,11 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     if args.int8 and args.dtype != "f32":
         ap.error("--int8 keeps fp32 masters; it takes --dtype f32")
+    mesh = None
+    if args.impl.startswith("cuda_sharded"):
+        mesh = mesh_from_arg(args.mesh or "1,1", device=device)
+    elif args.mesh is not None:
+        ap.error("--mesh takes a sharded --impl")
 
     if args.steps is not None:
         scale = min(args.scale, 0.002)
@@ -127,7 +146,7 @@ def main(argv=None) -> None:
             g, x, labels, mask, model=model, v=8, impl=args.impl,
             epochs=args.steps, lr=5e-2, device=device,
             dtype=DTYPES[args.dtype],
-            precision="int8" if args.int8 else None)
+            precision="int8" if args.int8 else None, mesh=mesh)
         mode = "int8 plan" if args.int8 else args.dtype
         print(f"smoke {model} impl={args.impl} {mode} device={device}: loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f} ({dt:.1f} ms/step)")
@@ -148,7 +167,7 @@ def main(argv=None) -> None:
             losses, acc, dt = train_one(
                 g, x, labels, mask, model=model, v=v, impl=args.impl,
                 epochs=args.epochs, device=device,
-                dtype=DTYPES[dtype_name])
+                dtype=DTYPES[dtype_name], mesh=mesh)
             print(f"  {model:4s} V={v:2d} {dtype_name:4s} impl={args.impl}: "
                   f"{dt:7.1f} ms/epoch | loss {losses[-1]:.4f} | "
                   f"train acc {acc:.3f}")

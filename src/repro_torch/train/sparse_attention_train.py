@@ -7,7 +7,10 @@ strided global keys) is stored as ME-BCRS at the paper's V = 8; the
 multi-head layer ``models.layers.sparse_attention`` runs over an
 ``ad_plan`` of it.  On ``--impl cuda`` the forward is one launch of the
 fused attention kernel for every head, and the backward the head-grid
-SDDMM/SpMM kernels; ``cuda_balanced`` runs their block-parallel versions.
+SDDMM/SpMM kernels; ``cuda_balanced`` runs their block-parallel versions,
+and ``cuda_sharded`` / ``cuda_sharded_overlap`` those per rank of
+``--mesh DATA,MODEL`` (sequence windows over ``data``, heads over
+``model``; a one-rank mesh without ``--mesh``).
 The script holds the output and ∂out/∂Q against dense masked attention
 and, with ``--steps N``, recovers a value projection by SGD through the
 gradient path.  ``--precision bf16`` builds the plan with
@@ -22,6 +25,8 @@ ladder.
   PYTHONPATH=src python -m repro_torch.train.sparse_attention_train \\
       --device cpu --seq 256 --heads 2 --steps 2 [--precision bf16]
       # CPU smoke through the kernels' plain versions
+  torchrun --nproc_per_node=4 -m repro_torch.train.sparse_attention_train \
+      --impl cuda_sharded --mesh 2,2
 
 Entry points run on the card unless ``--device cpu`` is given.
 """
@@ -47,7 +52,8 @@ __all__ = ["block_sparse_causal_pattern", "dense_mask",
            "params_from_jax", "value_projection_loss",
            "train_value_projection", "ValueProjectionRun", "main"]
 
-KERNEL_IMPLS = ("cuda", "cuda_balanced")
+KERNEL_IMPLS = ("cuda", "cuda_balanced", "cuda_sharded",
+                "cuda_sharded_overlap")
 # Against dense masked attention: the reference example's tolerances in
 # fp32, and at bf16 the reference's ladder (DESIGN.md §13: within about
 # 1e-2 of the fp32 run; the output and dQ are rounded to bf16).
@@ -194,7 +200,10 @@ def main(argv=None) -> None:
                     help="run N value-projection SGD steps through the "
                          "gradient path after the checks")
     ap.add_argument("--impl", default="cuda",
-                    choices=["blocked", "cuda", "cuda_balanced"])
+                    choices=["blocked"] + list(KERNEL_IMPLS))
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="the sharded impls' mesh (run DATA*MODEL ranks "
+                         "under torchrun); default 1,1")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--precision", default=None, choices=["fp32", "bf16"],
@@ -209,7 +218,14 @@ def main(argv=None) -> None:
     rows, cols = block_sparse_causal_pattern(seq)
     fmt = from_coo(rows, cols, np.ones(rows.shape, np.float32), (seq, seq),
                    vector_size=8)
-    plan = ad_plan(fmt, impl=args.impl, device=device,
+    mesh = None
+    if args.impl.startswith("cuda_sharded"):
+        from repro_torch.launch.mesh import mesh_from_arg
+
+        mesh = mesh_from_arg(args.mesh or "1,1", device=device)
+    elif args.mesh is not None:
+        ap.error("--mesh takes a sharded --impl")
+    plan = ad_plan(fmt, impl=args.impl, device=device, mesh=mesh,
                    precision=args.precision)
     density = len(rows) / seq ** 2
     print(f"pattern: {len(rows):,} nonzeros of {seq * seq:,} "
@@ -223,7 +239,7 @@ def main(argv=None) -> None:
         out = sparse_attention(plan, q, k, v, impl=args.impl)
     if args.impl in KERNEL_IMPLS:
         assert log == [("attention", "cuda_fused_attn" if args.impl == "cuda"
-                        else "cuda_balanced")], log
+                        else args.impl)], log
         print(f"forward: ONE fused-kernel dispatch for {heads} heads")
 
     mask = dense_mask(rows, cols, seq, device)

@@ -37,6 +37,7 @@ from repro.data.datasets import load_vendored, vendored_names
 from repro.kernels import autotune as jtune
 from repro.models import gnn as jgnn
 from repro.sparse.structure import classify_format as jax_classify_format
+from repro_torch.launch.mesh import one_rank_mesh
 from repro_torch.core import (BlockedMEBCRS, ad_plan, attention,
                               block_format, dispatch, from_coo, sddmm, spmm)
 from repro_torch.core.autodiff import _blocked_perm
@@ -207,7 +208,7 @@ def test_sweep_survives_a_failing_candidate_and_counts_it(tmp_path):
     autotune.reset_counters()
     attempts = []
 
-    def run_cfg(blocked, n_blk, split, prec):
+    def run_cfg(blocked, n_blk, split, prec, ob):
         attempts.append(n_blk)
         if n_blk == 64:
             raise RuntimeError("simulated launch failure")
@@ -388,8 +389,18 @@ def test_cpu_sweep_times_plain_versions_and_hits_its_cache(tmp_path):
     cfg_a = autotune.tune_attention(fmt, q, q, torch.zeros(
         (fmt.shape[0], 40)), cache=cache, reps=1)
     assert cfg_a.n_blk == 40 and len(autotune.timed) == 25
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # the overlap axis times the sharded pipeline over a mesh, whose data
+    # size joins the key
+    with pytest.raises(ValueError, match="need a mesh"):
         autotune.tune_spmm(fmt, b, cache=cache, overlap_batches=(0, 2))
+    with one_rank_mesh("cpu") as mesh:
+        cfg_o = autotune.tune_spmm(fmt, b, cache=cache, reps=1, k_blks=(8,),
+                                   split_blks=(1,), n_blks=(128,),
+                                   overlap_batches=(0, 2), mesh=mesh)
+    assert len(autotune.timed) == 27 and autotune.failed_candidates == 0
+    assert cfg_o.overlap_batches in (0, 2)
+    assert all("|d1|" in key and key.endswith("|o0,2")
+               for key, _ in autotune.timed[25:])
 
 
 def test_tuned_entry_points_run_their_winners(tmp_path, monkeypatch):
@@ -439,7 +450,7 @@ def test_tuned_plan_pins_its_precision_and_checks_every_route(tmp_path):
     assert keys == {"spmm|int8|o0", "sddmm|bf16|o0"}
     assert ad_plan(fmt, impl="cuda_tuned", n_example=8, cache=cache,
                    device="cpu", precision="int8") is plan
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="builds plans for"):
         ad_plan(fmt, impl="pallas_sharded", device="cpu")
 
 

@@ -89,7 +89,9 @@ def test_port_registry_conforms_on_the_vendored_set(op):
 def test_enumeration_follows_the_registry_and_the_report_reads():
     cases = conf.enumerate_cases()
     assert ({c.impl for c in cases if c.variant == "split"}
-            == {"cuda_balanced"})
+            == {"cuda_balanced", "cuda_sharded", "cuda_sharded_overlap"})
+    assert ({c.impl for c in cases if c.variant == "overlap"}
+            == {"cuda_sharded_overlap"})
     assert all(c.precision == "fp32" for c in cases if c.variant != "base")
     assert conf.enumerate_cases(precisions=("int8",)) == [
         conf.ConformanceCase("spmm", n, "int8") for n in dispatch.impls("spmm")

@@ -23,7 +23,11 @@ tile shared by the window, head-grid and balanced SDDMMs: the same bits
 per sampled row from all three and from a second launch, at odd F,
 F = 720 and 1,500, V = 16, k_blk 3, 4 and 16, H 1, 2 and 12 with shared
 and per-head operands, fp32 and bf16 (bf16 bitwise the fp32 kernel on
-widened operands, rounded).  They skip on a host without a
+widened operands, rounded).  The multi-device layer's rank-local
+launches of rows 4, 8 and 10 over partitions of 2 and 4 ranks against
+their plain versions and summing to the unsharded launch, and a GCN step
+on the sharded plans over a one-rank NCCL mesh.  They skip on a host
+without a
 CUDA device; on one, run
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
@@ -1126,3 +1130,102 @@ def test_guard_nonfinite_rescues_bf16_overflow_on_card(device):
                    guard_nonfinite=True)
     assert torch.equal(plain.float(), guarded)
     assert metrics.counters()["guard_nonfinite_rerun"] == 2
+
+
+# ------------------------------------------------- the multi-device layer ----
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("case", [CASES[0], CASES[4], HUB_CASE],
+                         ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}")
+def test_rank_local_launches_match_plain_on_card(device, case, d):
+    """Rows 4, 8 and 10 over each rank's range of a partition (cuts inside
+    hub windows for the SpMM and SDDMM, window-aligned for the attention)
+    against their plain versions, bf16 within one ulp, and the ranks'
+    partials summing to the unsharded launch."""
+    from repro_torch.distributed import (attention_sharded_local,
+                                         sddmm_sharded_local,
+                                         sharded_schedule,
+                                         spmm_sharded_local)
+
+    m, k, density, empty, v, k_blk, n, f, dv = case
+    rng = np.random.default_rng(m + k + d)
+    a = _matrix(rng, m, k, density, empty)
+    blocked = block_format(from_dense(a, vector_size=v), k_blk,
+                           device=device)
+    part = sharded_schedule(blocked, d)
+    aligned = sharded_schedule(blocked, d, window_split=False)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+
+    b, q, kk, vv = t(k, n), t(m, f), t(k, f), t(k, dv)
+    sums = {}
+    for r in range(d):
+        loc, loc_a = part.local(r), aligned.local(r)
+        outs = {"spmm": spmm_sharded_local(blocked, b, part, r),
+                "sddmm": sddmm_sharded_local(blocked, q, kk, part, r),
+                "attn": attention_sharded_local(blocked, q, kk, vv, aligned,
+                                                r, scale=0.5)}
+        torch.testing.assert_close(outs["spmm"],
+                                   spmm_balanced_plain(blocked, b, loc),
+                                   rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(outs["sddmm"],
+                                   sddmm_balanced_plain(blocked, q, kk, loc),
+                                   rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(
+            outs["attn"], attention_balanced_plain(blocked, q, kk, vv, loc_a,
+                                                   0.5), rtol=RTOL, atol=ATOL)
+        if k_blk == 8 and n % 2 == 0:
+            b16 = b.to(BF16)
+            _one_ulp(spmm_sharded_local(with_values(blocked, blocked.vals.to(
+                BF16)), b16, part, r), spmm_balanced_plain(
+                    with_values(blocked, blocked.vals.to(BF16)), b16, loc))
+        for key, x in outs.items():
+            sums[key] = sums.get(key, 0) + x
+    torch.testing.assert_close(sums["spmm"], spmm_balanced_cuda(blocked, b),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(sums["sddmm"],
+                               sddmm_balanced_cuda(blocked, q, kk),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        sums["attn"], attention_balanced_cuda(blocked, q, kk, vv, scale=0.5),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_sharded_plan_trains_on_a_one_rank_nccl_mesh(device):
+    """A GCN step on ``cuda_sharded`` and ``cuda_sharded_overlap`` plans
+    over a one-rank NCCL mesh against the ``cuda_balanced`` plan."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import one_rank_mesh
+
+    rng = np.random.default_rng(31)
+    a = _matrix(rng, 120, 120, 0.08)
+    np.fill_diagonal(a, 1.0)
+    fmt = from_dense(a)
+    cfg_kw = dict(model="gcn", in_dim=16, hidden_dim=32, num_classes=4,
+                  num_layers=3)
+    x = torch.from_numpy(rng.standard_normal((120, 16)).astype(
+        np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 4, 120)).to(device)
+    mask = torch.ones(120, device=device)
+
+    def grads(impl, mesh=None):
+        cfg = gnn.GNNConfig(impl=impl, **cfg_kw)
+        net = gnn.GCN(cfg, device=device, seed=0)
+        plan = ad_plan(fmt, impl=impl, device=device, mesh=mesh)
+        loss, _ = gnn.gnn_loss(net.params(), plan, x, labels, mask, cfg)
+        loss.backward()
+        return loss.item(), [p.grad for p in net.parameters()]
+
+    want_loss, want = grads("cuda_balanced")
+    with one_rank_mesh(device) as mesh:
+        assert dist.get_backend() == "nccl"
+        for impl in ("cuda_sharded", "cuda_sharded_overlap"):
+            loss, got = grads(impl, mesh)
+            assert loss == pytest.approx(want_loss, rel=1e-5)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    assert not dist.is_initialized()

@@ -30,8 +30,9 @@ _REF_NAME = {"cuda": "pallas", "cuda_batched": "pallas_batched",
              "cuda_noncoalesced": "pallas_noncoalesced",
              "cuda_tuned": "pallas_tuned",
              "cuda_fused_attn": "pallas_fused_attn",
-             "cuda_fused_attn_tuned": "pallas_fused_attn_tuned"}
-_SHARDED = ("pallas_sharded_overlap", "pallas_sharded")
+             "cuda_fused_attn_tuned": "pallas_fused_attn_tuned",
+             "cuda_sharded": "pallas_sharded",
+             "cuda_sharded_overlap": "pallas_sharded_overlap"}
 
 
 def make_fmt(seed=0, m=40, k=36, density=0.25):
@@ -68,13 +69,12 @@ def test_fallback_chain_shape():
 @pytest.mark.parametrize("op", ["spmm", "sddmm", "attention"])
 def test_every_port_impl_has_the_reference_ladder(op):
     """``fallback_chain``/``fallback_for`` for every registered impl: the
-    reference's rungs (sharded ones aside) under the port's names."""
+    reference's rungs under the port's names."""
     names = {v: k for k, v in _REF_NAME.items()}
     for impl in dispatch.impls(op):
         ref_impl = _REF_NAME.get(impl, impl)
         want = tuple(names.get(n, n) for n in
-                     jdispatch.fallback_chain(op, ref_impl)
-                     if n not in _SHARDED)
+                     jdispatch.fallback_chain(op, ref_impl))
         assert dispatch.fallback_chain(op, impl) == want, (op, impl)
         assert set(want) <= set(dispatch.impls(op)), (op, impl)
         got = dispatch.fallback_for(op, impl)

@@ -149,8 +149,11 @@ def test_transpose_values_relayout_matches_jax():
 
 def test_unported_plan_impls_name_the_roadmap():
     fmt = tf.from_dense(np.eye(8, dtype=np.float32))
-    # the sharded plans wait for the multi-device queue item
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
+    # an impl the port builds no plan for names the ones it builds
+    with pytest.raises(NotImplementedError, match="'cuda_sharded_overlap'"):
+        ad_plan(fmt, impl="cuda_staged", device="cpu")
+    # the sharded plans need a mesh
+    with pytest.raises(ValueError, match="need a mesh"):
         ad_plan(fmt, impl="cuda_sharded", device="cpu")
     with pytest.raises(ValueError, match="canonical"):
         ad_plan(tf.block_format(fmt, device="cpu"), device="cpu")

@@ -178,14 +178,18 @@ def test_sparse_softmax_matches_jax(name):
 def test_registry_lists_the_ported_impls():
     assert dispatch.impls("spmm") == ("blocked", "coo_segment", "cuda",
                                       "cuda_balanced", "cuda_batched",
-                                      "cuda_noncoalesced", "cuda_staged",
+                                      "cuda_noncoalesced", "cuda_sharded",
+                                      "cuda_sharded_overlap", "cuda_staged",
                                       "cuda_tuned")
     assert dispatch.impls("sddmm") == ("blocked", "coo", "cuda",
                                        "cuda_balanced", "cuda_batched",
+                                       "cuda_sharded", "cuda_sharded_overlap",
                                        "cuda_tuned")
     assert dispatch.impls("attention") == ("blocked", "cuda_balanced",
                                            "cuda_fused_attn",
                                            "cuda_fused_attn_tuned",
+                                           "cuda_sharded",
+                                           "cuda_sharded_overlap",
                                            "cuda_staged")
     with pytest.raises(ValueError, match="available"):
         dispatch.get("spmm", "pallas")

@@ -458,7 +458,8 @@ def test_dispatch_precision_gate_names_the_capable_impls():
     assert str(exc.value) == (
         "impl 'cuda_staged' of op 'spmm' does not support precision "
         "'int8' (supports: fp32, bf16); impls with 'int8': blocked, cuda, "
-        "cuda_balanced, cuda_batched, cuda_noncoalesced, cuda_tuned")
+        "cuda_balanced, cuda_batched, cuda_noncoalesced, cuda_sharded, "
+        "cuda_sharded_overlap, cuda_tuned")
     # the reference's text, up to the list of its own impls
     with pytest.raises(ValueError) as exc:
         dispatch.require("spmm", "coo_segment", precision="int8")
