@@ -40,8 +40,9 @@ a non-zero exit at the first phase that fails:
      the attention pattern (12 heads,
      16,384 tokens, head dim 64), the head-grid SpMM on A and on its
      transpose, the balanced SpMM on its transpose (dV), the head-grid
-     SDDMM and the fused attention; (c) the SDDMM tile that rows 6, 7 and
-     8 share: on every edge case at its F and at F = 720 and 1,500, fp32
+     SDDMM, the fused attention and the balanced one; (c) the SDDMM tile
+     that rows 6, 7 and 8 share: on every edge case at its F and at F =
+     720 and 1,500, fp32
      and bf16, one head and three, and at the main paths' shapes, the
      window, head-grid and balanced SDDMMs the same bits per sampled row,
      the same bits on a second launch, and bf16 bitwise the fp32 kernel on
@@ -145,6 +146,15 @@ a non-zero exit at the first phase that fails:
   6. where the time goes: ``torch.profiler`` over one forward and one train
      step of each model and route (``cuda_tuned`` and the sharded routes
      too), device time by kernel and the device's idle share.
+  7. the LM serving path (``repro_torch.testing.lm_card``; no FlashSparse
+     kernel on it, and the counters stay at zero): qwen3-0.6b at its
+     published width and depth in fp32, decode against the parallel
+     forward and the card's ``lm_prefill`` against the CPU's on the same
+     weights and tokens; its server at bf16 (16 requests, 4 slots, prompts
+     of 4-128 tokens, 64 new each: tokens/s, decode-step ms by CUDA events,
+     ``lm_prefill`` at 512 tokens, peak memory, a profile of four decode
+     steps); every other family once in fp32, decode against the forward,
+     each cut printed.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -1634,6 +1644,7 @@ def main() -> None:
     from repro_torch.models.layers import (sparse_attention,
                                            sparse_attention_staged)
     from repro_torch.sparse.graphs import make_dataset
+    from repro_torch.testing import lm_card
     from repro_torch.train.sparse_attention_train import (
         TOLERANCES as ATTN_TOLERANCES, dense_mask, dense_masked_attention,
         initial_w, make_inputs, params_from_jax, train_value_projection,
@@ -2009,6 +2020,17 @@ def main() -> None:
         f"attention [attention A, {tag}, scale 1/sqrt(D)]", a_out,
         attention_plain(ablk, aq, ak, av, att["scale"]), KERNEL_RTOL,
         KERNEL_ATOL)
+    # the balanced attention (row 10) at the same 12 heads, split_blk = 1
+    a_out = attention_balanced_cuda(abplan.fwd, aq, ak, av, scale=att["scale"],
+                                    schedule=abplan.fwd_sched)
+    bitwise(f"attention_balanced [attention A, {tag}], second launch", a_out,
+            attention_balanced_cuda(abplan.fwd, aq, ak, av,
+                                    scale=att["scale"],
+                                    schedule=abplan.fwd_sched))
+    err["attention_balanced_h12"] = compare(
+        f"attention_balanced [attention A, {tag}, split_blk=1]", a_out,
+        attention_balanced_plain(abplan.fwd, aq, ak, av, abplan.fwd_sched,
+                                 att["scale"]), KERNEL_RTOL, KERNEL_ATOL)
     del a_out
     # The bf16 variants at the attention configuration: the head-grid SpMM
     # (probabilities @ V, and dV on A^T with its global-key windows against
@@ -3059,6 +3081,16 @@ def main() -> None:
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     aq[None], ak[None], av[None], attn_mask=amask,
                     scale=att["scale"])),
+            "attention_balanced_h12": (
+                lambda: attention_balanced_cuda(
+                    abplan.fwd, aq, ak, av, scale=att["scale"],
+                    schedule=abplan.fwd_sched),
+                lambda: attention_balanced_plain(abplan.fwd, aq, ak, av,
+                                                 abplan.fwd_sched,
+                                                 att["scale"]),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    aq[None], ak[None], av[None], attn_mask=amask,
+                    scale=att["scale"])),
         }
         # The precision variants (rows 1, 6, 9) at the same shapes; their
         # yardsticks take the bf16 CSR (the int8 SpMM and the attention have
@@ -3478,6 +3510,18 @@ def main() -> None:
         attn16_result[name].update(profile_run(
             lambda: vp_step(*attn16[name], bf16_plan=True)))
 
+    phase("7. the LM serving path: qwen3-0.6b at full width and depth, its "
+          "server at bf16, every other family")
+    # The LM's attention, MoE dispatch and SSD scan are plain PyTorch (no
+    # FlashSparse kernel on this path): the counters stay at zero.
+    torch.cuda.empty_cache()
+    reset_counts()
+    lm_result = lm_card.run(DEVICE, log=print, profile=profile_run)
+    stray = {name: n for name, n in counts().items() if n}
+    if stray:
+        raise SystemExit(f"FAIL: the LM serving path launched {stray}")
+    lm_result["card"] = card
+
     v = blk.vector_size
     # Each distinct input read once (the main path passes Q and K as one
     # tensor, AGNN's q = k = ĥ, counted once), the output written once, and
@@ -3592,6 +3636,9 @@ def main() -> None:
         "attention_balanced_bf16": (
             read_once(h32_16, h32_16, v32_16, beta, bblk.mask, bblk.cols,
                       *plan_arrays["attention_balanced"]) + m * 32 * 2),
+        "attention_balanced_h12": (
+            read_once(aq, ak, av, abplan.fwd.mask, abplan.fwd.cols,
+                      *h12_plan) + av.numel() * 4),
         "attention_balanced_bf16_h12": (
             read_once(aq16, ak16, av16, abplan.fwd.mask, abplan.fwd.cols,
                       *h12_plan) + av16.numel() * 2),
@@ -3641,6 +3688,7 @@ def main() -> None:
                  spmm_balanced_bf16_At32=flops["spmm_At32"],
                  sddmm_balanced_bf16=flops["sddmm"],
                  attention_balanced_bf16=flops["attention"],
+                 attention_balanced_h12=flops["attention_h12"],
                  attention_balanced_bf16_h12=flops["attention_h12"],
                  attention_bf16_h12=flops["attention_h12"])
     # Tensor-core operations of the fp32 fused attention at the TF32 rate:
@@ -3712,6 +3760,9 @@ def main() -> None:
                                  dtypes="bf16 Q, K and S"),
         attention_balanced_bf16=dict(shapes["attention_balanced"],
                                      dtypes="bf16 Q, K, V, out"),
+        attention_balanced_h12=dict(
+            shapes["attention_h12"], split_blk=1,
+            segments=a_sched.num_segments, run_blk=ATTN_RUN),
         attention_balanced_bf16_h12=dict(
             shapes["attention_h12"], split_blk=1,
             segments=a_sched.num_segments, run_blk=ATTN_RUN,
@@ -3782,9 +3833,10 @@ def main() -> None:
         if name == "spmm_batched_bf16":
             # the bf16 attention backward's dV on the pattern's transpose
             row["At"] = measured("spmm_batched_bf16_At")
-        if name in ("attention_bf16", "attention_balanced_bf16"):
-            # the 12-head attention at bf16, beside the one-head (AGNN)
-            # numbers above
+        if name in ("attention_balanced", "attention_bf16",
+                    "attention_balanced_bf16"):
+            # the 12-head attention (fp32 or bf16), beside the one-head
+            # (AGNN) numbers above
             row["h12"] = measured(f"{name}_h12")
         rows.append(row)
     for name, n_launch in launches.items():
@@ -3801,6 +3853,7 @@ def main() -> None:
                       "attention_wide": wide, "tuned": tuned,
                       "hardened_runtime": hardened,
                       "multi_device": sharded,
+                      "lm_serving": lm_result,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))

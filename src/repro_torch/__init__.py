@@ -12,6 +12,11 @@ The multi-device layer (``distributed/``, ``launch/mesh.py``) runs the
 balanced kernels rank-locally over a ``torch.distributed`` ``DeviceMesh``
 (NCCL on the card, gloo on the CPU).
 
+The language models (``models/lm.py`` over ``models/layers.py``, the ten
+architectures of ``configs/``) and their continuous-batching server
+(``launch/serve.py``) are plain PyTorch: their attention, MoE dispatch
+and SSD scan reach no FlashSparse kernel.
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.
 """

@@ -1,16 +1,29 @@
-"""Block-sparse attention layers on the FlashSparse operators.
+"""Transformer, MoE and Mamba-2 blocks of the language models, and the
+block-sparse attention layers on the FlashSparse operators.
 
-Counterpart of ``repro.models.layers``'s ``sparse_attention`` and
-``sparse_attention_staged`` (the reference module's GQA, MoE and Mamba
-layers are ROADMAP.md queue 1, the LM stack).  The pattern (a
-local window plus strided global keys, say) is shared by the heads; the
-scores and probabilities are per head, and stay in the blocked ME-BCRS
-layout.
+Counterpart of ``repro.models.layers``.  Every LM block is a function
+``f(params, x, cfg, ...)`` over tensors, with parameters in the
+reference's ``(in, out)`` layout (``x @ w``), so that carrying weights
+across is a copy.  Numerics follow the reference: parameters and
+activations in ``cfg.dtype``; norms, softmax, attention scores, the
+router and the SSD scan in fp32 (a product the reference takes with
+``preferred_element_type=f32`` and keeps in fp32 is taken on operands
+upcast to fp32); masked scores are ``-1e30``.  The decode functions
+write the new step into the cache buffers they are given, in place.
+
+The block-sparse attention (``sparse_attention``,
+``sparse_attention_staged``): the pattern (a local window plus strided
+global keys, say) is shared by the heads; the scores and probabilities
+are per head, and stay in the blocked ME-BCRS layout.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core import dispatch as sparse_dispatch
 from repro_torch.core.autodiff import ADPlan, attention_ad, sddmm_ad, spmm_ad
@@ -18,7 +31,14 @@ from repro_torch.core.format import BlockedMEBCRS
 from repro_torch.core.sddmm import with_values
 from repro_torch.core.softmax import sparse_softmax
 
-__all__ = ["sparse_attention", "sparse_attention_staged"]
+__all__ = [
+    "rms_norm", "apply_rope", "full_attention", "chunked_attention",
+    "attention", "init_gqa", "gqa_project_qkv", "gqa_attn", "gqa_decode",
+    "init_mla", "mla_attn", "mla_decode", "init_mlp", "mlp", "init_moe",
+    "moe_ffn", "init_mamba2", "ssd_scan", "mamba2_block", "mamba2_decode",
+    "sparse_attention", "sparse_attention_staged"]
+
+f32 = torch.float32
 
 
 def sparse_attention(pattern, q, k, v, *, scale=None, impl: str | None = None):
@@ -70,3 +90,580 @@ def sparse_attention_staged(pattern, q, k, v, *, scale=None,
     return sparse_dispatch.dispatch(
         "spmm", impl, with_values(pattern, probs.to(v.dtype)), v,
         k_blk=pattern.k_blk)
+
+
+# ------------------------------------------------------------------ norms --
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    """RMS norm in fp32, rounded to ``x``'s dtype, then scaled by ``w``
+    (the reference's order: at bf16 the rounding comes before the
+    product)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+# ------------------------------------------------------------------- rope --
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding. x: (..., S, H, D); positions: (S,) or (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=f32, device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs     # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]              # (..., S, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------- attention --
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    if groups == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(
+        b, s, h * groups, d)
+
+
+def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Materialized-scores attention (short sequences, decode), GQA-native.
+
+    q: (B, Sq, Hkv, G, D); k, v: (B, Sk, Hkv, D), never head-repeated.
+    ``kv_len``: optional (B,) valid cache length for decode.  Scores in
+    fp32, probabilities rounded to ``v``'s dtype before the product.
+    """
+    d = q.shape[-1]
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
+                          k.float()) / math.sqrt(d)
+    sq, sk = q.shape[1], k.shape[1]
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        scores = torch.where(mask, scores, -1e30)
+    if kv_len is not None:
+        valid = torch.arange(sk, device=q.device)[None, :] < kv_len[:, None]
+        scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                      kv_block: int = 1024):
+    """Online-softmax attention over KV blocks of ``kv_block``: never
+    materializes (Sq, Sk).  A Python loop over the blocks carries the
+    running (acc, max, denom).
+    """
+    b, sq, h, g, d = q.shape        # GQA-native: h = kv heads, g = groups
+    dv = v.shape[-1]
+    sk = k.shape[1]
+    nblk = -(-sk // kv_block)
+    pad = nblk * kv_block - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = 1.0 / math.sqrt(d)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    qf = q.float()
+    acc = torch.zeros((b, h, g, sq, dv), dtype=f32, device=q.device)
+    m = torch.full((b, h, g, sq), -math.inf, dtype=f32, device=q.device)
+    den = torch.zeros((b, h, g, sq), dtype=f32, device=q.device)
+    for i in range(nblk):
+        kc = k[:, i * kv_block:(i + 1) * kv_block]
+        vc = v[:, i * kv_block:(i + 1) * kv_block]
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.float()) * scale
+        kpos = i * kv_block + torch.arange(kv_block, device=q.device)
+        mask = kpos[None, :] < sk                      # padding mask
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        else:
+            mask = mask.expand(sq, kv_block)
+        scores = torch.where(mask, scores, -1e30)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        den = den * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vc.dtype).float(),
+                          vc.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)   # (B, Sq, H, G, Dv)
+
+
+def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+              kv_len=None, impl: str = "auto", kv_block: int = 1024):
+    """Dispatch: GQA-native grouping + full vs chunked score computation.
+
+    q: (B, S, Hq, D); k, v: (B, Sk, Hkv, D).  ``impl="auto"`` takes the
+    chunked form for ``S > 2048`` without ``kv_len``.
+    """
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    if impl == "auto":
+        impl = "chunked" if (sq > 2048 and kv_len is None) else "full"
+    if impl == "chunked":
+        out = chunked_attention(qg, k, v, causal=causal, q_offset=q_offset,
+                                kv_block=kv_block)
+    else:
+        out = full_attention(qg, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len)
+    return out.reshape(b, sq, hq, -1)
+
+
+# ------------------------------------------------------------------- init --
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
+    """``N(0, scale^2)`` draws from ``gen`` (on its device), cast to
+    ``dtype`` on ``device``."""
+    out = torch.randn(shape, generator=gen, device=gen.device) * scale
+    return out.to(device=device, dtype=dtype)
+
+
+def _ones(n: int, dtype, device):
+    return torch.ones((n,), dtype=dtype, device=device)
+
+
+# -------------------------------------------------------------- GQA block --
+
+
+def init_gqa(cfg, gen: torch.Generator, device) -> Dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    s = d ** -0.5
+    p = {
+        "wq": _normal(gen, (d, cfg.n_heads * hd), s, cfg.dtype, device),
+        "wk": _normal(gen, (d, cfg.n_kv_heads * hd), s, cfg.dtype, device),
+        "wv": _normal(gen, (d, cfg.n_kv_heads * hd), s, cfg.dtype, device),
+        "wo": _normal(gen, (cfg.n_heads * hd, d), s, cfg.dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = _ones(hd, cfg.dtype, device)
+        p["k_norm"] = _ones(hd, cfg.dtype, device)
+    return p
+
+
+def gqa_project_qkv(p, x, cfg, positions):
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rmsnorm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rmsnorm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attn(p, x, cfg, *, causal=True, attn_impl="auto") -> torch.Tensor:
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)  # batch-uniform: 1-D tables
+    q, k, v = gqa_project_qkv(p, x, cfg, positions)
+    out = attention(q, k, v, causal=causal, impl=attn_impl)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def gqa_decode(p, x, cache, pos, cfg) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. cache: {"k","v": (B, S_max, Hkv, D)}, written in
+    place at each row's ``pos`` (B,); returns (y, cache)."""
+    b, s, _ = x.shape  # s == 1
+    positions = pos[:, None] + torch.arange(s, device=x.device)[None]
+    q, k, v = gqa_project_qkv(p, x, cfg, positions)
+    knew = _scatter_time(cache["k"], k, pos)
+    vnew = _scatter_time(cache["v"], v, pos)
+    out = attention(q, knew.to(q.dtype), vnew.to(q.dtype), causal=False,
+                    kv_len=pos + 1, impl="full")
+    y = out.reshape(b, s, -1) @ p["wo"]
+    return y, {"k": knew, "v": vnew}
+
+
+def _scatter_time(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
+    """Write ``new`` (B, 1, ...) into ``buf`` (B, S, ...) at each row's
+    ``pos``, in place; returns ``buf``.  A row whose ``pos`` is past the
+    end is left as it was, as the reference's one-hot blend leaves it.
+    For finite values this is the blend's result, without reading and
+    writing the whole buffer."""
+    n = buf.shape[1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    at = pos.clamp(max=n - 1)
+    inside = (pos < n).reshape((-1,) + (1,) * (buf.dim() - 2))
+    buf[rows, at] = torch.where(inside, new[:, 0].to(buf.dtype), buf[rows, at])
+    return buf
+
+
+# -------------------------------------------------------------- MLA block --
+
+
+def init_mla(cfg, gen: torch.Generator, device) -> Dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+
+    def mk(shape, fan):
+        return _normal(gen, shape, fan ** -0.5, cfg.dtype, device)
+
+    return {
+        "w_dq": mk((d, cfg.q_lora_rank), d),
+        "q_norm": _ones(cfg.q_lora_rank, cfg.dtype, device),
+        "w_uq": mk((cfg.q_lora_rank, h * qk), cfg.q_lora_rank),
+        "w_dkv": mk((d, cfg.kv_lora_rank + cfg.qk_rope_dim), d),
+        "kv_norm": _ones(cfg.kv_lora_rank, cfg.dtype, device),
+        "w_uk": mk((cfg.kv_lora_rank, h * cfg.qk_nope_dim), cfg.kv_lora_rank),
+        "w_uv": mk((cfg.kv_lora_rank, h * cfg.v_head_dim), cfg.kv_lora_rank),
+        "wo": mk((h * cfg.v_head_dim, d), h * cfg.v_head_dim),
+    }
+
+
+def _mla_q(p, x, cfg, positions):
+    b, s, _ = x.shape
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.rmsnorm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, cfg.n_heads,
+                                 cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x, cfg, positions):
+    ckv_full = x @ p["w_dkv"]
+    ckv = rms_norm(ckv_full[..., :cfg.kv_lora_rank], p["kv_norm"],
+                   cfg.rmsnorm_eps)
+    k_rope = ckv_full[..., cfg.kv_lora_rank:][:, :, None, :]  # (B,S,1,rope)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+    return ckv, k_rope
+
+
+def mla_attn(p, x, cfg, *, causal=True, attn_impl="auto") -> torch.Tensor:
+    """Training/prefill MLA: decompress K/V per token (standard form)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    positions = torch.arange(s, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, cfg.qk_nope_dim)
+    v = (ckv @ p["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    out = attention(q, k, v, causal=causal, impl=attn_impl)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def mla_decode(p, x, cache, pos, cfg) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-matmul MLA decode over the latent cache.
+
+    cache: {"ckv": (B, S, kv_lora), "k_rope": (B, S, rope)}, written in
+    place at ``pos`` (B,).  ``w_uk`` is absorbed into the query and
+    ``w_uv`` into the output, so attention runs in the latent space, in
+    fp32.
+    """
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    positions = pos[:, None] + torch.arange(s, device=x.device)[None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)          # (B,1,H,.)
+    ckv_new, k_rope_new = _mla_latent(p, x, cfg, positions)
+    ckv = _scatter_time(cache["ckv"], ckv_new, pos)
+    k_rope = _scatter_time(cache["k_rope"], k_rope_new, pos)
+
+    w_uk = p["w_uk"].reshape(cfg.kv_lora_rank, h, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bqhd,chd->bqhc", q_nope.float(), w_uk.float())
+    scores = (
+        torch.einsum("bqhc,btc->bhqt", q_lat, ckv.float())
+        + torch.einsum("bqhr,btr->bhqt", q_rope.float(), k_rope.float())
+    ) / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    valid = (torch.arange(ckv.shape[1], device=x.device)[None, :]
+             < (pos + 1)[:, None])
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    pr = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhqt,btc->bqhc", pr, ckv.float())
+    w_uv = p["w_uv"].reshape(cfg.kv_lora_rank, h, cfg.v_head_dim)
+    out = torch.einsum("bqhc,chd->bqhd", out_lat, w_uv.float())
+    y = out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+    return y, {"ckv": ckv, "k_rope": k_rope}
+
+
+# -------------------------------------------------------------- MLP / MoE --
+
+
+def init_mlp(cfg, gen: torch.Generator, device, d_ff=None) -> Dict:
+    d = cfg.d_model
+    d_ff = d_ff or cfg.d_ff
+    return {
+        "w_gate": _normal(gen, (d, d_ff), d ** -0.5, cfg.dtype, device),
+        "w_up": _normal(gen, (d, d_ff), d ** -0.5, cfg.dtype, device),
+        "w_down": _normal(gen, (d_ff, d), d_ff ** -0.5, cfg.dtype, device),
+    }
+
+
+def mlp(p, x) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def init_moe(cfg, gen: torch.Generator, device) -> Dict:
+    d = cfg.d_model
+    e = cfg.moe_experts
+    dff = cfg.moe_d_ff or cfg.d_ff
+    p = {
+        "router": _normal(gen, (d, e), d ** -0.5, f32, device),
+        "w_gate": _normal(gen, (e, d, dff), d ** -0.5, cfg.dtype, device),
+        "w_up": _normal(gen, (e, d, dff), d ** -0.5, cfg.dtype, device),
+        "w_down": _normal(gen, (e, dff, d), dff ** -0.5, cfg.dtype, device),
+    }
+    if cfg.moe_shared_experts:
+        p["shared"] = init_mlp(cfg, gen, device,
+                               d_ff=dff * cfg.moe_shared_experts)
+    return p
+
+
+def moe_route(p, xt: torch.Tensor, cfg):
+    """Router of ``moe_ffn`` over tokens ``xt`` (T, D): fp32 softmax
+    probabilities (T, E), the top-k gates renormalised and their expert
+    ids (T, K), ties broken toward the lower id as ``lax.top_k`` does."""
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+    srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = srt[:, :cfg.moe_top_k], idx[:, :cfg.moe_top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, eidx
+
+
+def moe_slots(eidx: torch.Tensor, cfg):
+    """Sort-based dispatch of ``moe_ffn``: the (token, choice) pairs in
+    stable expert order (``order``), each pair's row of the (E * cap)
+    expert buffer (``slot``; a pair past its expert's capacity goes to
+    the sentinel row ``E * cap``), whether it is kept, and ``cap =
+    max(int(T * K / E * capacity_factor), 8)``."""
+    t, k = eidx.shape
+    e = cfg.moe_experts
+    cap = max(int(t * k / e * cfg.capacity_factor), 8)
+    flat_e = eidx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e, device=eidx.device, dtype=sorted_e.dtype))
+    pos_in_e = torch.arange(t * k, device=eidx.device) - starts[sorted_e]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
+    return order, slot, keep, cap
+
+
+def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with sort-based grouped dispatch.
+
+    x: (B, S, D) -> (out, aux_loss).  Each token's k expert outputs are
+    summed in one fixed order (ascending expert id, the order the
+    reference's scatter-add takes them in), so a second run gives the
+    same bits on any device.
+    """
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    xt = x.reshape(t, d)
+    probs, gates, eidx = moe_route(p, xt, cfg)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(dim=0)
+    ce = torch.bincount(eidx.reshape(-1), minlength=e).float() / (t * k)
+    aux = e * torch.sum(me * ce)
+
+    order, slot, keep, cap = moe_slots(eidx, cfg)
+    token_of = order // k
+    xbuf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xbuf[slot] = xt[token_of]             # dropped pairs: the sentinel row
+    xg = xbuf[:e * cap].reshape(e, cap, d)
+    h = torch.bmm(xg, p["w_gate"])
+    u = torch.bmm(xg, p["w_up"])
+    yg = torch.bmm(F.silu(h) * u, p["w_down"])
+
+    ybuf = yg.reshape(e * cap, d)
+    y_tok = torch.where(keep[:, None], ybuf[slot.clamp(max=e * cap - 1)], 0.0)
+    g_tok = gates.reshape(-1)[order][:, None].to(x.dtype)
+    contrib = torch.empty_like(y_tok)
+    contrib[order] = y_tok * g_tok        # back to (token, choice) order
+    contrib = contrib.reshape(t, k, d)
+    by_expert = torch.argsort(eidx, dim=1)
+    contrib = torch.gather(contrib, 1, by_expert[:, :, None].expand(t, k, d))
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+
+    if cfg.moe_shared_experts:
+        out = out + mlp(p["shared"], xt)
+    return out.reshape(b, s, d), aux
+
+
+# ------------------------------------------------------------- Mamba2 SSD --
+
+
+def init_mamba2(cfg, gen: torch.Generator, device) -> Dict:
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    n_heads = d_inner // cfg.ssm_headdim
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    conv_dim = d_inner + 2 * g * n
+    return {
+        "in_proj": _normal(gen, (d, 2 * d_inner + 2 * g * n + n_heads),
+                           d ** -0.5, cfg.dtype, device),
+        "conv_w": _normal(gen, (cfg.conv_width, conv_dim), 0.1, cfg.dtype,
+                          device),
+        "conv_b": torch.zeros((conv_dim,), dtype=cfg.dtype, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, n_heads, dtype=f32,
+                                          device=device)),
+        "D": _ones(n_heads, f32, device),
+        "dt_bias": torch.zeros((n_heads,), dtype=f32, device=device),
+        "norm_w": _ones(d_inner, cfg.dtype, device),
+        "out_proj": _normal(gen, (d_inner, d), d_inner ** -0.5, cfg.dtype,
+                            device),
+    }
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise cumulative sums:
+    out[..., i, j] = sum_{j<k<=i} a_k, -inf above the diagonal."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, seg, -math.inf)
+
+
+def ssd_scan(x, da, bm, cm, chunk: int, init_state=None):
+    """Chunked SSD (Mamba-2, state-space duality form), in fp32.
+
+    x:  (B, L, H, P) inputs (already multiplied by dt); L a multiple of
+    ``chunk``.  da: (B, L, H) decay dt*A (negative).  bm, cm: (B, L, G, N)
+    input and output projections.  Returns (y (B, L, H, P), final state
+    (B, H, P, N)); a Python loop carries the state across chunks.
+    """
+    b, l, h, pdim = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    hpg = h // g
+    nc = l // chunk
+
+    xc = x.reshape(b, nc, chunk, h, pdim).float()
+    dac = da.reshape(b, nc, chunk, h).permute(0, 3, 1, 2)    # (B,H,C,Q)
+    bmh = bm.reshape(b, nc, chunk, g, n).repeat_interleave(hpg, dim=3).float()
+    cmh = cm.reshape(b, nc, chunk, g, n).repeat_interleave(hpg, dim=3).float()
+
+    da_cs = torch.cumsum(dac, dim=-1)                          # (B,H,C,Q)
+    lmat = torch.exp(_segsum(dac))                             # (B,H,C,Q,Q)
+
+    # 1) intra-chunk (diagonal blocks)
+    scores = torch.einsum("bcqhn,bckhn->bhcqk", cmh, bmh)
+    y_diag = torch.einsum("bhcqk,bckhp->bcqhp", scores * lmat, xc)
+
+    # 2) chunk states
+    decay_states = torch.exp(da_cs[..., -1:] - da_cs)         # (B,H,C,Q)
+    states = torch.einsum("bckhn,bckhp->bchpn",
+                          bmh * decay_states.permute(0, 2, 3, 1)[..., None],
+                          xc)
+
+    # 3) inter-chunk recurrence over chunk states
+    chunk_decay = torch.exp(da_cs[..., -1])                    # (B,H,C)
+    st = (init_state.float() if init_state is not None
+          else torch.zeros((b, h, pdim, n), dtype=f32, device=x.device))
+    prior = []
+    for c in range(nc):
+        prior.append(st)                   # the state *before* chunk c
+        st = st * chunk_decay[:, :, c][..., None, None] + states[:, c]
+    prior = torch.stack(prior, dim=1)                          # (B,C,H,P,N)
+
+    # 4) state -> output within chunk
+    state_decay = torch.exp(da_cs)                             # (B,H,C,Q)
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp",
+                         cmh * state_decay.permute(0, 2, 3, 1)[..., None],
+                         prior)
+    return (y_diag + y_off).reshape(b, l, h, pdim), st
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """Depthwise causal conv1d: xbc (B, L, C), w (W, C)."""
+    wsz, l = w.shape[0], xbc.shape[1]
+    xp = F.pad(xbc, (0, 0, wsz - 1, 0))
+    out = xp[:, 0:l] * w[0]
+    for i in range(1, wsz):
+        out = out + xp[:, i:i + l] * w[i]
+    return out + bias
+
+
+def _mamba_split(zxbcdt, d_inner: int, gn: int):
+    return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:2 * d_inner + 2 * gn],
+            zxbcdt[..., 2 * d_inner + 2 * gn:])
+
+
+def mamba2_block(p, x, cfg, *, chunk: int = 128) -> torch.Tensor:
+    """Full-sequence Mamba-2 block (training / prefill); ``L`` is padded
+    up to a multiple of ``chunk`` for the scan."""
+    b, l, d = x.shape
+    d_inner = cfg.ssm_expand * d
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    h = d_inner // cfg.ssm_headdim
+    pdim = cfg.ssm_headdim
+
+    z, xbc, dt = _mamba_split(x @ p["in_proj"], d_inner, g * n)
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xs, bm, cm = (xbc[..., :d_inner], xbc[..., d_inner:d_inner + g * n],
+                  xbc[..., d_inner + g * n:])
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                 # (B,L,H)
+    da = dt * -torch.exp(p["A_log"])                           # (B,L,H)
+
+    xh_raw = xs.reshape(b, l, h, pdim)
+    xh = xh_raw * dt[..., None].to(xh_raw.dtype)  # fold dt into the input
+    pad = (-l) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        da = F.pad(da, (0, 0, 0, pad))
+        bm = F.pad(bm, (0, 0, 0, pad))
+        cm = F.pad(cm, (0, 0, 0, pad))
+    y, _ = ssd_scan(xh, da, bm.reshape(b, -1, g, n), cm.reshape(b, -1, g, n),
+                    chunk)
+    y = y[:, :l]
+    y = y + p["D"][None, None, :, None] * xh_raw.float()  # skip: raw x
+    y = y.reshape(b, l, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rmsnorm_eps)
+    return y @ p["out_proj"]
+
+
+def mamba2_decode(p, x, cache, cfg) -> Tuple[torch.Tensor, Dict]:
+    """Single-token recurrent step.
+
+    cache: {"conv": (B, W-1, conv_dim), "ssm": (B, H, P, N)}; returns
+    (y, the new conv window and state).
+    """
+    b, s, d = x.shape  # s == 1
+    d_inner = cfg.ssm_expand * d
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    h = d_inner // cfg.ssm_headdim
+    pdim = cfg.ssm_headdim
+
+    z, xbc, dt = _mamba_split(x[:, 0] @ p["in_proj"], d_inner, g * n)
+    conv_buf = torch.cat([cache["conv"], xbc[:, None]], dim=1)
+    xbc = F.silu(torch.einsum("bwc,wc->bc", conv_buf, p["conv_w"])
+                 + p["conv_b"])
+    conv_new = conv_buf[:, 1:]
+
+    xs, bm, cm = (xbc[..., :d_inner], xbc[..., d_inner:d_inner + g * n],
+                  xbc[..., d_inner + g * n:])
+    dt = F.softplus(dt.float() + p["dt_bias"])                 # (B,H)
+    da = torch.exp(dt * -torch.exp(p["A_log"]))                # (B,H)
+
+    xh = xs.reshape(b, h, pdim).float()
+    bmh = bm.reshape(b, g, n).repeat_interleave(h // g, dim=1).float()
+    cmh = cm.reshape(b, g, n).repeat_interleave(h // g, dim=1).float()
+
+    ssm = cache["ssm"] * da[..., None, None] + \
+        dt[..., None, None] * xh[..., None] * bmh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", ssm, cmh) + p["D"][None, :, None] * xh
+    y = y.reshape(b, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rmsnorm_eps)
+    return (y @ p["out_proj"])[:, None], {"conv": conv_new, "ssm": ssm}

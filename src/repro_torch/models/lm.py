@@ -1,0 +1,490 @@
+"""Unified language model covering every architecture family.
+
+Counterpart of ``repro.models.lm``.  Families (``cfg.family``):
+  dense / vlm / audio-decoder: GQA (or MLA) attention + SwiGLU MLP
+  moe      attention + token-choice top-k MoE FFN (+ shared experts)
+  ssm      Mamba-2 (SSD) blocks, attention-free
+  hybrid   Mamba-2 blocks + one *shared* attention/MLP block applied
+           every ``attn_every`` layers (Zamba-2 style)
+  encdec   bidirectional encoder over stub modality embeddings + causal
+           decoder with cross-attention (Seamless backbone)
+  vlm      decoder with ``prefix_len`` stub patch embeddings prepended
+
+API (functions over parameter dicts of tensors):
+  init_lm(cfg, generator, device)            -> params
+  lm_forward(params, batch, cfg)             -> (logits, aux_loss)
+  init_cache(cfg, batch, capacity, device)   -> cache
+  lm_decode_step(params, tokens, cache, cfg) -> (logits, cache)
+  lm_prefill(params, batch, cfg, capacity)   -> (logits, cache)
+  lm_params_from_jax(cfg, params)            -> params
+
+``params["layers"]`` (and ``"encoder"``) is a list of per-layer dicts
+walked by a Python loop.  The decode cache keeps the reference's stacked
+layout: ``(L, B, capacity, ...)`` tensors in a dict.  Entry points run
+on the card unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.format import resolve_device
+
+from .config import ArchConfig
+from .layers import (
+    attention,
+    f32,
+    gqa_attn,
+    gqa_decode,
+    gqa_project_qkv,
+    init_gqa,
+    init_mamba2,
+    init_mla,
+    init_mlp,
+    init_moe,
+    mamba2_block,
+    mamba2_decode,
+    mla_attn,
+    mla_decode,
+    mlp,
+    moe_ffn,
+    rms_norm,
+)
+
+__all__ = ["init_lm", "lm_forward", "init_cache", "lm_prefill",
+           "lm_decode_step", "encode", "lm_params_from_jax", "tree_map"]
+
+ATTN_FAMILIES = ("dense", "moe", "vlm")
+ENCDEC_FAMILIES = ("encdec", "audio")
+
+
+def tree_map(fn, tree):
+    """``fn`` over the tensors of a nest of dicts and lists (``None``
+    leaves stay ``None``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+# ------------------------------------------------------------------- init --
+
+
+def _init_decoder_layer(cfg: ArchConfig, gen, device, cross: bool = False):
+    p: Dict[str, Any] = {
+        "attn_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                device=device),
+        "mlp_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
+    }
+    p["attn"] = (init_mla(cfg, gen, device) if cfg.attention == "mla"
+                 else init_gqa(cfg, gen, device))
+    p["mlp"] = (init_moe(cfg, gen, device) if cfg.moe_experts
+                else init_mlp(cfg, gen, device))
+    if cross:
+        p["cross_norm"] = torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                     device=device)
+        p["cross"] = init_gqa(cfg, gen, device)
+    return p
+
+
+def _init_mamba_layer(cfg: ArchConfig, gen, device):
+    return {"norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
+            "mixer": init_mamba2(cfg, gen, device)}
+
+
+def init_lm(cfg: ArchConfig, generator: torch.Generator, device=None) -> Dict:
+    """Random parameters at the reference's shapes, scales and dtypes,
+    drawn from ``generator`` (on its own device) and placed on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
+    gen = generator
+    vp = cfg.padded_vocab  # pad columns masked in _logits
+    params: Dict[str, Any] = {
+        "embed": (torch.randn((vp, cfg.d_model), generator=gen,
+                              device=gen.device) * 0.02).to(device, cfg.dtype),
+        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                 device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (torch.randn((cfg.d_model, vp), generator=gen,
+                                         device=gen.device) * 0.02
+                             ).to(device, cfg.dtype)
+    n = cfg.n_layers
+    if cfg.family in ATTN_FAMILIES:
+        params["layers"] = [_init_decoder_layer(cfg, gen, device)
+                            for _ in range(n)]
+    elif cfg.family in ("ssm", "hybrid"):
+        params["layers"] = [_init_mamba_layer(cfg, gen, device)
+                            for _ in range(n)]
+        if cfg.family == "hybrid":
+            params["shared_block"] = _init_decoder_layer(cfg, gen, device)
+    elif cfg.family in ENCDEC_FAMILIES:
+        params["encoder"] = [_init_decoder_layer(cfg, gen, device)
+                             for _ in range(cfg.encoder_layers)]
+        params["layers"] = [_init_decoder_layer(cfg, gen, device, cross=True)
+                            for _ in range(n)]
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+    return params
+
+
+def lm_params_from_jax(cfg: ArchConfig, params: Dict, *, device=None) -> Dict:
+    """The port's parameters from the JAX package's ``init_lm`` pytree.
+
+    ``params`` holds numpy arrays (bf16 leaves as ``ml_dtypes.bfloat16``
+    arrays, which torch does not read: they pass through float32, which
+    holds every bf16 value exactly).  The stacked layer axis of
+    ``"layers"`` and ``"encoder"`` is unstacked into lists of per-layer
+    dicts.  ``device`` defaults to the card.
+    """
+    device = resolve_device(device)
+
+    def leaf(arr):
+        arr = np.asarray(arr)
+        if arr.dtype.kind not in "fiub":          # ml_dtypes.bfloat16
+            return torch.tensor(arr.astype(np.float32)).to(
+                device, torch.bfloat16)
+        return torch.tensor(arr).to(device)
+
+    out = {}
+    for key, val in params.items():
+        if key in ("layers", "encoder"):
+            stacked = tree_map(leaf, val)
+            depth = cfg.encoder_layers if key == "encoder" else cfg.n_layers
+            out[key] = [tree_map(lambda t, i=i: t[i].clone(), stacked)
+                        for i in range(depth)]
+        else:
+            out[key] = tree_map(leaf, val)
+    return out
+
+
+# ------------------------------------------------------------ layer apply --
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=f32, device=x.device)
+
+
+def _decoder_layer(p, x, cfg: ArchConfig, *, causal=True,
+                   cross_kv: Optional[torch.Tensor] = None):
+    attn_fn = mla_attn if cfg.attention == "mla" else gqa_attn
+    h = x + attn_fn(p["attn"], rms_norm(x, p["attn_norm"], cfg.rmsnorm_eps),
+                    cfg, causal=causal, attn_impl=cfg.attn_impl)
+    if cross_kv is not None:
+        h = h + _cross_attn(p["cross"], rms_norm(h, p["cross_norm"],
+                                                 cfg.rmsnorm_eps), cross_kv, cfg)
+    y = rms_norm(h, p["mlp_norm"], cfg.rmsnorm_eps)
+    if cfg.moe_experts:
+        out, aux = moe_ffn(p["mlp"], y, cfg)
+    else:
+        out, aux = mlp(p["mlp"], y), _zero_aux(x)
+    return h + out, aux
+
+
+def _cross_attn(p, x, memory, cfg: ArchConfig):
+    """Encoder-decoder cross attention (no RoPE on cross keys)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (memory @ p["wk"]).reshape(b, memory.shape[1], cfg.n_kv_heads, hd)
+    v = (memory @ p["wv"]).reshape(b, memory.shape[1], cfg.n_kv_heads, hd)
+    out = attention(q, k, v, causal=False, impl="auto")
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def _mamba_layer(p, x, cfg: ArchConfig):
+    return x + mamba2_block(p["mixer"], rms_norm(x, p["norm"], cfg.rmsnorm_eps),
+                            cfg, chunk=cfg.ssd_chunk), _zero_aux(x)
+
+
+def _run_stack(x, layers: List[Dict], body):
+    """Apply ``body`` layer after layer; accumulates the aux losses."""
+    aux = _zero_aux(x)
+    for lp in layers:
+        x, a = body(lp, x)
+        aux = aux + a
+    return x, aux
+
+
+# ---------------------------------------------------------------- forward --
+
+
+def _embed_tokens(params, tokens):
+    return params["embed"][tokens]
+
+
+def _logits(params, x, cfg: ArchConfig):
+    """fp32 logits over the padded vocab; pad columns are ``-1e30``."""
+    x = rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    out = x.float() @ head.float()
+    if cfg.padded_vocab != cfg.vocab:
+        out[..., cfg.vocab:] = -1e30
+    return out
+
+
+def encode(params, src_embeds: torch.Tensor, cfg: ArchConfig):
+    """The encoder stack over the stub modality embeddings (encdec): the
+    memory the decoder's cross-attention reads."""
+    mem = src_embeds.to(cfg.dtype)
+    mem, _ = _run_stack(mem, params["encoder"],
+                        lambda p, h: _decoder_layer(p, h, cfg, causal=False))
+    return mem
+
+
+def _forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone forward to final hidden states (no head) -> (hidden, aux)."""
+    x = _embed_tokens(params, batch["tokens"])
+    prefix = 0
+
+    if cfg.family in ENCDEC_FAMILIES:
+        mem = batch["src_embeds"].to(cfg.dtype)
+        mem, aux_e = _run_stack(
+            mem, params["encoder"],
+            lambda p, h: _decoder_layer(p, h, cfg, causal=False))
+        x, aux_d = _run_stack(
+            x, params["layers"],
+            lambda p, h: _decoder_layer(p, h, cfg, cross_kv=mem))
+        return x, aux_e + aux_d
+
+    if cfg.family == "vlm" and "prefix_embeds" in batch:
+        pe = batch["prefix_embeds"].to(cfg.dtype)
+        prefix = pe.shape[1]
+        x = torch.cat([pe, x], dim=1)
+
+    if cfg.family in ATTN_FAMILIES:
+        x, aux = _run_stack(x, params["layers"],
+                            lambda p, h: _decoder_layer(p, h, cfg))
+    elif cfg.family == "ssm":
+        x, aux = _run_stack(x, params["layers"],
+                            lambda p, h: _mamba_layer(p, h, cfg))
+    elif cfg.family == "hybrid":
+        x, aux = _hybrid_forward(params, x, cfg)
+    else:
+        raise ValueError(cfg.family)
+
+    if prefix:
+        x = x[:, prefix:]
+    return x, aux
+
+
+def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Parallel forward. batch: {"tokens" (B, S)} + family extras
+    (``src_embeds`` for encdec, optional ``prefix_embeds`` for vlm).
+
+    Returns (logits (B, S, padded_vocab) fp32, pad columns ``-1e30``;
+    aux_loss).
+    """
+    x, aux = _forward_hidden(params, batch, cfg)
+    return _logits(params, x, cfg), aux
+
+
+def _hybrid_forward(params, x, cfg: ArchConfig):
+    """Zamba-2 style: periods of ``attn_every`` mamba layers, each
+    followed by the shared block; leftover layers run without it."""
+    aux = _zero_aux(x)
+    period = cfg.attn_every or cfg.n_layers
+    n_main = (cfg.n_layers // period) * period
+    for i, lp in enumerate(params["layers"]):
+        x, a = _mamba_layer(lp, x, cfg)
+        aux = aux + a
+        if i < n_main and (i + 1) % period == 0:
+            x, a = _decoder_layer(params["shared_block"], x, cfg)
+            aux = aux + a
+    return x, aux
+
+
+# ------------------------------------------------------------------ cache --
+
+
+def _n_shared_invocations(cfg: ArchConfig) -> int:
+    return cfg.n_layers // (cfg.attn_every or cfg.n_layers + 1)
+
+
+def init_cache(cfg: ArchConfig, batch: int, capacity: int, device=None
+               ) -> Dict:
+    """Zero-initialized decode cache with ``capacity`` timestep slots, in
+    the reference's stacked layout; ``device`` defaults to the card."""
+    device = resolve_device(device)
+    dt = cfg.dtype
+    L = cfg.n_layers
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def gqa_kv(n):
+        shape = (n, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(shape), "v": zeros(shape)}
+
+    def mamba():
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        return {"conv": zeros((L, batch, cfg.conv_width - 1, conv_dim)),
+                "ssm": zeros((L, batch, cfg.ssm_nheads, cfg.ssm_headdim,
+                              cfg.ssm_state), f32)}
+
+    cache: Dict[str, Any] = {"pos": zeros((batch,), torch.int32)}
+    if cfg.family in ATTN_FAMILIES:
+        if cfg.attention == "mla":
+            cache["layers"] = {
+                "ckv": zeros((L, batch, capacity, cfg.kv_lora_rank)),
+                "k_rope": zeros((L, batch, capacity, cfg.qk_rope_dim)),
+            }
+        else:
+            cache["layers"] = gqa_kv(L)
+    elif cfg.family == "ssm":
+        cache["layers"] = mamba()
+    elif cfg.family == "hybrid":
+        cache["layers"] = mamba()
+        n_inv = _n_shared_invocations(cfg)
+        if n_inv:
+            cache["shared_attn"] = gqa_kv(n_inv)
+    elif cfg.family in ENCDEC_FAMILIES:
+        cache["layers"] = gqa_kv(L)
+        # cross-attention memory is computed at prefill and stored once
+        cache["memory"] = None
+    return cache
+
+
+# ------------------------------------------------------------ decode step --
+
+
+def _store(stacked: Dict, i: int, new: Dict) -> None:
+    """Write layer ``i``'s new cache entries into the stacked buffers
+    (the attention decodes wrote theirs in place already)."""
+    for key, val in new.items():
+        dst = stacked[key][i]
+        if val.data_ptr() != dst.data_ptr():
+            dst.copy_(val)
+
+
+def _layer_view(stacked: Dict, i: int) -> Dict:
+    return {key: val[i] for key, val in stacked.items()}
+
+
+def lm_decode_step(params, tokens, cache: Dict, cfg: ArchConfig
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V)
+    fp32, new cache); ``cache`` itself is left as it was."""
+    pos = cache["pos"]
+    x = _embed_tokens(params, tokens)
+    new = dict(cache)
+    layers = {k: v.clone() for k, v in cache["layers"].items()}
+    new["layers"] = layers
+
+    if cfg.family in ATTN_FAMILIES:
+        for i, lp in enumerate(params["layers"]):
+            x, lc = _layer_decode_attn(lp, x, _layer_view(layers, i), pos, cfg)
+            _store(layers, i, lc)
+    elif cfg.family == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            x, lc = _layer_decode_mamba(lp, x, _layer_view(layers, i), cfg)
+            _store(layers, i, lc)
+    elif cfg.family == "hybrid":
+        shared = cache.get("shared_attn")
+        if shared is not None:
+            shared = {k: v.clone() for k, v in shared.items()}
+            new["shared_attn"] = shared
+        period = cfg.attn_every or (cfg.n_layers + 1)
+        inv = 0
+        for i, lp in enumerate(params["layers"]):
+            x, lc = _layer_decode_mamba(lp, x, _layer_view(layers, i), cfg)
+            _store(layers, i, lc)
+            if (i + 1) % period == 0 and shared is not None:
+                x, sc = _layer_decode_attn(params["shared_block"], x,
+                                           _layer_view(shared, inv), pos, cfg)
+                _store(shared, inv, sc)
+                inv += 1
+    elif cfg.family in ENCDEC_FAMILIES:
+        memory = cache["memory"]
+        for i, lp in enumerate(params["layers"]):
+            x, lc = _layer_decode_encdec(lp, x, _layer_view(layers, i), pos,
+                                         memory, cfg)
+            _store(layers, i, lc)
+    else:
+        raise ValueError(cfg.family)
+    new["pos"] = pos + 1
+    return _logits(params, x, cfg), new
+
+
+def _layer_decode_attn(p, x, lc, pos, cfg):
+    norm_x = rms_norm(x, p["attn_norm"], cfg.rmsnorm_eps)
+    if cfg.attention == "mla":
+        y, lc2 = mla_decode(p["attn"], norm_x, lc, pos, cfg)
+    else:
+        y, lc2 = gqa_decode(p["attn"], norm_x, lc, pos, cfg)
+    h = x + y
+    ymlp = rms_norm(h, p["mlp_norm"], cfg.rmsnorm_eps)
+    if cfg.moe_experts:
+        out, _ = moe_ffn(p["mlp"], ymlp, cfg)
+    else:
+        out = mlp(p["mlp"], ymlp)
+    return h + out, lc2
+
+
+def _layer_decode_mamba(p, x, lc, cfg):
+    y, lc2 = mamba2_decode(p["mixer"], rms_norm(x, p["norm"], cfg.rmsnorm_eps),
+                           lc, cfg)
+    return x + y, lc2
+
+
+def _layer_decode_encdec(p, x, lc, pos, memory, cfg):
+    norm_x = rms_norm(x, p["attn_norm"], cfg.rmsnorm_eps)
+    y, lc2 = gqa_decode(p["attn"], norm_x, lc, pos, cfg)
+    h = x + y
+    h = h + _cross_attn(p["cross"], rms_norm(h, p["cross_norm"],
+                                             cfg.rmsnorm_eps), memory, cfg)
+    out = mlp(p["mlp"], rms_norm(h, p["mlp_norm"], cfg.rmsnorm_eps))
+    return h + out, lc2
+
+
+# ---------------------------------------------------------------- prefill --
+
+
+def lm_prefill(params, batch: Dict, cfg: ArchConfig, capacity: int
+               ) -> Tuple[torch.Tensor, Dict]:
+    """Process a full prompt: last-position logits (B, 1, V) and a cache.
+
+    As the reference: the parallel forward gives the logits; the GQA
+    families' K/V cache is filled by a second pass over the tokens
+    (``_extract_gqa_cache``); the encdec memory is the encoder's output;
+    other families' layer caches stay zero.  ``pos`` is the token count.
+    """
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, capacity, device=tokens.device)
+    if cfg.family in ENCDEC_FAMILIES:
+        cache["memory"] = encode(params, batch["src_embeds"], cfg)
+    hidden, _ = _forward_hidden(params, batch, cfg)
+    logits = _logits(params, hidden[:, -1:], cfg)
+    if cfg.family in ATTN_FAMILIES and cfg.attention == "gqa":
+        cache["layers"] = _extract_gqa_cache(params, batch, cfg, capacity)
+    cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    return logits, cache
+
+
+def _extract_gqa_cache(params, batch, cfg, capacity):
+    """Recompute each layer's K/V projections for the prompt (parallel)
+    into the stacked (L, B, capacity, Hkv, D) buffers."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if s > capacity:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache capacity "
+                         f"{capacity}")
+    x = _embed_tokens(params, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    shape = (cfg.n_layers, b, capacity, cfg.n_kv_heads, cfg.head_dim)
+    kv = {"k": torch.zeros(shape, dtype=cfg.dtype, device=tokens.device),
+          "v": torch.zeros(shape, dtype=cfg.dtype, device=tokens.device)}
+    for i, lp in enumerate(params["layers"]):
+        norm_x = rms_norm(x, lp["attn_norm"], cfg.rmsnorm_eps)
+        _, k, v = gqa_project_qkv(lp["attn"], norm_x, cfg, positions)
+        x, _ = _decoder_layer(lp, x, cfg)
+        kv["k"][i, :, :s] = k.to(cfg.dtype)
+        kv["v"][i, :, :s] = v.to(cfg.dtype)
+    return kv

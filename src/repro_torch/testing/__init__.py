@@ -22,6 +22,11 @@ tests that hold the multi-device layer against the reference;
 cards under torchrun against the one-card route and times them::
 
     torchrun --nproc_per_node=4 -m repro_torch.testing.multicard
+
+:mod:`repro_torch.testing.lm_card` checks and times the LM serving path
+on one card (qwen3-0.6b at full width, its server, every family)::
+
+    python -m repro_torch.testing.lm_card
 """
 
 from .conformance import (
