@@ -155,6 +155,17 @@ a non-zero exit at the first phase that fails:
      ``lm_prefill`` at 512 tokens, peak memory, a profile of four decode
      steps); every other family once in fp32, decode against the forward,
      each cut printed.
+  8. the LM training path (``repro_torch.testing.lm_train_card``; no
+     FlashSparse kernel on it, and the counters stay at zero): qwen3-0.6b
+     at published width, 2 layers, fp32, card against CPU (loss,
+     gradients), 4 microbatches against 1, remat on against off, one step
+     each under int8 and top-k compression and 8-bit moments from the same
+     gradients; at bf16, full width and depth, train_4k's 4,096 tokens
+     with the global batch cut to 8 (4 microbatches of 2): 6 steps, step
+     ms by CUDA events, tokens/s, peak memory, the share of the step's
+     bound, a profile of one step; the loss falling over 20 steps at 2
+     layers; a checkpoint saved, restored bitwise and continued, and
+     ``launch/train.py --reduced`` resuming.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -382,17 +393,21 @@ def cuda_ms(fn, reps: int = 5, batch: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_run(run) -> dict:
-    """Device time by kernel over one call of ``run``, and the share of
-    that call's wall time (host clock, ending in a synchronise) in which
-    no kernel ran."""
+def profile_run(run, warmup: bool = True, host_ops: bool = True) -> dict:
+    """Device time by kernel over one call of ``run`` (after a warm-up
+    call unless ``warmup`` is false), and the share of that call's wall
+    time (host clock, ending in a synchronise) in which no kernel ran.
+    ``host_ops=False`` traces the device alone: a long step's host ops
+    make the trace slow to read, and the kernel times do not need them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run()
+    if warmup:
+        run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1644,7 +1659,7 @@ def main() -> None:
     from repro_torch.models.layers import (sparse_attention,
                                            sparse_attention_staged)
     from repro_torch.sparse.graphs import make_dataset
-    from repro_torch.testing import lm_card
+    from repro_torch.testing import lm_card, lm_train_card
     from repro_torch.train.sparse_attention_train import (
         TOLERANCES as ATTN_TOLERANCES, dense_mask, dense_masked_attention,
         initial_w, make_inputs, params_from_jax, train_value_projection,
@@ -3522,6 +3537,22 @@ def main() -> None:
         raise SystemExit(f"FAIL: the LM serving path launched {stray}")
     lm_result["card"] = card
 
+    phase("8. the LM training path: qwen3-0.6b fp32 checks at 2 layers, bf16 "
+          "at full width and depth on train_4k, the falling loss, resume")
+    # Plain PyTorch as well (the reference's LM blocks are plain jnp): the
+    # counters stay at zero.
+    torch.cuda.empty_cache()
+    reset_counts()
+    # (b)'s five steps before it warm its profiled step up
+    train_lm = lm_train_card.run(
+        DEVICE, log=print,
+        profile=lambda fn: profile_run(fn, warmup=False, host_ops=False))
+    stray = {name: n for name, n in counts().items() if n}
+    if stray:
+        raise SystemExit(f"FAIL: the LM training path launched {stray}")
+    train_lm["card"] = card
+    torch.cuda.empty_cache()
+
     v = blk.vector_size
     # Each distinct input read once (the main path passes Q and K as one
     # tensor, AGNN's q = k = ĥ, counted once), the output written once, and
@@ -3854,6 +3885,7 @@ def main() -> None:
                       "hardened_runtime": hardened,
                       "multi_device": sharded,
                       "lm_serving": lm_result,
+                      "lm_training": train_lm,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))

@@ -1,11 +1,12 @@
 """Architecture configuration of the language models.
 
 Counterpart of ``repro.models.config``: the same fields, defaults and
-derived sizes, with ``dtype`` a torch dtype.  The fields that steer the
-reference's XLA compiler or its GSPMD sharding (``remat``,
-``scan_layers``, ``act_sp``, ``attn_unroll``, ``moe_ep``) are kept so the
-configurations carry over unchanged; the port runs one card and walks
-its layers in a Python loop, so they change nothing here.
+derived sizes, with ``dtype`` a torch dtype.  ``remat`` checkpoints
+each layer of a differentiated forward (``torch.utils.checkpoint``).  The
+fields that steer the reference's XLA compiler or its GSPMD sharding
+(``scan_layers``, ``act_sp``, ``attn_unroll``, ``moe_ep``) are kept so
+the configurations carry over unchanged; the port runs one card and
+walks its layers in a Python loop, so they change nothing here.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ class ArchConfig:
     """One architecture's dimensions.
 
     ``family`` is one of dense, moe, ssm, hybrid, encdec, vlm, audio.
-    ``remat``, ``scan_layers``, ``attn_unroll``, ``act_sp`` and ``moe_ep``
-    are the reference's compiler and sharding knobs: accepted and ignored
-    (the port has no rematerialisation, no layer scan and no sharded LM).
+    ``remat`` recomputes each layer's activations in the backward, as the
+    reference's ``jax.checkpoint`` does.  ``scan_layers``, ``attn_unroll``,
+    ``act_sp`` and ``moe_ep`` are the reference's compiler and sharding
+    knobs: accepted and ignored (no layer scan and no sharded LM here).
     """
 
     name: str
@@ -76,7 +78,7 @@ class ArchConfig:
     prefix_len: int = 0
 
     dtype: Any = torch.bfloat16
-    remat: bool = True           # ignored here
+    remat: bool = True           # torch.utils.checkpoint per layer
     scan_layers: bool = True     # ignored here: layers run in a Python loop
     attn_impl: str = "auto"      # auto | full | chunked
     attn_unroll: bool = False    # ignored here

@@ -16,10 +16,16 @@ API (functions over parameter dicts of tensors):
   init_cache(cfg, batch, capacity, device)   -> cache
   lm_decode_step(params, tokens, cache, cfg) -> (logits, cache)
   lm_prefill(params, batch, cfg, capacity)   -> (logits, cache)
+  lm_loss(params, batch, cfg, aux_weight)    -> (loss, {"ce", "aux"})
   lm_params_from_jax(cfg, params)            -> params
+  stack_layers(params) / unstack_layers(params)
 
 ``params["layers"]`` (and ``"encoder"``) is a list of per-layer dicts
-walked by a Python loop.  The decode cache keeps the reference's stacked
+walked by a Python loop.  Training keeps the reference's stacked layout
+(``stack_layers``: dicts of ``(L, ...)`` tensors), and ``lm_loss`` takes
+either.  ``cfg.remat`` runs each layer of a differentiated forward under
+``torch.utils.checkpoint``, as the reference wraps each in
+``jax.checkpoint``.  The decode cache keeps the reference's stacked
 layout: ``(L, B, capacity, ...)`` tensors in a dict.  Entry points run
 on the card unless the caller passes ``device="cpu"``.
 """
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.format import resolve_device
+from repro_torch.pytree import tree_map
 
 from .config import ArchConfig
 from .layers import (
@@ -55,20 +62,12 @@ from .layers import (
 )
 
 __all__ = ["init_lm", "lm_forward", "init_cache", "lm_prefill",
-           "lm_decode_step", "encode", "lm_params_from_jax", "tree_map"]
+           "lm_decode_step", "lm_loss", "encode", "lm_params_from_jax",
+           "tensor_from_numpy", "stack_layers", "unstack_layers", "tree_map"]
 
 ATTN_FAMILIES = ("dense", "moe", "vlm")
 ENCDEC_FAMILIES = ("encdec", "audio")
-
-
-def tree_map(fn, tree):
-    """``fn`` over the tensors of a nest of dicts and lists (``None``
-    leaves stay ``None``)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return None if tree is None else fn(tree)
+STACKED = ("layers", "encoder")   # the keys whose layers the reference stacks
 
 
 # ------------------------------------------------------------------- init --
@@ -132,23 +131,28 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator, device=None) -> Dict:
     return params
 
 
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    """A copy of a numpy array of the JAX package on ``device``; bf16
+    (``ml_dtypes.bfloat16``, which torch does not read) passes through
+    float32, which holds every bf16 value exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind not in "fiub":          # ml_dtypes.bfloat16
+        return torch.tensor(arr.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.tensor(arr).to(device)
+
+
 def lm_params_from_jax(cfg: ArchConfig, params: Dict, *, device=None) -> Dict:
     """The port's parameters from the JAX package's ``init_lm`` pytree.
 
     ``params`` holds numpy arrays (bf16 leaves as ``ml_dtypes.bfloat16``
-    arrays, which torch does not read: they pass through float32, which
-    holds every bf16 value exactly).  The stacked layer axis of
+    arrays: :func:`tensor_from_numpy`).  The stacked layer axis of
     ``"layers"`` and ``"encoder"`` is unstacked into lists of per-layer
     dicts.  ``device`` defaults to the card.
     """
     device = resolve_device(device)
 
     def leaf(arr):
-        arr = np.asarray(arr)
-        if arr.dtype.kind not in "fiub":          # ml_dtypes.bfloat16
-            return torch.tensor(arr.astype(np.float32)).to(
-                device, torch.bfloat16)
-        return torch.tensor(arr).to(device)
+        return tensor_from_numpy(arr, device)
 
     out = {}
     for key, val in params.items():
@@ -160,6 +164,36 @@ def lm_params_from_jax(cfg: ArchConfig, params: Dict, *, device=None) -> Dict:
         else:
             out[key] = tree_map(leaf, val)
     return out
+
+
+def _stack(layers: List):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def _unbind(tree) -> List:
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def stack_layers(params: Dict) -> Dict:
+    """The reference's stacked layout: the per-layer lists of
+    ``"layers"`` and ``"encoder"`` become dicts of ``(L, ...)`` tensors
+    (new tensors); every other entry is shared with ``params``."""
+    return {k: _stack(v) if k in STACKED and isinstance(v, list) else v
+            for k, v in params.items()}
+
+
+def unstack_layers(params: Dict) -> Dict:
+    """Per-layer views of a stacked ``"layers"``/``"encoder"`` (lists pass
+    through).  The views come from ``torch.unbind``, so autograd gathers
+    the layers' gradients into the stacked leaf's with one stack."""
+    return {k: _unbind(v) if k in STACKED and isinstance(v, dict) else v
+            for k, v in params.items()}
 
 
 # ------------------------------------------------------------ layer apply --
@@ -201,8 +235,24 @@ def _mamba_layer(p, x, cfg: ArchConfig):
                             cfg, chunk=cfg.ssd_chunk), _zero_aux(x)
 
 
-def _run_stack(x, layers: List[Dict], body):
-    """Apply ``body`` layer after layer; accumulates the aux losses."""
+def _checkpointed(body):
+    """``body`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of kept (the forward draws no
+    random numbers, so no RNG state is stashed)."""
+    from torch.utils.checkpoint import checkpoint
+
+    def run(*args):
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
+
+
+def _run_stack(x, layers: List, body, remat: bool = False):
+    """Apply ``body`` layer after layer; accumulates the aux losses.  With
+    ``remat`` and grad enabled each call is checkpointed."""
+    if remat and torch.is_grad_enabled():
+        body = _checkpointed(body)
     aux = _zero_aux(x)
     for lp in layers:
         x, a = body(lp, x)
@@ -232,7 +282,8 @@ def encode(params, src_embeds: torch.Tensor, cfg: ArchConfig):
     memory the decoder's cross-attention reads."""
     mem = src_embeds.to(cfg.dtype)
     mem, _ = _run_stack(mem, params["encoder"],
-                        lambda p, h: _decoder_layer(p, h, cfg, causal=False))
+                        lambda p, h: _decoder_layer(p, h, cfg, causal=False),
+                        cfg.remat)
     return mem
 
 
@@ -246,10 +297,10 @@ def _forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
         mem = batch["src_embeds"].to(cfg.dtype)
         mem, aux_e = _run_stack(
             mem, params["encoder"],
-            lambda p, h: _decoder_layer(p, h, cfg, causal=False))
+            lambda p, h: _decoder_layer(p, h, cfg, causal=False), cfg.remat)
         x, aux_d = _run_stack(
             x, params["layers"],
-            lambda p, h: _decoder_layer(p, h, cfg, cross_kv=mem))
+            lambda p, h: _decoder_layer(p, h, cfg, cross_kv=mem), cfg.remat)
         return x, aux_e + aux_d
 
     if cfg.family == "vlm" and "prefix_embeds" in batch:
@@ -259,10 +310,10 @@ def _forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
 
     if cfg.family in ATTN_FAMILIES:
         x, aux = _run_stack(x, params["layers"],
-                            lambda p, h: _decoder_layer(p, h, cfg))
+                            lambda p, h: _decoder_layer(p, h, cfg), cfg.remat)
     elif cfg.family == "ssm":
         x, aux = _run_stack(x, params["layers"],
-                            lambda p, h: _mamba_layer(p, h, cfg))
+                            lambda p, h: _mamba_layer(p, h, cfg), cfg.remat)
     elif cfg.family == "hybrid":
         x, aux = _hybrid_forward(params, x, cfg)
     else:
@@ -287,17 +338,25 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
 
 def _hybrid_forward(params, x, cfg: ArchConfig):
     """Zamba-2 style: periods of ``attn_every`` mamba layers, each
-    followed by the shared block; leftover layers run without it."""
-    aux = _zero_aux(x)
+    followed by the shared block; leftover layers run without it.  Under
+    ``remat`` a period is one checkpoint, as in the reference."""
+    layers = params["layers"]
     period = cfg.attn_every or cfg.n_layers
     n_main = (cfg.n_layers // period) * period
-    for i, lp in enumerate(params["layers"]):
-        x, a = _mamba_layer(lp, x, cfg)
-        aux = aux + a
-        if i < n_main and (i + 1) % period == 0:
-            x, a = _decoder_layer(params["shared_block"], x, cfg)
+
+    def period_body(plist, h):
+        aux = _zero_aux(h)
+        for lp in plist:
+            h, a = _mamba_layer(lp, h, cfg)
             aux = aux + a
-    return x, aux
+        h, a = _decoder_layer(params["shared_block"], h, cfg)
+        return h, aux + a
+
+    periods = [layers[i:i + period] for i in range(0, n_main, period)]
+    x, aux = _run_stack(x, periods, period_body, cfg.remat)
+    x, aux_tail = _run_stack(x, layers[n_main:],
+                             lambda p, h: _mamba_layer(p, h, cfg), cfg.remat)
+    return x, aux + aux_tail
 
 
 # ------------------------------------------------------------------ cache --
@@ -488,3 +547,26 @@ def _extract_gqa_cache(params, batch, cfg, capacity):
         kv["k"][i, :, :s] = k.to(cfg.dtype)
         kv["v"][i, :, :s] = v.to(cfg.dtype)
     return kv
+
+
+# ------------------------------------------------------------------- loss --
+
+
+def lm_loss(params, batch: Dict, cfg: ArchConfig, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross entropy (+ MoE aux); the labels are the tokens
+    shifted by one, and a negative label is masked out.
+
+    CE is ``logsumexp(logits) - logits[target]`` in fp32, so no second
+    (B, S, V) log-softmax buffer is kept.  ``params`` may hold its layers
+    stacked (the training state's layout) or as lists.  Returns
+    ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``.
+    """
+    logits, aux = lm_forward(unstack_layers(params), batch, cfg)
+    targets = batch["tokens"][:, 1:].long()
+    logits = logits[:, :-1].float()
+    lse = torch.logsumexp(logits, dim=-1)                        # (B, S-1)
+    picked = torch.gather(logits, -1, targets.clamp(min=0)[..., None])[..., 0]
+    mask = (targets >= 0).to(f32)
+    loss = ((lse - picked) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}

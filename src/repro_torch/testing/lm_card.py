@@ -109,18 +109,20 @@ def _fail(msg: str):
 
 
 def _close(label: str, out: torch.Tensor, ref: torch.Tensor, rtol: float,
-           atol: float, log) -> float:
-    """Fail unless ``out`` is finite and within tolerance of ``ref``;
-    returns the max abs error."""
-    out, ref = out.float().cpu(), ref.float().cpu()
+           atol: float, log, show: bool = True) -> float:
+    """Fail unless ``out`` is finite and within tolerance of ``ref``
+    (compared on ``out``'s device); returns the max abs error.  The line
+    is logged when ``show`` or on failure."""
+    out, ref = out.float(), ref.to(out.device).float()
     if out.shape != ref.shape:
         _fail(f"{label}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
     if not bool(torch.isfinite(out).all()):
         _fail(f"{label}: non-finite values")
-    err = (out - ref).abs().max().item()
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
     ok = torch.allclose(out, ref, rtol=rtol, atol=atol)
-    log(f"  {'ok  ' if ok else 'FAIL'} {label}: max abs err {err:.3e} "
-        f"(rtol={rtol}, atol={atol:.3e})")
+    if show or not ok:
+        log(f"  {'ok  ' if ok else 'FAIL'} {label}: max abs err {err:.3e} "
+            f"(rtol={rtol}, atol={atol:.3e})")
     if not ok:
         _fail(label)
     return err

@@ -10,8 +10,9 @@ results come back as one dict per rank: ``{job name: case output}``.
 
   results = spawn(4, [("ops41", (4, 1), "ops", inputs), ...], workdir)
 
-The cases take numpy inputs, run on the CPU (the kernels' plain
-versions) and return tensors, so a test can hold them against another
+The cases (the sharded ops, a GNN train step, the int8-compressed mean
+of the LM train step) take numpy inputs, run on the CPU (the kernels'
+plain versions) and return tensors, so a test can hold them against another
 implementation in its own process.  This module imports no JAX.
 """
 
@@ -99,7 +100,21 @@ def _train_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
             "losses": torch.tensor(losses, dtype=torch.float64)}
 
 
-CASES = {"ops": _ops_case, "train": _train_case}
+def _compressed_psum_case(mesh: DeviceMesh, inp: dict
+                          ) -> Dict[str, torch.Tensor]:
+    """``compressed_psum`` over the mesh's data group of this rank's
+    ``inp["x"][rank]``, as fp32 and as bf16."""
+    from repro_torch.train.train_step import compressed_psum
+
+    x = _t(inp["x"][dist.get_rank()])
+    group = mesh.get_group("data")
+    return {"fp32": compressed_psum(x, group, block=inp["block"]),
+            "bf16": compressed_psum(x.to(torch.bfloat16), group,
+                                    block=inp["block"])}
+
+
+CASES = {"ops": _ops_case, "train": _train_case,
+         "compressed_psum": _compressed_psum_case}
 
 
 def _mesh(shape: Tuple[int, int]) -> DeviceMesh:

@@ -26,7 +26,9 @@ and per-head operands, fp32 and bf16 (bf16 bitwise the fp32 kernel on
 widened operands, rounded).  The multi-device layer's rank-local
 launches of rows 4, 8 and 10 over partitions of 2 and 4 ranks against
 their plain versions and summing to the unsharded launch, and a GCN step
-on the sharded plans over a one-rank NCCL mesh.  They skip on a host
+on the sharded plans over a one-rank NCCL mesh.  The LM train step
+(plain PyTorch, no sparse kernel) at ``get_reduced`` size for qwen3,
+moonshot and mamba2 against the same step on the CPU.  They skip on a host
 without a
 CUDA device; on one, run
 
@@ -1229,3 +1231,58 @@ def test_sharded_plan_trains_on_a_one_rank_nccl_mesh(device):
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "moonshot-v1-16b-a3b",
+                                  "mamba2-2.7b"])
+def test_lm_train_step_on_card_matches_cpu(device, arch, monkeypatch):
+    """The LM train step at ``get_reduced`` size, fp32 (TF32 off): the
+    card's loss and gradients against the CPU's from the same state and
+    batch (loss ``rtol=1e-5``; gradients ``rtol=1e-3`` and ``1e-4`` of
+    the largest, fp32 sums in another order), then one step each: the
+    metrics, and every parameter within ``2 lr`` (Adam moves an entry by
+    about ``lr`` either way, so a gradient within rounding of 0 may step
+    the other way)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.pytree import leaf_paths, tree_map
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              accumulate_grads,
+                                              init_train_state,
+                                              make_train_step)
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_reduced(arch)
+    lr = 1e-3
+    ts = TrainStepConfig(opt=AdamWConfig(lr=lr, warmup_steps=1),
+                         microbatches=2)
+    host = init_train_state(cfg, ts, torch.Generator().manual_seed(0),
+                            device="cpu")
+    card = tree_map(lambda t: t.to(device), host)
+    batch = {k: torch.from_numpy(v) for k, v in
+             make_batch(cfg, 4, 32, step=0, seed=0).items()}
+    batch_card = {k: v.to(device) for k, v in batch.items()}
+
+    loss_c, _, grads_c = accumulate_grads(cfg, ts, card["params"], batch_card)
+    loss_h, _, grads_h = accumulate_grads(cfg, ts, host["params"], batch)
+    assert float(loss_c) == pytest.approx(float(loss_h), rel=1e-5)
+    top = max(float(g.abs().max()) for _, g in leaf_paths(grads_h))
+    for (path, gc), (_, gh) in zip(leaf_paths(grads_c), leaf_paths(grads_h)):
+        torch.testing.assert_close(gc.cpu(), gh, rtol=1e-3, atol=1e-4 * top,
+                                   msg=path)
+
+    step = make_train_step(cfg, ts)
+    card, m_c = step(card, batch_card)
+    host, m_h = step(host, batch)
+    torch.cuda.synchronize()
+    assert float(m_c["loss"]) == pytest.approx(float(m_h["loss"]), rel=1e-5)
+    assert float(m_c["grad_norm"]) == pytest.approx(float(m_h["grad_norm"]),
+                                                    rel=1e-3)
+    assert float(m_c["lr"]) == pytest.approx(float(m_h["lr"]), rel=1e-6)
+    assert int(card["step"]) == int(host["step"]) == 1
+    for (path, pc), (_, ph) in zip(leaf_paths(card["params"]),
+                                   leaf_paths(host["params"])):
+        assert pc.device.type == "cuda"
+        torch.testing.assert_close(pc.cpu(), ph, rtol=0, atol=2 * lr,
+                                   msg=path)

@@ -14,6 +14,7 @@ the port's import graph (no JAX).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -236,21 +237,36 @@ def test_config_matches_the_reference(arch):
     assert tcfg.get_reduced(arch).dtype == torch.float32
 
 
+# The training slice's modules: the walk below must reach each of them.
+TRAINING_MODULES = ("repro_torch.data.synthetic", "repro_torch.launch.train",
+                    "repro_torch.train.checkpoint",
+                    "repro_torch.train.compression",
+                    "repro_torch.train.optimizer", "repro_torch.pytree",
+                    "repro_torch.train.train_step",
+                    "repro_torch.testing.lm_train_card")
+
+
 def test_port_imports_no_jax():
-    """Every module of ``repro_torch`` imports without JAX or the JAX
-    package, and no source line names them."""
-    code = ("import importlib, pkgutil, sys, repro_torch\n"
+    """Every module of ``repro_torch`` (the training slice's among them)
+    imports without JAX or the JAX package, and no source line names
+    them."""
+    code = ("import importlib, json, pkgutil, sys, repro_torch\n"
+            "seen = []\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "    seen.append(m.name)\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
-            "print(bad)\n"
+            "print(json.dumps({'bad': bad, 'seen': seen}))\n"
             "sys.exit(1 if bad else 0)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    seen = json.loads(res.stdout.strip().splitlines()[-1])["seen"]
+    missing = [m for m in TRAINING_MODULES if m not in seen]
+    assert not missing, missing
     pattern = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)[. ])")
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
