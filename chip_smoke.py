@@ -166,6 +166,17 @@ a non-zero exit at the first phase that fails:
      bound, a profile of one step; the loss falling over 20 steps at 2
      layers; a checkpoint saved, restored bitwise and continued, and
      ``launch/train.py --reduced`` resuming.
+  9. the sharded LM (``repro_torch.testing.lm_shard_card``; no FlashSparse
+     kernel on it, and the counters stay at zero): three train steps of
+     qwen3-0.6b at published width, 2 layers, fp32, with the state as
+     DTensors on a one-rank NCCL mesh against three plain steps (within
+     1e-6, bitwise expected; both step times); every rank's expert-parallel
+     MoE body of moonshot-v1-16b-a3b's layer at published width (bf16,
+     4 x 1,024 tokens) at "model" = 2, 4 and 8, summed on the card,
+     against the dense MoE, and the (2, 2) bodies against the CPU's; the
+     ring all-gather matmul's rank-local steps at n = 2 and 4; the state
+     resharded onto a second mesh and back, bitwise, and the per-rank
+     resident parameter bytes at (8, 1), (4, 2) and (2, 4).
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -1659,7 +1670,7 @@ def main() -> None:
     from repro_torch.models.layers import (sparse_attention,
                                            sparse_attention_staged)
     from repro_torch.sparse.graphs import make_dataset
-    from repro_torch.testing import lm_card, lm_train_card
+    from repro_torch.testing import lm_card, lm_shard_card, lm_train_card
     from repro_torch.train.sparse_attention_train import (
         TOLERANCES as ATTN_TOLERANCES, dense_mask, dense_masked_attention,
         initial_w, make_inputs, params_from_jax, train_value_projection,
@@ -3553,6 +3564,19 @@ def main() -> None:
     train_lm["card"] = card
     torch.cuda.empty_cache()
 
+    phase("9. the sharded LM: qwen3-0.6b's sharded step on a one-rank NCCL "
+          "mesh, moonshot's expert-parallel MoE bodies, the ring matmul, "
+          "resharding")
+    # Plain PyTorch and collectives (the reference's sharding layer is
+    # jnp, shard_map and collectives): the counters stay at zero.
+    reset_counts()
+    sharded_lm = lm_shard_card.run(DEVICE, log=print)
+    stray = {name: n for name, n in counts().items() if n}
+    if stray:
+        raise SystemExit(f"FAIL: the sharded LM launched {stray}")
+    sharded_lm["card"] = card
+    torch.cuda.empty_cache()
+
     v = blk.vector_size
     # Each distinct input read once (the main path passes Q and K as one
     # tensor, AGNN's q = k = ĥ, counted once), the output written once, and
@@ -3886,6 +3910,7 @@ def main() -> None:
                       "multi_device": sharded,
                       "lm_serving": lm_result,
                       "lm_training": train_lm,
+                      "lm_sharded": sharded_lm,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))

@@ -2,11 +2,13 @@
 
 Counterpart of ``repro.models.config``: the same fields, defaults and
 derived sizes, with ``dtype`` a torch dtype.  ``remat`` checkpoints
-each layer of a differentiated forward (``torch.utils.checkpoint``).  The
-fields that steer the reference's XLA compiler or its GSPMD sharding
-(``scan_layers``, ``act_sp``, ``attn_unroll``, ``moe_ep``) are kept so
-the configurations carry over unchanged; the port runs one card and
-walks its layers in a Python loop, so they change nothing here.
+each layer of a differentiated forward (``torch.utils.checkpoint``).
+The sharding knobs act under an ambient mesh (``distributed.ctx``):
+``moe_ep`` takes the expert-parallel MoE (``layers.moe_ffn_ep``) and
+``act_sp`` splits each layer's output over "model" on its sequence dim.
+The fields that steer the reference's XLA compiler (``scan_layers``,
+``attn_unroll``) are kept so the configurations carry over unchanged;
+the port walks its layers in a Python loop, so they change nothing here.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ class ArchConfig:
 
     ``family`` is one of dense, moe, ssm, hybrid, encdec, vlm, audio.
     ``remat`` recomputes each layer's activations in the backward, as the
-    reference's ``jax.checkpoint`` does.  ``scan_layers``, ``attn_unroll``,
-    ``act_sp`` and ``moe_ep`` are the reference's compiler and sharding
-    knobs: accepted and ignored (no layer scan and no sharded LM here).
+    reference's ``jax.checkpoint`` does.  ``moe_ep`` and ``act_sp`` act
+    under an ambient mesh (module docstring); ``scan_layers`` and
+    ``attn_unroll`` are the reference's compiler knobs: accepted and
+    ignored (no layer scan here).
     """
 
     name: str
@@ -58,7 +61,7 @@ class ArchConfig:
     moe_shared_experts: int = 0
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
-    moe_ep: bool = False         # expert-parallel dispatch: ignored here
+    moe_ep: bool = False         # expert-parallel dispatch under a mesh
 
     # SSM (Mamba-2 / SSD)
     ssm_state: int = 0
@@ -82,7 +85,7 @@ class ArchConfig:
     scan_layers: bool = True     # ignored here: layers run in a Python loop
     attn_impl: str = "auto"      # auto | full | chunked
     attn_unroll: bool = False    # ignored here
-    act_sp: bool = False         # ignored here
+    act_sp: bool = False         # layer outputs' seq dim over "model"
 
     # which shapes this arch supports (long_500k only for sub-quadratic)
     supports_long_context: bool = False

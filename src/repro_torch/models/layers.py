@@ -24,19 +24,25 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import dispatch as sparse_dispatch
 from repro_torch.core.autodiff import ADPlan, attention_ad, sddmm_ad, spmm_ad
 from repro_torch.core.format import BlockedMEBCRS
 from repro_torch.core.sddmm import with_values
 from repro_torch.core.softmax import sparse_softmax
+from repro_torch.distributed.ctx import current_mesh
+from repro_torch.pytree import tree_map
 
 __all__ = [
     "rms_norm", "apply_rope", "full_attention", "chunked_attention",
     "attention", "init_gqa", "gqa_project_qkv", "gqa_attn", "gqa_decode",
     "init_mla", "mla_attn", "mla_decode", "init_mlp", "mlp", "init_moe",
-    "moe_ffn", "init_mamba2", "ssd_scan", "mamba2_block", "mamba2_decode",
-    "sparse_attention", "sparse_attention_staged"]
+    "moe_ffn", "moe_ffn_ep", "moe_ffn_ep_local", "moe_ep_capacity",
+    "moe_route", "moe_slots", "split_heads", "sum_over",
+    "init_mamba2",
+    "ssd_scan", "mamba2_block", "mamba2_decode", "sparse_attention",
+    "sparse_attention_staged"]
 
 f32 = torch.float32
 
@@ -206,6 +212,9 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     q: (B, S, Hq, D); k, v: (B, Sk, Hkv, D).  ``impl="auto"`` takes the
     chunked form for ``S > 2048`` without ``kv_len``.
     """
+    if isinstance(q, DTensor):
+        return _attention_local(q, k, v, causal=causal, q_offset=q_offset,
+                                kv_len=kv_len, impl=impl, kv_block=kv_block)
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, d)
@@ -218,6 +227,34 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         out = full_attention(qg, k, v, causal=causal, q_offset=q_offset,
                              kv_len=kv_len)
     return out.reshape(b, sq, hq, -1)
+
+
+def _attention_local(q, k, v, *, kv_len, **kw):
+    """:func:`attention` on DTensors, rank by rank: attention is
+    independent across the batch and the heads, so each rank attends its
+    batch shard ("data") and head shard ("model") with the plain code on
+    its local tensors, the sequence whole.  (DTensor's own rules would
+    flatten a sharded head dim inside the score product, which torch
+    releases before 2.13 refuse.)  Where the kv-heads do not divide the
+    "model" ranks but the query heads do, the kv-heads are repeated to
+    one a query head (the same products)."""
+    if kv_len is not None:
+        raise NotImplementedError("decode attention takes no DTensor cache")
+    mesh = q.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    b, _, hq, _ = q.shape
+    hkv = k.shape[2]
+    n_data, n_model = sizes.get("data", 1), sizes.get("model", 1)
+    heads = Replicate()
+    if hq % n_model == 0:
+        heads = Shard(2)
+        if hkv % n_model:
+            k, v = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
+    layout = _placed(mesh, data=Shard(0) if b % n_data == 0 else Replicate(),
+                     model=heads)
+    out = attention(*(t.redistribute(mesh, layout).to_local()
+                      for t in (q, k, v)), **kw)
+    return DTensor.from_local(out, mesh, layout, run_check=False)
 
 
 # ------------------------------------------------------------------- init --
@@ -252,12 +289,27 @@ def init_gqa(cfg, gen: torch.Generator, device) -> Dict:
     return p
 
 
+def split_heads(t: torch.Tensor, h: int, hd: int) -> torch.Tensor:
+    """``t`` (..., h * hd) as (..., h, hd).  On a DTensor whose last dim
+    is split over a mesh dim that does not divide ``h`` (2 kv-heads over
+    4 "model" ranks), that split is undone first: DTensor has no rule for
+    a view that cuts a head across ranks."""
+    if isinstance(t, DTensor):
+        last = t.dim() - 1
+        pl = [Replicate() if isinstance(q, Shard) and q.dim == last
+              and h % t.device_mesh.size(i) else q
+              for i, q in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], h, hd)
+
+
 def gqa_project_qkv(p, x, cfg, positions):
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_heads(x @ p["wq"], cfg.n_heads, hd)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rmsnorm_eps)
         k = rms_norm(k, p["k_norm"], cfg.rmsnorm_eps)
@@ -328,8 +380,8 @@ def init_mla(cfg, gen: torch.Generator, device) -> Dict:
 def _mla_q(p, x, cfg, positions):
     b, s, _ = x.shape
     cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.rmsnorm_eps)
-    q = (cq @ p["w_uq"]).reshape(b, s, cfg.n_heads,
-                                 cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = split_heads(cq @ p["w_uq"], cfg.n_heads,
+                    cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -350,8 +402,8 @@ def mla_attn(p, x, cfg, *, causal=True, attn_impl="auto") -> torch.Tensor:
     positions = torch.arange(s, device=x.device)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     ckv, k_rope = _mla_latent(p, x, cfg, positions)
-    k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, cfg.qk_nope_dim)
-    v = (ckv @ p["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
+    k_nope = split_heads(ckv @ p["w_uk"], h, cfg.qk_nope_dim)
+    v = split_heads(ckv @ p["w_uv"], h, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, cfg.qk_rope_dim)], dim=-1)
@@ -436,15 +488,21 @@ def moe_route(p, xt: torch.Tensor, cfg):
     return probs, gates, eidx
 
 
-def moe_slots(eidx: torch.Tensor, cfg):
+def moe_slots(eidx: torch.Tensor, cfg, *, cap: Optional[int] = None,
+              j0: int = 0, e_loc: Optional[int] = None):
     """Sort-based dispatch of ``moe_ffn``: the (token, choice) pairs in
     stable expert order (``order``), each pair's row of the (E * cap)
     expert buffer (``slot``; a pair past its expert's capacity goes to
     the sentinel row ``E * cap``), whether it is kept, and ``cap =
-    max(int(T * K / E * capacity_factor), 8)``."""
+    max(int(T * K / E * capacity_factor), 8)``.
+
+    With ``e_loc`` (the expert-parallel path) only the experts
+    ``[j0, j0 + e_loc)`` are kept, their rows numbered from ``j0``, the
+    sentinel is ``e_loc * cap``, and ``cap`` is the caller's."""
     t, k = eidx.shape
     e = cfg.moe_experts
-    cap = max(int(t * k / e * cfg.capacity_factor), 8)
+    if cap is None:
+        cap = max(int(t * k / e * cfg.capacity_factor), 8)
     flat_e = eidx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -452,18 +510,76 @@ def moe_slots(eidx: torch.Tensor, cfg):
         sorted_e, torch.arange(e, device=eidx.device, dtype=sorted_e.dtype))
     pos_in_e = torch.arange(t * k, device=eidx.device) - starts[sorted_e]
     keep = pos_in_e < cap
-    slot = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
+    if e_loc is None:
+        e_loc = e
+    else:
+        keep = keep & (sorted_e >= j0) & (sorted_e < j0 + e_loc)
+    slot = torch.where(keep, (sorted_e - j0) * cap + pos_in_e, e_loc * cap)
     return order, slot, keep, cap
+
+
+def _expert_ffn(xt, order, slot, keep, cap, e_rows, wg, wu, wd):
+    """The grouped expert GEMMs of one dispatch: the kept pairs' tokens
+    into the (e_rows, cap, D) buffer, SwiGLU per expert, and each pair's
+    output row in sorted order (0 for a dropped pair)."""
+    token_of = order // (order.numel() // xt.shape[0])
+    d = xt.shape[-1]
+    xbuf = torch.zeros((e_rows * cap + 1, d), dtype=xt.dtype,
+                       device=xt.device)
+    xbuf[slot] = xt[token_of]             # dropped pairs: the sentinel row
+    xg = xbuf[:e_rows * cap].reshape(e_rows, cap, d)
+    h = torch.bmm(xg, wg)
+    u = torch.bmm(xg, wu)
+    yg = torch.bmm(F.silu(h) * u, wd)
+    ybuf = yg.reshape(e_rows * cap, d)
+    return torch.where(keep[:, None], ybuf[slot.clamp(max=e_rows * cap - 1)],
+                       0.0)
+
+
+def _combine(y_tok, gates, order, eidx, dtype):
+    """Each token's k gated expert outputs, cast to ``dtype`` and summed
+    in one fixed order (ascending expert id, the order the reference's
+    scatter-add takes them in), so a second run gives the same bits on
+    any device."""
+    t, k = eidx.shape
+    d = y_tok.shape[-1]
+    g_tok = gates.reshape(-1)[order][:, None].to(y_tok.dtype)
+    contrib = torch.empty_like(y_tok, dtype=dtype)
+    contrib[order] = (y_tok * g_tok).to(dtype)   # back to (token, choice)
+    contrib = contrib.reshape(t, k, d)
+    by_expert = torch.argsort(eidx, dim=1)
+    contrib = torch.gather(contrib, 1, by_expert[:, :, None].expand(t, k, d))
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    return out
 
 
 def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with sort-based grouped dispatch.
 
     x: (B, S, D) -> (out, aux_loss).  Each token's k expert outputs are
-    summed in one fixed order (ascending expert id, the order the
-    reference's scatter-add takes them in), so a second run gives the
-    same bits on any device.
+    summed in ascending expert id (:func:`_combine`).  Two paths, as the
+    reference's:
+
+      * default: one global sort over all tokens;
+      * ``cfg.moe_ep`` under an ambient mesh whose "model" axis divides
+        the experts: :func:`moe_ffn_ep`, expert-parallel.
+
+    Under a mesh (DTensor activations) the default path runs rank by
+    rank too (:func:`moe_ffn_ep` with ``token_parallel=False``): every
+    rank routes all the tokens, with the global capacity, through the
+    experts it holds.  DTensor has no rule for the routing's
+    ``searchsorted`` / ``bincount``, and the reference's layout
+    constraints on the dispatch buffers have no buffers to place there.
     """
+    mesh = current_mesh()
+    if mesh is not None and (cfg.moe_ep or isinstance(x, DTensor)):
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        ep = cfg.moe_ep and sizes.get("model", 1) > 1 \
+            and cfg.moe_experts % sizes["model"] == 0
+        if ep or isinstance(x, DTensor):
+            return moe_ffn_ep(p, x, cfg, mesh, token_parallel=ep)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.moe_experts, cfg.moe_top_k
@@ -476,29 +592,177 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = e * torch.sum(me * ce)
 
     order, slot, keep, cap = moe_slots(eidx, cfg)
-    token_of = order // k
-    xbuf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    xbuf[slot] = xt[token_of]             # dropped pairs: the sentinel row
-    xg = xbuf[:e * cap].reshape(e, cap, d)
-    h = torch.bmm(xg, p["w_gate"])
-    u = torch.bmm(xg, p["w_up"])
-    yg = torch.bmm(F.silu(h) * u, p["w_down"])
-
-    ybuf = yg.reshape(e * cap, d)
-    y_tok = torch.where(keep[:, None], ybuf[slot.clamp(max=e * cap - 1)], 0.0)
-    g_tok = gates.reshape(-1)[order][:, None].to(x.dtype)
-    contrib = torch.empty_like(y_tok)
-    contrib[order] = y_tok * g_tok        # back to (token, choice) order
-    contrib = contrib.reshape(t, k, d)
-    by_expert = torch.argsort(eidx, dim=1)
-    contrib = torch.gather(contrib, 1, by_expert[:, :, None].expand(t, k, d))
-    out = contrib[:, 0]
-    for j in range(1, k):
-        out = out + contrib[:, j]
+    y_tok = _expert_ffn(xt, order, slot, keep, cap, e, p["w_gate"],
+                        p["w_up"], p["w_down"])
+    out = _combine(y_tok, gates, order, eidx, x.dtype)
 
     if cfg.moe_shared_experts:
         out = out + mlp(p["shared"], xt)
     return out.reshape(b, s, d), aux
+
+
+def moe_ep_capacity(t_loc: int, cfg) -> int:
+    """Per-shard expert capacity of the expert-parallel path."""
+    return max(int(t_loc * cfg.moe_top_k / cfg.moe_experts
+                   * cfg.capacity_factor), 4)
+
+
+def moe_ffn_ep_local(p, xt: torch.Tensor, cfg, *, j0: int, cap_loc: int):
+    """The rank-local body of :func:`moe_ffn_ep`, with no collectives.
+
+    ``xt``: this rank's token shard (T_loc, D); ``p``: the router (whole)
+    and the expert weights of experts ``[j0, j0 + e_loc)`` (``w_gate``/
+    ``w_up`` (e_loc, D, F), ``w_down`` (e_loc, F, D), whole in D).  The
+    tokens are routed over all E experts; the pairs routed to the local
+    experts, up to ``cap_loc`` per expert, go through them.  Returns
+    ``(part, me, ce, routing)``: the fp32 partial output (T_loc, D), which
+    summed over the expert shards is the layer's output; the local mean
+    router probabilities and expert loads (E,), which averaged over the
+    token shards make the aux loss; and ``{"slot", "keep", "order"}``.
+    """
+    e_loc = p["w_gate"].shape[0]
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    probs, gates, eidx = moe_route(p, xt, cfg)
+    me = probs.mean(dim=0)
+    ce = torch.bincount(eidx.reshape(-1), minlength=e).float() / (
+        xt.shape[0] * k)
+    order, slot, keep, _ = moe_slots(eidx, cfg, cap=cap_loc, j0=j0,
+                                     e_loc=e_loc)
+    y_tok = _expert_ffn(xt, order, slot, keep, cap_loc, e_loc, p["w_gate"],
+                        p["w_up"], p["w_down"])
+    part = _combine(y_tok, gates, order, eidx, f32)
+    return part, me, ce, {"slot": slot, "keep": keep, "order": order}
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (sum) of rank partials over ``group``; the backward is
+    the identity (each partial feeds one replicated sum)."""
+    return _SumOver.apply(x, group)
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over ``group``; the backward passes the gradient
+    through: each rank's partial feeds one replicated sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOver(torch.autograd.Function):
+    """All-reduce mean over ``group``; backward ``g / n`` (each rank's
+    term is 1/n of the replicated mean)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = torch.distributed.get_world_size(group)
+        x = x.clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward, gradient times ``c``."""
+
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def _placed(mesh, **by_axis):
+    """Placements, one per mesh dim, from ``axis=placement`` keywords
+    (``Replicate()`` for the dims not named)."""
+    return [by_axis.get(a, Replicate()) for a in mesh.mesh_dim_names]
+
+
+def _as_local(t, mesh, layout, grad):
+    """``t``'s local tensor after a redistribution to ``layout``, whose
+    gradient goes back as ``grad`` placements (a plain ``t`` is taken as
+    replicated)."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, layout).to_local(grad_placements=grad)
+
+
+def moe_ffn_ep(p, x: torch.Tensor, cfg, mesh, *, token_parallel: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over the "model" axis of ``mesh`` (the
+    reference's ``shard_map`` body as explicit per-rank code).
+
+    Rank (i, j) takes token shard i (the batch over "data", when it
+    divides) and experts ``[j * E/M, (j + 1) * E/M)``, whose weights it
+    all-gathers over "data" (FSDP; the backward reduce-scatters their
+    gradients).  :func:`moe_ffn_ep_local` routes and computes; ``me`` and
+    ``ce`` are averaged over the token shards before the aux product, as
+    the reference's ``pmean``; the fp32 partials are summed over "model"
+    by one all-reduce, then cast.  Returns DTensors: the output (B, S, D)
+    over the token shards and the aux loss, replicated.
+
+    ``token_parallel=False`` is ``moe_ffn``'s global dispatch under a
+    mesh: every rank takes all the tokens and the dense path's capacity,
+    and, where "model" does not divide the experts, all of them (the
+    model ranks then compute the same output, and nothing is summed).
+    """
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    n_model, n_data = sizes.get("model", 1), sizes.get("data", 1)
+    split = n_model > 1 and e % n_model == 0      # experts over "model"
+    e_loc = e // n_model if split else e
+    tok_sharded = token_parallel and n_data > 1 and b % n_data == 0
+    t_loc = (b // n_data if tok_sharded else b) * s
+    cap = (moe_ep_capacity(t_loc, cfg) if token_parallel
+           else max(int(t_loc * k / e * cfg.capacity_factor), 8))
+    tok = Shard(0) if tok_sharded else Replicate()
+    # a rank's gradient of a replicated input is partial over the token
+    # shards (its tokens) and over "model" (its experts)
+    over_tok = Partial() if tok_sharded else Replicate()
+    over_exp = Partial() if split else Replicate()
+    held = Shard(0) if split else Replicate()
+    x_loc = _as_local(x, mesh, _placed(mesh, data=tok),
+                      _placed(mesh, data=tok, model=over_exp))
+    router = _as_local(p["router"], mesh, _placed(mesh),
+                       _placed(mesh, data=over_tok, model=over_exp))
+    experts = {name: _as_local(p[name], mesh, _placed(mesh, model=held),
+                               _placed(mesh, data=over_tok, model=held))
+               for name in ("w_gate", "w_up", "w_down")}
+    j0 = mesh.get_local_rank("model") * e_loc if split else 0
+    part, me, ce, _ = moe_ffn_ep_local(
+        {"router": router, **experts}, x_loc.reshape(-1, d), cfg, j0=j0,
+        cap_loc=cap)
+    if tok_sharded:               # global statistics before the product
+        group = mesh.get_group("data")
+        me = _MeanOver.apply(me, group)
+        ce = _MeanOver.apply(ce, group)
+    aux = e * torch.sum(me * ce)
+    if split:
+        # every "model" rank computes the same aux: 1/M of its gradient
+        # each; the experts' partials sum over "model"
+        aux = _ScaleGrad.apply(aux, 1.0 / n_model)
+        part = sum_over(part, mesh.get_group("model"))
+    out = part.to(x.dtype)
+    out = DTensor.from_local(out.reshape(x_loc.shape), mesh,
+                             _placed(mesh, data=tok), run_check=False)
+    aux = DTensor.from_local(aux, mesh, _placed(mesh), run_check=False)
+    if cfg.moe_shared_experts:
+        out = out + mlp(p["shared"], x.reshape(-1, d)).reshape(x.shape)
+    return out, aux
 
 
 # ------------------------------------------------------------- Mamba2 SSD --
@@ -600,9 +864,33 @@ def _mamba_split(zxbcdt, d_inner: int, gn: int):
             zxbcdt[..., 2 * d_inner + 2 * gn:])
 
 
+def _batch_local(fn, p, x):
+    """``fn(p, x)`` rank by rank on DTensors, data-parallel: each rank
+    takes its batch shard ("data") and the weights whole (gathered; their
+    gradients are partial over the batch shards), and the "model" ranks
+    compute the same output."""
+    mesh = x.device_mesh
+    n_data = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("data", 1)
+    tok = Shard(0) if x.shape[0] % n_data == 0 else Replicate()
+    whole_w = [Replicate()] * mesh.ndim
+    grad_w = _placed(mesh, data=Partial() if isinstance(tok, Shard)
+                     else Replicate())
+    p_loc = tree_map(lambda w: w.redistribute(mesh, whole_w).to_local(
+        grad_placements=grad_w), p)
+    layout = _placed(mesh, data=tok)
+    y = fn(p_loc, x.redistribute(mesh, layout).to_local())
+    return DTensor.from_local(y, mesh, layout, run_check=False)
+
+
 def mamba2_block(p, x, cfg, *, chunk: int = 128) -> torch.Tensor:
     """Full-sequence Mamba-2 block (training / prefill); ``L`` is padded
-    up to a multiple of ``chunk`` for the scan."""
+    up to a multiple of ``chunk`` for the scan.  On DTensors it runs
+    data-parallel (:func:`_batch_local`): its in-projection splits a
+    sharded channel dim at uneven points, which DTensor releases before
+    2.13 mishandle."""
+    if isinstance(x, DTensor):
+        return _batch_local(
+            lambda p_, x_: mamba2_block(p_, x_, cfg, chunk=chunk), p, x)
     b, l, d = x.shape
     d_inner = cfg.ssm_expand * d
     g, n = cfg.ssm_ngroups, cfg.ssm_state

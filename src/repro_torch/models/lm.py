@@ -36,8 +36,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.format import resolve_device
+from repro_torch.distributed.ctx import constrain
 from repro_torch.pytree import tree_map
 
 from .config import ArchConfig
@@ -59,9 +61,11 @@ from .layers import (
     mlp,
     moe_ffn,
     rms_norm,
+    split_heads,
+    sum_over,
 )
 
-__all__ = ["init_lm", "lm_forward", "init_cache", "lm_prefill",
+__all__ = ["init_lm", "abstract_lm", "lm_forward", "init_cache", "lm_prefill",
            "lm_decode_step", "lm_loss", "encode", "lm_params_from_jax",
            "tensor_from_numpy", "stack_layers", "unstack_layers", "tree_map"]
 
@@ -180,6 +184,19 @@ def _unbind(tree) -> List:
     return list(torch.unbind(tree))
 
 
+def abstract_lm(cfg: ArchConfig) -> Dict:
+    """``init_lm``'s parameters in the stacked layout as ``meta``
+    tensors: their shapes and dtypes at any size, nothing allocated (the
+    init is traced under ``FakeTensorMode``); the counterpart of the
+    reference's ``jax.eval_shape(init_lm)``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = stack_layers(init_lm(cfg, torch.Generator(), "cpu"))
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
+
+
 def stack_layers(params: Dict) -> Dict:
     """The reference's stacked layout: the per-layer lists of
     ``"layers"`` and ``"encoder"`` become dicts of ``(L, ...)`` tensors
@@ -223,9 +240,9 @@ def _cross_attn(p, x, memory, cfg: ArchConfig):
     """Encoder-decoder cross attention (no RoPE on cross keys)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (memory @ p["wk"]).reshape(b, memory.shape[1], cfg.n_kv_heads, hd)
-    v = (memory @ p["wv"]).reshape(b, memory.shape[1], cfg.n_kv_heads, hd)
+    q = split_heads(x @ p["wq"], cfg.n_heads, hd)
+    k = split_heads(memory @ p["wk"], cfg.n_kv_heads, hd)
+    v = split_heads(memory @ p["wv"], cfg.n_kv_heads, hd)
     out = attention(q, k, v, causal=False, impl="auto")
     return out.reshape(b, s, -1) @ p["wo"]
 
@@ -248,14 +265,25 @@ def _checkpointed(body):
     return run
 
 
-def _run_stack(x, layers: List, body, remat: bool = False):
-    """Apply ``body`` layer after layer; accumulates the aux losses.  With
-    ``remat`` and grad enabled each call is checkpointed."""
+def _run_stack(x, layers: List, body, remat: bool = False,
+               seq_ax: Optional[str] = None):
+    """Apply ``body`` layer after layer; accumulates the aux losses.  Each
+    layer's output is pinned to the batch layout (``constrain``; with
+    ``seq_ax="act_seq"``, the ``act_sp`` layout, its sequence dim over
+    "model" too).  With ``remat`` and grad enabled each call is
+    checkpointed."""
+
+    def step(lp, h):
+        if seq_ax:           # the layer takes its input's sequence whole
+            h = constrain(h, "act_batch")
+        y, a = body(lp, h)
+        return constrain(y, "act_batch", seq_ax), a
+
     if remat and torch.is_grad_enabled():
-        body = _checkpointed(body)
+        step = _checkpointed(step)
     aux = _zero_aux(x)
     for lp in layers:
-        x, a = body(lp, x)
+        x, a = step(lp, x)
         aux = aux + a
     return x, aux
 
@@ -264,17 +292,69 @@ def _run_stack(x, layers: List, body, remat: bool = False):
 
 
 def _embed_tokens(params, tokens):
-    return params["embed"][tokens]
+    embed = params["embed"]
+    if isinstance(embed, DTensor):
+        return constrain(_embed_sharded(embed, tokens), "act_batch")
+    return embed[tokens]
+
+
+def _embed_sharded(embed: DTensor, tokens) -> DTensor:
+    """The lookup in a sharded table, rank by rank (the vocab-parallel
+    embedding): the table's "data" split (FSDP) is gathered; a rank whose
+    vocab rows are a shard looks its tokens up there, zeros the rows of
+    tokens it does not hold, and the rows are summed over the vocab split
+    (an all-reduce, identity backward: exactly one rank holds a row).
+    DTensor's own index rules are not in every torch release (2.11's
+    refuse the lookup's backward).  Returns the rows laid out like the
+    tokens' batch."""
+    mesh = embed.device_mesh
+    names = mesh.mesh_dim_names
+    vocab = [i for i, pl in enumerate(embed.placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+           for pl in tokens.placements]
+    table = embed.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                      for i in range(mesh.ndim)])
+    rows = table.to_local(grad_placements=[
+        Shard(0) if i in vocab else
+        Partial() if isinstance(tok[i], Shard) else Replicate()
+        for i in range(mesh.ndim)])
+    t = tokens.redistribute(mesh, tok).to_local().long()
+    if vocab:
+        (i,) = vocab
+        v0 = mesh.get_local_rank(names[i]) * rows.shape[0]
+        held = (t >= v0) & (t < v0 + rows.shape[0])
+        x = rows[(t - v0).clamp(0, rows.shape[0] - 1)] * held[..., None]
+        x = sum_over(x, mesh.get_group(names[i]))
+    else:
+        x = rows[t]
+    return DTensor.from_local(x, mesh, tok, run_check=False)
 
 
 def _logits(params, x, cfg: ArchConfig):
     """fp32 logits over the padded vocab; pad columns are ``-1e30``."""
+    x = constrain(x, "act_batch")     # the sequence whole (after act_sp)
     x = rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(head, DTensor):
+        # the FSDP gather of the head before its product: the gradient
+        # comes back through it in the weight's own layout, so a tied
+        # table's two gradients meet in one layout
+        mesh = head.device_mesh
+        head = head.redistribute(mesh, [
+            Replicate() if name == "data" else pl
+            for name, pl in zip(mesh.mesh_dim_names, head.placements)])
     out = x.float() @ head.float()
     if cfg.padded_vocab != cfg.vocab:
-        out[..., cfg.vocab:] = -1e30
-    return out
+        if isinstance(out, DTensor):      # no in-place fill on DTensors
+            pad = torch.arange(out.shape[-1], device=out.device) >= cfg.vocab
+            out = torch.where(pad, -1e30, out)
+        else:
+            out[..., cfg.vocab:] = -1e30
+    return constrain(out, "act_batch", None, "act_vocab")
 
 
 def encode(params, src_embeds: torch.Tensor, cfg: ArchConfig):
@@ -295,12 +375,15 @@ def _forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
 
     if cfg.family in ENCDEC_FAMILIES:
         mem = batch["src_embeds"].to(cfg.dtype)
+        seq_ax = "act_seq" if cfg.act_sp else None
         mem, aux_e = _run_stack(
             mem, params["encoder"],
-            lambda p, h: _decoder_layer(p, h, cfg, causal=False), cfg.remat)
+            lambda p, h: _decoder_layer(p, h, cfg, causal=False), cfg.remat,
+            seq_ax)
         x, aux_d = _run_stack(
             x, params["layers"],
-            lambda p, h: _decoder_layer(p, h, cfg, cross_kv=mem), cfg.remat)
+            lambda p, h: _decoder_layer(p, h, cfg, cross_kv=mem), cfg.remat,
+            seq_ax)
         return x, aux_e + aux_d
 
     if cfg.family == "vlm" and "prefix_embeds" in batch:
@@ -308,12 +391,15 @@ def _forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
         prefix = pe.shape[1]
         x = torch.cat([pe, x], dim=1)
 
+    seq_ax = "act_seq" if cfg.act_sp else None
     if cfg.family in ATTN_FAMILIES:
         x, aux = _run_stack(x, params["layers"],
-                            lambda p, h: _decoder_layer(p, h, cfg), cfg.remat)
+                            lambda p, h: _decoder_layer(p, h, cfg), cfg.remat,
+                            seq_ax)
     elif cfg.family == "ssm":
         x, aux = _run_stack(x, params["layers"],
-                            lambda p, h: _mamba_layer(p, h, cfg), cfg.remat)
+                            lambda p, h: _mamba_layer(p, h, cfg), cfg.remat,
+                            seq_ax)
     elif cfg.family == "hybrid":
         x, aux = _hybrid_forward(params, x, cfg)
     else:
@@ -348,6 +434,7 @@ def _hybrid_forward(params, x, cfg: ArchConfig):
         aux = _zero_aux(h)
         for lp in plist:
             h, a = _mamba_layer(lp, h, cfg)
+            h = constrain(h, "act_batch")
             aux = aux + a
         h, a = _decoder_layer(params["shared_block"], h, cfg)
         return h, aux + a
@@ -566,7 +653,12 @@ def lm_loss(params, batch: Dict, cfg: ArchConfig, aux_weight: float = 0.01
     targets = batch["tokens"][:, 1:].long()
     logits = logits[:, :-1].float()
     lse = torch.logsumexp(logits, dim=-1)                        # (B, S-1)
-    picked = torch.gather(logits, -1, targets.clamp(min=0)[..., None])[..., 0]
+    # The gather over a vocab-sharded DTensor leaves a masked partial
+    # that torch reduces only at the gather's own (B, S-1, 1) shape:
+    # reduce it there (a no-op without a mesh).
+    picked = constrain(torch.gather(logits, -1,
+                                    targets.clamp(min=0)[..., None]),
+                       "act_batch")[..., 0]
     mask = (targets >= 0).to(f32)
     loss = ((lse - picked) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}

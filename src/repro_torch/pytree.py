@@ -8,15 +8,20 @@ the leaves and the checkpoint manifest match the reference's.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 __all__ = ["leaf_paths", "leaves", "tree_map", "unflatten"]
 
 
-def leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` for every leaf, in JAX's flattening order."""
+def leaf_paths(tree: Any, prefix: str = "",
+               is_leaf: Optional[Callable[[Any], bool]] = None
+               ) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` for every leaf, in JAX's flattening order; a node
+    for which ``is_leaf`` is true is a leaf (JAX's ``is_leaf``)."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
@@ -25,7 +30,8 @@ def leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
         return [(prefix, tree)]
     out = []
     for key, val in items:
-        out.extend(leaf_paths(val, f"{prefix}/{key}" if prefix else key))
+        out.extend(leaf_paths(val, f"{prefix}/{key}" if prefix else key,
+                              is_leaf))
     return out
 
 

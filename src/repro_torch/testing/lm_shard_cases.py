@@ -1,0 +1,236 @@
+"""The sharded LM's cases for :func:`repro_torch.testing.multirank.spawn`.
+
+Each case runs on the ranks of one ``(data, model)`` mesh of gloo ranks
+on the CPU, takes numpy inputs (weights, states and batches, which a test also
+hands to the JAX package) and returns tensors:
+
+  ``moe_ep``            ``moe_ffn`` under the mesh, expert-parallel or
+                        the default dispatch (output, aux), and each
+                        rank's routing from ``moe_ffn_ep_local``;
+  ``collective_matmul`` ``collective_matmul`` over "data" -> "model";
+  ``reshard``           ``reshard_state`` onto the mesh: each rank's
+                        local shards, and a round trip through a second
+                        mesh;
+  ``lm_train``          sharded train steps and the local shard shape of
+                        every parameter the loss saw;
+  ``lm_8bit``           one sharded step with 8-bit moments;
+  ``act_sp``            the ``act_sp`` forward and its layer layouts;
+  ``lm_cli``            ``launch/train.py`` on the mesh with a checkpoint
+                        (the resume runs as a second job on another mesh).
+
+This module imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.configs import get_reduced
+from repro_torch.distributed.ctx import activation_mesh
+from repro_torch.distributed.elastic import reshard_state, reshard_tree, whole
+from repro_torch.distributed.sharding import (batch_pspec, local_shape,
+                                              param_shardings, placements,
+                                              spec_paths)
+from repro_torch.pytree import leaf_paths, tree_map
+
+__all__ = ["CASES"]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _lead(mesh: DeviceMesh) -> bool:
+    return tuple(mesh.get_coordinate()) == (0,) * mesh.ndim
+
+
+def _place(t: torch.Tensor, spec, mesh):
+    return distribute_tensor(t, mesh, placements(spec, mesh),
+                             src_data_rank=None)
+
+
+def _whole_tree(tree) -> Dict[str, torch.Tensor]:
+    """``{path: global tensor}`` of a tree of DTensors (a collective)."""
+    return {p: whole(t).detach().clone() for p, t in leaf_paths(tree)}
+
+
+def _moe_ep_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
+    """``moe_ffn`` under the mesh (with ``moe_ep`` unless ``inp["ep"]`` is
+    false: the default path's global dispatch): the output (whole) and
+    aux; and this rank's ``moe_ffn_ep_local`` routing on its token shard
+    and expert slice."""
+    from repro_torch.models.layers import (moe_ep_capacity, moe_ffn,
+                                           moe_ffn_ep_local)
+
+    cfg = get_reduced(inp["arch"], moe_ep=inp.get("ep", True),
+                      capacity_factor=inp["capacity_factor"])
+    p = tree_map(_t, inp["params"])
+    x = _t(inp["x"])
+    pd = reshard_tree(p, param_shardings(p, mesh), mesh)
+    xd = _place(x, batch_pspec(mesh, 2), mesh)
+    with activation_mesh(mesh):
+        out, aux = moe_ffn(pd, xd, cfg)
+    out = whole(out)
+    aux = whole(aux)
+    # the rank-local body on this rank's shard, as the wrapper runs it
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    i, j = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    b, s, d = x.shape
+    n_tok = sizes["data"] if b % sizes["data"] == 0 else 1
+    e_loc = cfg.moe_experts // sizes["model"]
+    xt = x.reshape(n_tok, -1, d)[i if n_tok > 1 else 0]
+    loc = {"router": p["router"],
+           **{k: p[k][j * e_loc:(j + 1) * e_loc]
+              for k in ("w_gate", "w_up", "w_down")}}
+    _, _, _, route = moe_ffn_ep_local(
+        loc, xt, cfg, j0=j * e_loc,
+        cap_loc=moe_ep_capacity(xt.shape[0], cfg))
+    return {"out": out, "aux": aux, "pos": (i, j), **route}
+
+
+def _collective_matmul_case(mesh: DeviceMesh, inp: dict
+                            ) -> Dict[str, torch.Tensor]:
+    from repro_torch.distributed.overlap import collective_matmul
+
+    x, w = _t(inp["x"]), _t(inp["w"])
+    y = collective_matmul(_place(x, (None, "data"), mesh),
+                          _place(w, (None, "model"), mesh), mesh,
+                          "data", "model")
+    return {"y": whole(y)}
+
+
+def _state(inp: dict, cfg):
+    from repro_torch.train.train_step import train_state_from_jax
+
+    return train_state_from_jax(cfg, inp["state"], device="cpu")
+
+
+def _reshard_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
+    """``inp["state"]`` laid out on the mesh: this rank's local shard of
+    every leaf, and the leaves after a round trip through the mesh of the
+    first ``inp["via"]`` ranks (global tensors, bitwise)."""
+    cfg = get_reduced(inp["arch"])
+    state = _state(inp, cfg)
+    sa = reshard_state(state, mesh)
+    local = {p: t.to_local().clone() for p, t in leaf_paths(sa)}
+    d2, m2 = inp["via"]
+    via = DeviceMesh("cpu", torch.arange(d2 * m2).reshape(d2, m2),
+                     mesh_dim_names=mesh.mesh_dim_names)
+    sb = reshard_state(sa, via)
+    via_local = ({p: t.to_local().clone() for p, t in leaf_paths(sb)}
+                 if via.get_coordinate() is not None else {})
+    sc = reshard_state(sb, mesh)
+    back = _whole_tree(sc)
+    same = all(torch.equal(back[p], t) for p, t in leaf_paths(state))
+    return {"pos": tuple(mesh.get_coordinate()), "local": local,
+            "via_pos": via.get_coordinate(), "via_local": via_local,
+            "roundtrip_bitwise": same}
+
+
+def _lm_train_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
+    """Sharded steps from ``inp["state"]``, one a batch of
+    ``inp["batches"]``; the local shard shape of each parameter the loss
+    received against the spec's; the final state (whole, on the lead
+    rank)."""
+    from repro_torch.train import train_step as T
+
+    cfg = get_reduced(inp["arch"], **inp.get("overrides", {}))
+    ts = T.TrainStepConfig()
+    state = reshard_state(_state(inp, cfg), mesh)
+    specs = param_shardings(state["params"], mesh)
+    want = {p: local_shape(t.shape, s, mesh) for (p, t), (_, s) in
+            zip(leaf_paths(state["params"]), spec_paths(specs))}
+    seen = {}
+    loss_fn = T.lm_loss
+
+    def spy(params, batch, cfg_, **kw):
+        for p, t in leaf_paths(params):
+            seen[p] = tuple(t.to_local().shape)
+        return loss_fn(params, batch, cfg_, **kw)
+
+    step = T.make_train_step(cfg, ts)
+    losses = []
+    T.lm_loss = spy
+    try:
+        for tokens in inp["batches"]:
+            batch = {"tokens": _place(_t(tokens), batch_pspec(mesh), mesh)}
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+    finally:
+        T.lm_loss = loss_fn
+    final = _whole_tree(state)
+    return {"losses": losses, "seen": seen, "want": want,
+            "state": final if _lead(mesh) else {}}
+
+
+def _lm_8bit_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
+    """One sharded step with 8-bit AdamW moments (blocks that straddle
+    ranks included); the final state whole on the lead rank."""
+    from repro_torch.train import train_step as T
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_reduced(inp["arch"])
+    ts = T.TrainStepConfig(opt=AdamWConfig(quantize_state=True))
+    state = T.init_train_state(cfg, ts, torch.Generator().manual_seed(0),
+                               "cpu")
+    state = reshard_state(state, mesh)
+    tokens = _t(inp["batches"][0])
+    state, _ = T.make_train_step(cfg, ts)(
+        state, {"tokens": _place(tokens, batch_pspec(mesh), mesh)})
+    final = _whole_tree(state)
+    return {"state": final if _lead(mesh) else {}}
+
+
+def _act_sp_case(mesh: DeviceMesh, inp: dict) -> Dict[str, torch.Tensor]:
+    """The ``act_sp`` forward (each layer's output split over "model" on
+    its sequence dim) of ``inp["state"]``'s params: the logits, whole,
+    and the placements of the layers' outputs."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import lm
+
+    cfg = get_reduced(inp["arch"], act_sp=True)
+    state = reshard_state(_state(inp, cfg), mesh)
+    tokens = _place(_t(inp["batches"][0]), batch_pspec(mesh), mesh)
+    seen = []
+    run_stack = lm._run_stack
+
+    def spy(x, layers, body, remat=False, seq_ax=None):
+        out = run_stack(x, layers, body, remat, seq_ax)
+        seen.append(str(out[0].placements))
+        return out
+
+    lm._run_stack = spy
+    try:
+        with activation_mesh(mesh), implicit_replication(), \
+                torch.no_grad():
+            logits, _ = lm.lm_forward(lm.unstack_layers(state["params"]),
+                                      {"tokens": tokens}, cfg)
+    finally:
+        lm._run_stack = run_stack
+    return {"logits": whole(logits), "placements": seen}
+
+
+def _lm_cli_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
+    """``launch/train.py`` on this mesh (flags from its shape)."""
+    from repro_torch.launch import train as launch_train
+
+    d, m = mesh.shape
+    args = launch_train.parse_args(
+        ["--arch", inp["arch"], "--reduced", "--device", "cpu",
+         "--data-axis", str(d), "--model-axis", str(m),
+         "--steps", str(inp["steps"]), "--batch", "4", "--seq", "16",
+         "--checkpoint-dir", inp["dir"], "--checkpoint-every", "2"])
+    out = launch_train.run(args, mesh=mesh)
+    return {"start": out["start_step"], "losses": out["losses"]}
+
+
+CASES = {"moe_ep": _moe_ep_case, "collective_matmul": _collective_matmul_case,
+         "reshard": _reshard_case, "lm_train": _lm_train_case,
+         "lm_8bit": _lm_8bit_case, "act_sp": _act_sp_case,
+         "lm_cli": _lm_cli_case}

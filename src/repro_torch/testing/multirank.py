@@ -11,7 +11,8 @@ results come back as one dict per rank: ``{job name: case output}``.
   results = spawn(4, [("ops41", (4, 1), "ops", inputs), ...], workdir)
 
 The cases (the sharded ops, a GNN train step, the int8-compressed mean
-of the LM train step) take numpy inputs, run on the CPU (the kernels'
+of the LM train step, and the sharded LM's of :mod:`.lm_shard_cases`)
+take numpy inputs, run on the CPU (the kernels'
 plain versions) and return tensors, so a test can hold them against another
 implementation in its own process.  This module imports no JAX.
 """
@@ -113,8 +114,22 @@ def _compressed_psum_case(mesh: DeviceMesh, inp: dict
                                     block=inp["block"])}
 
 
+def _lm_case(name: str):
+    """A case of :mod:`.lm_shard_cases` (imported when it runs)."""
+
+    def run(mesh: DeviceMesh, inp: dict):
+        from repro_torch.testing.lm_shard_cases import CASES as LM
+
+        return LM[name](mesh, inp)
+
+    return run
+
+
 CASES = {"ops": _ops_case, "train": _train_case,
-         "compressed_psum": _compressed_psum_case}
+         "compressed_psum": _compressed_psum_case,
+         **{name: _lm_case(name) for name in (
+             "moe_ep", "collective_matmul", "reshard", "lm_train",
+             "lm_8bit", "act_sp", "lm_cli")}}
 
 
 def _mesh(shape: Tuple[int, int]) -> DeviceMesh:

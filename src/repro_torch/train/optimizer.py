@@ -17,6 +17,14 @@ State layout (a dict, so checkpoints stay structural):
 tensors, in place under ``torch.no_grad()``: the counterpart of the
 reference's ``jax.jit(..., donate_argnums=0)``, which lets XLA reuse the
 old state's buffers.
+
+A sharded state (``DTensor`` leaves, ``distributed/elastic.py``) is
+updated shard by shard: the update is elementwise, so each rank writes
+its own shards; the global norm all-reduces each leaf's sum of squares.
+An 8-bit block straddles two ranks where a leaf's last dim is sharded
+and its local width is not a multiple of ``quant_block``: such a leaf
+is updated on its last dim made whole (a redistribution of that leaf)
+and cut back to its shards.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.elastic import whole
 from repro_torch.pytree import leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "lr_schedule",
@@ -126,8 +136,63 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(f32)))
+    """sqrt of the sum of squares over every leaf (fp32); a ``DTensor``
+    leaf's local sums are all-reduced, so the norm is a plain tensor."""
+    return torch.sqrt(sum(whole(torch.sum(torch.square(x.to(f32))))
                           for x in leaves(tree)))
+
+
+def _update(g, p, m, v, ms, vs, *, clip, lr, bc1, bc2, cfg: AdamWConfig
+            ) -> None:
+    """One leaf's AdamW update on plain tensors, in place."""
+    b1, b2 = cfg.b1, cfg.b2
+    quant = ms is not None
+    g = g.to(f32) * clip
+    if quant:
+        last = p.shape[-1] if p.dim() else 1
+        m_f = _dequantize(m, ms, last, cfg.quant_block)
+        v_f = _dequantize(v, vs, last, cfg.quant_block)
+    else:
+        m_f, v_f = m, v
+    m_f = b1 * m_f + (1 - b1) * g
+    v_f = b2 * v_f + (1 - b2) * g * g
+    upd = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
+    pf = p.to(f32)
+    if p.dim() >= 2:
+        upd = upd + cfg.weight_decay * pf
+    p.copy_(pf - lr * upd)
+    if quant:
+        for store, scale, val in ((m, ms, m_f), (v, vs, v_f)):
+            q, s = _quantize(val, cfg.quant_block)
+            store.copy_(q)
+            scale.copy_(s)
+    else:
+        m.copy_(m_f)
+        v.copy_(v_f)
+
+
+def _last_whole(t):
+    """``t``'s placements with its last dim no longer split."""
+    last = t.dim() - 1
+    return [Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
+            for pl in t.placements]
+
+
+def _update_sharded(g, p, m, v, ms, vs, *, cfg: AdamWConfig, **kw) -> None:
+    """:func:`_update` on the shards of DTensor leaves (see the module
+    docstring for the 8-bit blocks)."""
+    tensors = (g, p, m, v, ms, vs)
+    if ms is not None and p.dim() and p.to_local().shape[-1] != p.shape[-1] \
+            and p.to_local().shape[-1] % cfg.quant_block:
+        mesh = p.device_mesh
+        work = [t.redistribute(mesh, _last_whole(t)) for t in tensors]
+        _update(*(t.to_local() for t in work), cfg=cfg, **kw)
+        for dst, src in zip(tensors[1:], work[1:]):
+            dst.to_local().copy_(
+                src.redistribute(mesh, dst.placements).to_local())
+        return
+    _update(*(None if t is None else t.to_local() for t in tensors),
+            cfg=cfg, **kw)
 
 
 @torch.no_grad()
@@ -139,13 +204,13 @@ def adamw_update(grads: Any, opt: Dict, params: Any, cfg: AdamWConfig
     for the device)."""
     count = opt["count"]
     count.add_(1)
+    count = count.to_local() if isinstance(count, DTensor) else count
     lr = lr_schedule(cfg, count)
 
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** count.to(f32)
-    bc2 = 1 - b2 ** count.to(f32)
+    kw = dict(clip=clip, lr=lr, bc1=1 - cfg.b1 ** count.to(f32),
+              bc2=1 - cfg.b2 ** count.to(f32), cfg=cfg)
     quant = cfg.quantize_state
 
     leaves_p = leaves(params)
@@ -154,26 +219,8 @@ def adamw_update(grads: Any, opt: Dict, params: Any, cfg: AdamWConfig
     leaves_vs = leaves(opt["v_scale"]) if quant else [None] * n
     for g, p, m, v, ms, vs in zip(leaves(grads), leaves_p, leaves(opt["m"]),
                                   leaves(opt["v"]), leaves_ms, leaves_vs):
-        g = g.to(f32) * clip
-        if quant:
-            last = p.shape[-1] if p.dim() else 1
-            m_f = _dequantize(m, ms, last, cfg.quant_block)
-            v_f = _dequantize(v, vs, last, cfg.quant_block)
+        if isinstance(p, DTensor):
+            _update_sharded(g, p, m, v, ms, vs, **kw)
         else:
-            m_f, v_f = m, v
-        m_f = b1 * m_f + (1 - b1) * g
-        v_f = b2 * v_f + (1 - b2) * g * g
-        upd = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
-        pf = p.to(f32)
-        if p.dim() >= 2:
-            upd = upd + cfg.weight_decay * pf
-        p.copy_(pf - lr * upd)
-        if quant:
-            for store, scale, val in ((m, ms, m_f), (v, vs, v_f)):
-                q, s = _quantize(val, cfg.quant_block)
-                store.copy_(q)
-                scale.copy_(s)
-        else:
-            m.copy_(m_f)
-            v.copy_(v_f)
+            _update(g, p, m, v, ms, vs, **kw)
     return params, opt, {"grad_norm": gnorm, "lr": lr}

@@ -18,21 +18,34 @@ The state keeps the reference's stacked layout (``"layers"`` and
 ``"encoder"`` as dicts of ``(L, ...)`` tensors), so weight decay, int8
 blocks, top-k's ``k`` and the 8-bit scales see the reference's leaves.
 
+A **sharded** state (its leaves ``DTensor``s on a ``("data", "model")``
+mesh: ``distributed.elastic.reshard_state``) runs the same step, the
+math the one-device step's: the forward and backward under the state's
+mesh as the ambient one (``constrain`` lays out the activations) and
+under ``implicit_replication`` (the constants the model makes, rope
+tables and masks, meet DTensor operands as replicated); each gradient is
+reduced to its parameter's placements; AdamW updates the shards.  The
+batch is sharded by ``sharding.batch_pspec``.  Gradient compression is
+not ported to the sharded step and raises there.
+
 ``compressed_psum`` is an int8-compressed mean over a process group
 (all-gather the codes and scales, dequantize and average locally).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.format import resolve_device
 from repro_torch.core.quantize import quantize_blocked
+from repro_torch.distributed.elastic import whole
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import (STACKED, init_lm, lm_loss, stack_layers,
                                    tensor_from_numpy)
@@ -105,14 +118,39 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int
     return {k: resh(v) for k, v in batch.items()}
 
 
+def _state_mesh(params: Any):
+    """The ``DeviceMesh`` of a sharded params tree, else ``None``."""
+    first = leaves(params)[0]
+    return first.device_mesh if isinstance(first, DTensor) else None
+
+
+@contextlib.contextmanager
+def _sharded(mesh):
+    """The context of a sharded forward and backward (module docstring);
+    nothing without a mesh."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.ctx import activation_mesh
+
+    with activation_mesh(mesh), implicit_replication():
+        yield
+
+
 def _loss_and_grads(cfg: ArchConfig, ts: TrainStepConfig, params, batch):
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     flat = leaves(live)
-    total, parts = lm_loss(live, batch, cfg, aux_weight=ts.aux_weight)
-    grads = torch.autograd.grad(total, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(flat, grads)]
-    return total.detach(), {k: v.detach() for k, v in parts.items()}, grads
+    with _sharded(_state_mesh(params)):
+        total, parts = lm_loss(live, batch, cfg, aux_weight=ts.aux_weight)
+        grads = torch.autograd.grad(total, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else
+                 g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(p, DTensor) else g
+                 for p, g in zip(flat, grads)]
+    return (whole(total.detach()),
+            {k: whole(v.detach()) for k, v in parts.items()}, grads)
 
 
 def accumulate_grads(cfg: ArchConfig, ts: TrainStepConfig, params: Dict,
@@ -126,8 +164,7 @@ def accumulate_grads(cfg: ArchConfig, ts: TrainStepConfig, params: Dict,
         return loss, parts, unflatten(params, flat)
     acc_dt = getattr(torch, ts.accum_dtype)
     mbs = _split_microbatches(batch, n_mb)
-    acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-           for p in leaves(params)]
+    acc = [torch.zeros_like(p, dtype=acc_dt) for p in leaves(params)]
     loss_sum = ce_sum = aux_sum = 0.0
     for i in range(n_mb):
         loss, parts, grads = _loss_and_grads(
@@ -150,6 +187,10 @@ def apply_gradients(state: Dict, grads: Dict, ts: TrainStepConfig
     the new state holds the updated tensors, the advanced step counter
     and the new error buffers."""
     new_err = None
+    if ts.compression.kind != "none" and _state_mesh(grads) is not None:
+        raise NotImplementedError(
+            "gradient compression is not ported to the sharded train step; "
+            "run it with compression 'none' or on one device")
     if ts.compression.kind == "int8":
         comp, new_err = compress_int8(grads, state["err"], ts.compression)
         grads = decompress_int8(comp, grads)

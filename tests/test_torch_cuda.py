@@ -28,7 +28,11 @@ launches of rows 4, 8 and 10 over partitions of 2 and 4 ranks against
 their plain versions and summing to the unsharded launch, and a GCN step
 on the sharded plans over a one-rank NCCL mesh.  The LM train step
 (plain PyTorch, no sparse kernel) at ``get_reduced`` size for qwen3,
-moonshot and mamba2 against the same step on the CPU.  They skip on a host
+moonshot and mamba2 against the same step on the CPU.  The sharded LM
+(plain PyTorch and collectives): reduced qwen3's train step with its
+state as DTensors on a one-rank NCCL mesh against the plain step, and the
+expert-parallel MoE's rank bodies summed against the dense MoE.  They
+skip on a host
 without a
 CUDA device; on one, run
 
@@ -1286,3 +1290,82 @@ def test_lm_train_step_on_card_matches_cpu(device, arch, monkeypatch):
         assert pc.device.type == "cuda"
         torch.testing.assert_close(pc.cpu(), ph, rtol=0, atol=2 * lr,
                                    msg=path)
+
+
+def test_sharded_lm_step_on_a_one_rank_nccl_mesh_matches_plain(device,
+                                                                monkeypatch):
+    """Two train steps of reduced qwen3 with the state as DTensors on a
+    one-rank NCCL mesh against two plain steps from the same state, fp32
+    (TF32 off): one rank runs the plain ops on whole shards, so the
+    losses and every leaf agree within ``1e-6`` of the leaf's largest."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed.elastic import reshard_state, whole
+    from repro_torch.distributed.sharding import batch_pspec, placements
+    from repro_torch.launch.mesh import one_rank_mesh
+    from repro_torch.pytree import leaf_paths
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_reduced("qwen3-0.6b")
+    ts = TrainStepConfig()
+    state = init_train_state(cfg, ts, torch.Generator(device).manual_seed(0),
+                             device)
+    step = make_train_step(cfg, ts)
+    rng = np.random.default_rng(0)
+    with one_rank_mesh(device) as mesh:
+        assert dist.get_backend() == "nccl"
+        sharded = reshard_state(state, mesh)
+        for _ in range(2):
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32))
+                                      ).to(device)
+            state, met = step(state, {"tokens": tokens})
+            sharded, met_s = step(sharded, {"tokens": distribute_tensor(
+                tokens, mesh, placements(batch_pspec(mesh), mesh),
+                src_data_rank=None)})
+            assert float(met_s["loss"]) == pytest.approx(float(met["loss"]),
+                                                         rel=1e-6)
+        for (path, want), (_, got) in zip(leaf_paths(state),
+                                          leaf_paths(sharded)):
+            assert isinstance(got, DTensor), path
+            g = whole(got)
+            top = float(want.abs().max()) if want.numel() else 0.0
+            assert float((g.double() - want.double()).abs().max()) <= \
+                1e-6 * max(top, 1e-30), path
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_moe_ep_rank_bodies_sum_to_the_dense_moe_on_card(device, model):
+    """Every rank's ``moe_ffn_ep_local`` of reduced moonshot ("data" = 1,
+    dropless) summed on the card against the dense ``moe_ffn``, fp32
+    (TF32 off): the same routing, sums in another order."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.layers import (init_moe, mlp, moe_ep_capacity,
+                                           moe_ffn, moe_ffn_ep_local)
+
+    cfg = get_reduced("moonshot-v1-16b-a3b", capacity_factor=4.0)
+    gen = torch.Generator(device).manual_seed(0)
+    p = init_moe(cfg, gen, device)
+    x = torch.randn((4, 16, cfg.d_model), generator=gen, device=device)
+    want, aux = moe_ffn(p, x, cfg)
+    xt = x.reshape(-1, cfg.d_model)
+    e_loc = cfg.moe_experts // model
+    total = 0.0
+    for j in range(model):
+        loc = {"router": p["router"],
+               **{k: p[k][j * e_loc:(j + 1) * e_loc]
+                  for k in ("w_gate", "w_up", "w_down")}}
+        part, me, ce, _ = moe_ffn_ep_local(
+            loc, xt, cfg, j0=j * e_loc,
+            cap_loc=moe_ep_capacity(xt.shape[0], cfg))
+        total = total + part
+    got = total + mlp(p["shared"], xt)
+    torch.testing.assert_close(got, want.reshape(got.shape), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert float(cfg.moe_experts * torch.sum(me * ce)) == pytest.approx(
+        float(aux), rel=1e-6)

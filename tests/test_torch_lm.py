@@ -244,12 +244,17 @@ TRAINING_MODULES = ("repro_torch.data.synthetic", "repro_torch.launch.train",
                     "repro_torch.train.optimizer", "repro_torch.pytree",
                     "repro_torch.train.train_step",
                     "repro_torch.testing.lm_train_card")
+SHARDED_MODULES = ("repro_torch.distributed.sharding",
+                   "repro_torch.distributed.elastic",
+                   "repro_torch.distributed.collective_matmul",
+                   "repro_torch.testing.lm_shard_cases",
+                   "repro_torch.testing.lm_shard_card")
 
 
 def test_port_imports_no_jax():
-    """Every module of ``repro_torch`` (the training slice's among them)
-    imports without JAX or the JAX package, and no source line names
-    them."""
+    """Every module of ``repro_torch`` (the training slice's and the
+    sharded LM's among them) imports without JAX or the JAX package, and
+    no source line names them."""
     code = ("import importlib, json, pkgutil, sys, repro_torch\n"
             "seen = []\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
@@ -265,7 +270,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     seen = json.loads(res.stdout.strip().splitlines()[-1])["seen"]
-    missing = [m for m in TRAINING_MODULES if m not in seen]
+    missing = [m for m in TRAINING_MODULES + SHARDED_MODULES
+               if m not in seen]
     assert not missing, missing
     pattern = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)[. ])")
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
