@@ -29,14 +29,21 @@ a non-zero exit at the first phase that fails:
      with every mix of shared and per-head operands, each bitwise-equal
      to H one-head launches; the non-coalesced SpMM bitwise-equal to the
      SpMM on the rows of the windows the SpMM does not split, at fp32,
-     bf16 and int8; the staged SpMM at fp32 and bf16, int8 refused; (b)
+     bf16 and int8, the rest against its plain version, and the same bits
+     on a second launch (one case's split window runs across two lane
+     groups: a scan within one, fp32 partials across them); the staged
+     SpMM at fp32 and bf16 bitwise the window SpMM (the same kernel over
+     its staged copy), its gather bitwise ``B[cols]``, int8 refused; (b)
      at the main paths' shapes: on the Amazon replica, the
      window-parallel SpMM on A and on its transpose (N = 128 and 32; the
      rows of hub windows against fp64), each with its window plan, the
      balanced kernels over the schedules of A and of its
      transpose (the run-carried SpMM and attention at split_blk in
      {0, 1, 3} and H in {1, 2}, each also against a second launch), and
-     the two SpMM baselines at N = 128 (with their narrow variants); on
+     the two SpMM baselines at N = 128 (with their narrow variants), the
+     non-coalesced one also on the transpose (N = 128 and 32, and bf16 and
+     int8 at 128: unsplit rows bitwise the window SpMM, hub rows against
+     fp64), the staged one bitwise the window SpMM on A and on Aᵀ; on
      the attention pattern (12 heads,
      16,384 tokens, head dim 64), the head-grid SpMM on A and on its
      transpose, the balanced SpMM on its transpose (dV), the head-grid
@@ -139,7 +146,10 @@ a non-zero exit at the first phase that fails:
      each run plan's runs, edge entries and partial bytes, the run length
      of the run-carried SpMM and attention swept at split_blk = 1, the
      SDDMM on the Amazon replica with its K gathers folded into cache and
-     a device copy of its bound's bytes (what holds it off the bound), each
+     a device copy of its bound's bytes (what holds it off the bound), the
+     staged SpMM's three passes alone (gather, SpMM over the staged copy,
+     post-pass with the cast), each beside its own bytes bound, their sum
+     the staged design's floor beside the function's bound, each
      forward and train step with its peak memory (the ``cuda_tuned`` ones
      beside the fixed routes', and the sweeps' wall time; the sharded
      routes' steps at P = 1 beside ``cuda_balanced``'s);
@@ -338,6 +348,14 @@ KERNELS = {  # name: (route, impl that launches it, source, TPU kernel)
     "spmm_staged_bf16": ("cuda", "cuda_staged",
                          "src/repro_torch/kernels/csrc/spmm_staged.cu",
                          "src/repro/kernels/spmm_pallas.py:613"),
+    # the staged baseline's gather kernel (the reference's jnp.take before
+    # its Pallas kernel, spmm_pallas.py:693), fp32 and bf16
+    "spmm_staged_gather": ("cuda", "cuda_staged",
+                           "src/repro_torch/kernels/csrc/spmm_gather.cu",
+                           "src/repro/kernels/spmm_pallas.py:693"),
+    "spmm_staged_gather_bf16": (
+        "cuda", "cuda_staged", "src/repro_torch/kernels/csrc/spmm_gather.cu",
+        "src/repro/kernels/spmm_pallas.py:693"),
 }
 # The launch counter of each entry: the wrapper, and for the wrappers with
 # precision variants the variant's count.
@@ -563,6 +581,16 @@ def kernel_cases(rng):
 
     empty = rand(100, 90, 0.1)
     empty[16:40] = 0.0
+    # 31 windows of 20 K-blocks (one slice each, lanes 0-30 of the
+    # non-coalesced SpMM's first lane group), one of 65 (three slices on
+    # lanes 31-33: runs across two lane groups) and an empty one; drawn
+    # from a generator of its own, so the other cases keep their data
+    straddle = np.zeros((264, 600), np.float32)
+    own = np.random.default_rng(25)
+    for w, blocks in enumerate([20] * 31 + [65]):
+        cols = own.choice(600, blocks * 8, replace=False)
+        straddle[8 * w + own.integers(0, 8, cols.size), cols] = (
+            own.standard_normal(cols.size))
     return [
         ("empty windows (rows 16-39), N=200 ragged tile", empty, 8, 8, 200, 24, 40),
         ("M=45 not a multiple of 8, N=20", rand(45, 45, 0.2), 8, 8, 20, 32, 32),
@@ -573,6 +601,7 @@ def kernel_cases(rng):
         ("V=16, N=96", rand(77, 77, 0.2), 16, 8, 96, 24, 40),
         ("V=16, k_blk=4, N=33", rand(50, 61, 0.25), 16, 4, 33, 9, 16),
         ("all-empty matrix, N=40", np.zeros((30, 30), np.float32), 8, 8, 40, 8, 8),
+        ("a split window across two lane groups, N=96", straddle, 8, 8, 96, 32, 32),
     ]
 
 
@@ -869,7 +898,8 @@ def check_narrow_baselines_edge(rng) -> None:
     from repro_torch.core.sddmm import with_values
     from repro_torch.kernels import (spmm_cuda, spmm_noncoalesced_cuda,
                                      spmm_noncoalesced_plain,
-                                     spmm_staged_cuda, spmm_staged_plain)
+                                     spmm_staged_cuda, spmm_staged_plain,
+                                     staged_gather, staged_gather_plain)
 
     bf16 = torch.bfloat16
     for label, a, v, k_blk, n, _, _ in kernel_cases(rng):
@@ -895,6 +925,11 @@ def check_narrow_baselines_edge(rng) -> None:
         out = spmm_staged_cuda(views["bf16"], b16)
         bitwise(f"spmm_staged bf16 [{label}], second launch", out,
                 spmm_staged_cuda(views["bf16"], b16))
+        bitwise(f"spmm_staged bf16 [{label}] vs spmm bf16", out,
+                spmm_cuda(views["bf16"], b16))
+        bitwise(f"staged gather bf16 [{label}] vs B[cols]",
+                staged_gather(views["bf16"], b16),
+                staged_gather_plain(views["bf16"], b16))
         errs.append(one_ulp(f"spmm_staged bf16 [{label}]", out,
                             spmm_staged_plain(views["bf16"], b16),
                             show=False))
@@ -906,8 +941,9 @@ def check_narrow_baselines_edge(rng) -> None:
             raise SystemExit(f"FAIL spmm_staged int8 [{label}]: not refused")
         print(f"  ok   baselines' narrow variants [{label}]: non-coalesced "
               "bf16 and int8 the same bits as spmm's on unsplit windows, "
-              "staged bf16; within one bf16 ulp of their plain versions, the "
-              f"same bits on a second launch; max abs err {max(errs):.3e}; "
+              "staged bf16 (bitwise spmm's, its gather B[cols]); within one "
+              "bf16 ulp of their plain versions, the same bits on a second "
+              f"launch; max abs err {max(errs):.3e}; "
               "staged int8 refused (ValueError)", flush=True)
     torch.cuda.synchronize()
 
@@ -1251,7 +1287,8 @@ def check_head_grids_edge(rng) -> None:
                                      sddmm_cuda, spmm_batched_cuda,
                                      spmm_batched_plain, spmm_cuda,
                                      spmm_noncoalesced_cuda, spmm_plain,
-                                     spmm_staged_cuda, spmm_staged_plain)
+                                     spmm_staged_cuda, spmm_staged_plain,
+                                     staged_gather, staged_gather_plain)
 
     def t(heads, *shape):
         return torch.from_numpy(rng.standard_normal(
@@ -1311,19 +1348,27 @@ def check_head_grids_edge(rng) -> None:
                                     attention_plain(blocked, q, kk, vv, beta),
                                     KERNEL_RTOL, KERNEL_ATOL, show=False))
         b = t((), k, n)
+        ref = spmm_cuda(blocked, b)
+        out = spmm_noncoalesced_cuda(blocked, b)
         check_noncoalesced(f"spmm_noncoalesced [{label}] vs spmm", blocked,
-                           spmm_noncoalesced_cuda(blocked, b),
-                           spmm_cuda(blocked, b), spmm_plain(blocked, b))
-        errs.append(compare(f"spmm_staged [{label}]",
-                            spmm_staged_cuda(blocked, b),
+                           out, ref, spmm_plain(blocked, b))
+        bitwise(f"spmm_noncoalesced [{label}], second launch", out,
+                spmm_noncoalesced_cuda(blocked, b))
+        bitwise(f"staged gather [{label}] vs B[cols]",
+                staged_gather(blocked, b), staged_gather_plain(blocked, b))
+        out = spmm_staged_cuda(blocked, b)
+        bitwise(f"spmm_staged [{label}] vs spmm (one window kernel)", out,
+                ref)
+        errs.append(compare(f"spmm_staged [{label}]", out,
                             spmm_staged_plain(blocked, b), KERNEL_RTOL,
                             KERNEL_ATOL, show=False))
         print(f"  ok   [{label}]: spmm_batched, sddmm_batched (H 1/2/4 x 3 "
               "mixes) and attention (H 1/2/4 x 7 mixes) bitwise-equal to "
               "their one-head launches, spmm_batched to a second launch, "
-              "spmm_noncoalesced bitwise-equal to spmm on unsplit windows; "
-              f"against the plain versions max abs err {max(errs):.3e}",
-              flush=True)
+              "spmm_noncoalesced bitwise-equal to spmm on unsplit windows "
+              "and to a second launch, spmm_staged "
+              "bitwise-equal to spmm, its gather to B[cols]; against the "
+              f"plain versions max abs err {max(errs):.3e}", flush=True)
     torch.cuda.synchronize()
 
 
@@ -1657,10 +1702,13 @@ def main() -> None:
                                      spmm_batched_plain, spmm_cuda,
                                      spmm_noncoalesced_cuda,
                                      spmm_noncoalesced_plain, spmm_plain,
-                                     spmm_staged_cuda, spmm_staged_plain)
+                                     spmm_staged_cuda, spmm_staged_plain,
+                                     staged_gather, staged_gather_plain)
+    from repro_torch.kernels.spmm_staged_cuda import (staged_window_spmm,
+                                                      zero_unvisited)
     from repro_torch.core.sddmm import attention, with_values
     from repro_torch.kernels._combine import run_plan
-    from repro_torch.kernels._window import SPLIT_BLK, window_plan
+    from repro_torch.kernels._window import SPLIT_BLK, lane_plan, window_plan
     from repro_torch.kernels.attention_cuda import rings_fit, value_bands
     from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
     from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
@@ -1698,7 +1746,9 @@ def main() -> None:
                 "attention_balanced_bf16": attention_balanced_cuda,
                 "spmm_noncoalesced_bf16": spmm_noncoalesced_cuda,
                 "spmm_noncoalesced_int8": spmm_noncoalesced_cuda,
-                "spmm_staged_bf16": spmm_staged_cuda}
+                "spmm_staged_bf16": spmm_staged_cuda,
+                "spmm_staged_gather": staged_gather,
+                "spmm_staged_gather_bf16": staged_gather}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -1714,6 +1764,13 @@ def main() -> None:
 
     def expect(**nonzero):
         return {name: nonzero.get(name, 0) for name in wrappers}
+
+    # the window plan's split ids, which the window-parallel SpMMs (rows
+    # 1, 3 and 5) read beside the format
+    def split_ids(blocked, n_cols):
+        n_tile = min(128, max(32, -(-n_cols // 32) * 32))
+        return window_plan("chip_smoke", blocked.win_ptr, SPLIT_BLK,
+                           n_tile).split_ids
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1991,6 +2048,55 @@ def main() -> None:
         "spmm_staged bf16 [Amazon, N=128]",
         spmm_staged_cuda(narrow["A"]["bf16"], b16),
         spmm_staged_plain(narrow["A"]["bf16"], b16))
+    # The staged SpMM reads its copy through the window SpMM's kernel and
+    # plan: its gather is B[cols] bit for bit, and its output is the
+    # window SpMM's (bf16: one rounding of the same fp32 sum), on A and,
+    # split windows and all, on A^T.
+    for var, view_, feat_ in (("fp32", blk, b),
+                              ("bf16", narrow["A"]["bf16"], b16)):
+        sfx = "" if var == "fp32" else "_bf16"
+        bitwise(f"staged gather {var} [Amazon, N=128] vs B[cols]",
+                staged_gather(view_, feat_),
+                staged_gather_plain(view_, feat_))
+        err[f"spmm_staged_gather{sfx}"] = 0.0
+        out = spmm_staged_cuda(view_, feat_)
+        bitwise(f"spmm_staged {var} [Amazon, N=128], second launch", out,
+                spmm_staged_cuda(view_, feat_))
+        bitwise(f"spmm_staged {var} [Amazon, N=128] vs spmm", out,
+                spmm_cuda(view_, feat_))
+    bitwise("spmm_staged [Amazon A^T, N=128] vs spmm",
+            spmm_staged_cuda(plan.bwd, b), spmm_cuda(plan.bwd, b))
+    # The non-coalesced SpMM on A^T, over the slices of its lane plan: the
+    # rows of windows it does not split bitwise the window SpMM's, the
+    # others against the plain version (hub windows against fp64), a
+    # second launch the same bits; fp32 at N = 128 and 32, bf16 and int8
+    # (bf16 B) at 128.
+    lanes = lane_plan("chip_smoke", plan.bwd.win_ptr, SPLIT_BLK)
+    lane_arrays = (lanes.slice_ptr, lanes.slice_win, lanes.slice_out,
+                   lanes.part_win, lanes.part_ptr)
+    print(f"  A^T, lane plan (split_blk={SPLIT_BLK}): {lanes.num_slices} "
+          f"slices in {-(-lanes.num_slices // 32)} lane groups, "
+          f"{lanes.num_part_windows} windows across groups, "
+          f"{lanes.num_partials} partials", flush=True)
+    at_rows = unsplit_rows(plan.bwd)
+    for n_cols, feat_ in ((128, b), (32, b32)):
+        tag = f"spmm_noncoalesced [Amazon A^T, N={n_cols}]"
+        out = spmm_noncoalesced_cuda(plan.bwd, feat_)
+        bitwise(f"{tag}, second launch", out,
+                spmm_noncoalesced_cuda(plan.bwd, feat_))
+        bitwise(f"{tag}, rows of unsplit windows vs spmm", out[at_rows],
+                spmm_cuda(plan.bwd, feat_)[at_rows])
+        err[f"spmm_noncoalesced_At{n_cols}"] = check_hub_windows(
+            tag, plan.bwd, plan.bwd.vals[None], feat_[None], out[None],
+            spmm_noncoalesced_plain(plan.bwd, feat_)[None])
+    for var, view_ in narrow["A^T"].items():
+        tag = f"spmm_noncoalesced {var} [Amazon A^T, N=128]"
+        out = spmm_noncoalesced_cuda(view_, b16)
+        bitwise(f"{tag}, rows of unsplit windows vs spmm", out[at_rows],
+                spmm_cuda(view_, b16)[at_rows])
+        check_narrow_hub_windows(tag, view_, b16, out,
+                                 spmm_noncoalesced_plain(view_, b16))
+    del out
     torch.cuda.synchronize()
 
     att = attention_setup(rng)
@@ -2180,7 +2286,7 @@ def main() -> None:
             lambda: gcn_forward(gcn.params(), blk, x, dataclasses.replace(
                 cfgs["gcn"], impl="cuda_staged")),
             lambda: gcn_forward(gcn.params(), blk, x, plain["gcn"]),
-            expect(spmm_staged=n_layers)),
+            expect(spmm_staged=n_layers, spmm_staged_gather=n_layers)),
     }
     launches = {name: 0 for name in wrappers}
     outs = {}
@@ -2216,7 +2322,8 @@ def main() -> None:
                 ("gcn_noncoalesced_int8", "cuda_noncoalesced",
                  narrow["A"]["int8"], expect(spmm_noncoalesced_int8=n_layers)),
                 ("gcn_staged_bf16", "cuda_staged", narrow["A"]["bf16"],
-                 expect(spmm_staged_bf16=n_layers))):
+                 expect(spmm_staged_bf16=n_layers,
+                        spmm_staged_gather_bf16=n_layers))):
             cfg = dataclasses.replace(cfgs["gcn"], impl=impl, dtype=bf16)
             reset_counts()
             out = gcn_forward(gcn16.params(), adj, x16, cfg)
@@ -3081,6 +3188,22 @@ def main() -> None:
             "spmm_staged": (lambda: spmm_staged_cuda(blk, b),
                             lambda: spmm_staged_plain(blk, b),
                             lambda: torch.sparse.mm(csr, b)),
+            # the non-coalesced SpMM on the transpose (its slices), beside
+            # the window SpMM's spmm_At entries
+            "spmm_noncoalesced_At128": (
+                lambda: spmm_noncoalesced_cuda(plan.bwd, b),
+                lambda: spmm_noncoalesced_plain(plan.bwd, b),
+                lambda: torch.sparse.mm(csr_t, b)),
+            "spmm_noncoalesced_At32": (
+                lambda: spmm_noncoalesced_cuda(plan.bwd, b32),
+                lambda: spmm_noncoalesced_plain(plan.bwd, b32),
+                lambda: torch.sparse.mm(csr_t, b32)),
+            # the staged SpMM's gather: plain is the advanced indexing the
+            # wrapper used before, the yardstick one index_select
+            "spmm_staged_gather": (
+                lambda: staged_gather(blk, b),
+                lambda: staged_gather_plain(blk, b),
+                lambda: torch.index_select(b, 0, blk.cols)),
             "spmm_batched": (lambda: spmm_batched_cuda(aprob_blk, av),
                              lambda: spmm_batched_plain(aprob_blk, av),
                              lambda: torch.bmm(aprob_coo, av)),
@@ -3159,6 +3282,10 @@ def main() -> None:
             "spmm_staged_bf16": (lambda: spmm_staged_cuda(blk16, b16),
                                  lambda: spmm_staged_plain(blk16, b16),
                                  lambda: torch.sparse.mm(csr16, b16)),
+            "spmm_staged_gather_bf16": (
+                lambda: staged_gather(blk16, b16),
+                lambda: staged_gather_plain(blk16, b16),
+                lambda: torch.index_select(b16, 0, blk.cols)),
         })
         # The precision variants of rows 3, 4, 7, 8, 9 (H = 12) and 10, and
         # row 4 in fp32 on A^T.  Their yardsticks take bf16 operands (bf16
@@ -3277,6 +3404,47 @@ def main() -> None:
         e2e["sddmm_tile_diagnosis"] = diag
         print("  SDDMM tile on the Amazon A, F=32: " + ", ".join(
             f"{k_} {v_:.4f}" for k_, v_ in diag.items()))
+        # The staged SpMM's three passes, each alone beside its own bytes
+        # bound (inputs read once, outputs written once): the gather (cols,
+        # B; G), the SpMM over G (vals, win_ptr, the plan's split ids, G;
+        # the fp32 C) and the post-pass with the cast (block_win, C; the
+        # where's fp32 output, and for bf16 the cast's pass over it).  The
+        # sum of the three bounds is the staged design's floor, a second
+        # number beside the function's bound.
+        staged_parts = {}
+        for name, view_, feat_ in (("spmm_staged", blk, b),
+                                   ("spmm_staged_bf16", blk16, b16)):
+            gath = staged_gather(view_, feat_)
+            c32 = staged_window_spmm(view_, gath)
+            es, rows_g = feat_.element_size(), view_.vals.shape[0]
+            c_bytes = m * 128 * 4
+            parts = {
+                "gather": (lambda: staged_gather(view_, feat_),
+                           read_once(view_.cols, feat_)
+                           + rows_g * 128 * es),
+                "kernel": (lambda: staged_window_spmm(view_, gath),
+                           read_once(view_.vals, view_.win_ptr,
+                                     split_ids(view_, 128))
+                           + rows_g * 128 * es + c_bytes),
+                "post_pass": (lambda: zero_unvisited(c32, view_).to(
+                                  feat_.dtype),
+                              read_once(view_.block_win) + 2 * c_bytes
+                              + (c_bytes + m * 128 * es if es != 4 else 0)),
+            }
+            row_ = {}
+            for part, (fn, nb_) in parts.items():
+                row_[part] = {"ms": cuda_ms(fn), "bytes": nb_,
+                              "bound_ms": bound(nb_, 0)[0]}
+            floor = sum(r_["bound_ms"] for r_ in row_.values())
+            staged_parts[name] = {"parts": row_, "floor_ms": floor}
+            print(f"  {name} passes: " + ", ".join(
+                f"{k_} {r_['ms']:.4f} ms (bound {r_['bound_ms']:.4f}, "
+                f"{r_['bytes'] / 1e6:.1f} MB)" for k_, r_ in row_.items())
+                + f"; sum {sum(r_['ms'] for r_ in row_.values()):.4f} ms, "
+                f"the design's floor {floor:.4f} ms, the whole call "
+                f"{ms[name][0]:.4f} ms", flush=True)
+            del gath, c32
+        e2e["staged_passes"] = staged_parts
         # The transpose SpMM (dB, dK) on Aᵀ, whose hub columns of A are
         # hub windows, window-parallel (timed above) against block-parallel,
         # and its bound.
@@ -3583,11 +3751,6 @@ def main() -> None:
     # for the balanced kernels the schedule arrays they read (the run plan
     # of the run-carried SpMM and attention); never the balanced kernels'
     # own scratch partials.
-    def split_ids(blocked, n_cols):
-        n_tile = min(128, max(32, -(-n_cols // 32) * 32))
-        return window_plan("chip_smoke", blocked.win_ptr, SPLIT_BLK,
-                           n_tile).split_ids
-
     bal_plans = {name: run_plan("chip_smoke", bsched, bblk.num_windows, r_)
                  for name, r_ in (("spmm_balanced", SPMM_RUN),
                                   ("attention_balanced", ATTN_RUN))}
@@ -3710,6 +3873,19 @@ def main() -> None:
                                    + m * 128 * 2),
         "spmm_staged_bf16": (read_once(blk16.vals, blk.cols, blk.block_win,
                                        b16) + m * 128 * 2),
+        # the non-coalesced SpMM on A^T, with its lane plan's arrays
+        "spmm_noncoalesced_At128": (read_once(plan.bwd.vals, plan.bwd.cols,
+                                              plan.bwd.win_ptr, b,
+                                              *lane_arrays)
+                                    + m * 128 * 4),
+        "spmm_noncoalesced_At32": (read_once(plan.bwd.vals, plan.bwd.cols,
+                                             plan.bwd.win_ptr, b32,
+                                             *lane_arrays)
+                                   + m * 32 * 4),
+        # the staged SpMM's gather: cols and B read, G = B[cols] written
+        "spmm_staged_gather": read_once(blk.cols, b) + nnzp * 128 * 4,
+        "spmm_staged_gather_bf16": (read_once(blk.cols, b16)
+                                    + nnzp * 128 * 2),
     }
     # Operations on the true nonzeros only: the padded and masked-off
     # slots of a block are the format's, not the function's.
@@ -3728,6 +3904,9 @@ def main() -> None:
                  "spmm_int8", "spmm_noncoalesced_bf16",
                  "spmm_noncoalesced_int8", "spmm_staged_bf16"):
         flops[name] = flops["spmm"]
+    flops.update(spmm_noncoalesced_At128=flops["spmm_At128"],
+                 spmm_noncoalesced_At32=flops["spmm_At32"],
+                 spmm_staged_gather=0, spmm_staged_gather_bf16=0)
     flops.update(spmm_bf16_At128=flops["spmm_At128"],
                  spmm_bf16_At32=flops["spmm_At32"], sddmm_bf16=flops["sddmm"],
                  attention_bf16=flops["attention"])
@@ -3779,6 +3958,16 @@ def main() -> None:
         shapes[f"spmm_At{n_cols}"] = dict(
             shapes["spmm"], N=n_cols, NNZP=int(plan.bwd.vals.shape[0]),
             operand="A^T", window_plan=windows[key])
+        shapes[f"spmm_noncoalesced_At{n_cols}"] = dict(
+            shapes["spmm"], N=n_cols, NNZP=int(plan.bwd.vals.shape[0]),
+            operand="A^T", lane_plan={
+                "split_blk": SPLIT_BLK, "slices": lanes.num_slices,
+                "part_windows": lanes.num_part_windows,
+                "partials": lanes.num_partials})
+    for name, dt in (("spmm_staged_gather", "fp32"),
+                     ("spmm_staged_gather_bf16", "bf16")):
+        shapes[name] = {"rows": nnzp, "K": m, "N": 128,
+                        "dtypes": f"int32 cols, {dt} B and G"}
     shapes["spmm_batched_At"] = dict(
         shapes["spmm_batched"], NNZP=int(aplan.bwd.vals.shape[0]),
         operand="A^T (dV = P^T G)", window_plan=windows["attention_At_n64"])
@@ -3877,6 +4066,14 @@ def main() -> None:
         if name == "spmm_batched":
             # the attention backward's dV on the pattern's transpose
             row["At"] = measured("spmm_batched_At")
+        if name == "spmm_noncoalesced":
+            # the Fig. 15 baseline on the transpose, over its lane plan
+            row["At"] = {"n128": measured("spmm_noncoalesced_At128"),
+                         "n32": measured("spmm_noncoalesced_At32")}
+        if name in staged_parts:
+            # the staged SpMM's passes alone, and the design's floor (the
+            # sum of their bounds) beside the function's bound_ms
+            row.update(staged_parts[name])
         if name == "spmm_bf16":
             # the transpose SpMM (dB) of the bf16 and int8-plan train steps
             row["At"] = {"n128": measured("spmm_bf16_At128"),

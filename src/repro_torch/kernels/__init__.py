@@ -16,7 +16,8 @@ from .spmm_batched_cuda import spmm_batched_cuda, spmm_batched_plain
 from .spmm_cuda import spmm_cuda, spmm_plain
 from .spmm_noncoalesced_cuda import (spmm_noncoalesced_cuda,
                                      spmm_noncoalesced_plain)
-from .spmm_staged_cuda import spmm_staged_cuda, spmm_staged_plain
+from .spmm_staged_cuda import (spmm_staged_cuda, spmm_staged_plain,
+                               staged_gather, staged_gather_plain)
 
 __all__ = ["attention_balanced_cuda", "attention_balanced_plain",
            "attention_cuda", "attention_cuda_staged", "attention_plain",
@@ -26,4 +27,5 @@ __all__ = ["attention_balanced_cuda", "attention_balanced_plain",
            "sddmm_plain", "spmm_balanced_cuda", "spmm_balanced_plain",
            "spmm_batched_cuda", "spmm_batched_plain", "spmm_cuda",
            "spmm_noncoalesced_cuda", "spmm_noncoalesced_plain",
-           "spmm_plain", "spmm_staged_cuda", "spmm_staged_plain"]
+           "spmm_plain", "spmm_staged_cuda", "spmm_staged_plain",
+           "staged_gather", "staged_gather_plain"]

@@ -46,8 +46,9 @@ SOURCES: Dict[str, tuple] = {
     "spmm_batched": ("spmm_batched_launch",
                      [_P] * 7 + [_I] * 12 + [_L, _L] + [_I] * 3 + [_P]),
     "spmm_noncoalesced": ("spmm_noncoalesced_launch",
-                          [_P] * 6 + [_I] * 7 + [_P]),
-    "spmm_staged": ("spmm_staged_launch", [_P] * 4 + [_I] * 7 + [_P]),
+                          [_P] * 11 + [_I] * 9 + [_P]),
+    "spmm_staged": ("spmm_staged_launch", [_P] * 5 + [_I] * 13 + [_P]),
+    "spmm_gather": ("spmm_gather_launch", [_P] * 3 + [_I] * 3 + [_P]),
     "sddmm": ("sddmm_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "sddmm_batched": ("sddmm_batched_launch",
                       [_P] * 6 + [_I] * 6 + [_L, _L, _I, _P]),

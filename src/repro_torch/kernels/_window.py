@@ -47,13 +47,15 @@ import numpy as np
 import torch
 
 __all__ = ["SPLIT_BLK", "MAX_CLUSTER", "MAX_THREADS", "PACK_WARPS",
-           "WindowPlan", "slice_groups", "window_plan"]
+           "LANES", "WindowPlan", "LanePlan", "slice_groups", "window_plan",
+           "lane_plan"]
 
 SPLIT_BLK = 32      # longest window (K-blocks) walked by one group unsplit
 MAX_CLUSTER = 16    # blocks per cluster (above 8 the size is non-portable)
 MAX_THREADS = 512   # threads per block, groups * n_tile
 MAX_GROUPS = 16
 PACK_WARPS = 4      # one-warp groups per block of a plan without split windows
+LANES = 32          # slices per lane group of the non-coalesced SpMM
 
 
 def slice_groups(n_tile: int) -> int:
@@ -164,4 +166,92 @@ def window_plan(op: str, win_ptr: torch.Tensor, split_blk: int,
             num_windows=int(win_ptr.shape[0]) - 1, split_blk=split_blk,
             groups=groups, cluster=cluster)
         plans[key] = plan
+    return plan
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LanePlan:
+    """The slices of one non-coalesced SpMM launch
+    (``csrc/spmm_noncoalesced.cu``), one per lane.
+
+    The windows are cut into the slices of :class:`WindowPlan` (a window of
+    ``L`` K-blocks into ``ns = max(1, ceil(L / split_blk))`` slices, slice
+    ``i`` holding blocks ``[i * L // ns, (i + 1) * L // ns)``), listed in
+    window order, a window's slices in order; an empty window is one empty
+    slice.  Lane group ``g`` (the 32 lanes of a warp) takes slices ``[32 g,
+    32 g + 32)``.  A window's slices in one lane group form a **run**; the
+    run's last lane holds the run's sum (a segmented scan over the lanes),
+    and stores it into C when the run is the whole window, else as one
+    fp32 partial, which a second pass adds in run order.
+
+      slice_ptr (S + 1,) int32  slice ``s`` holds K-blocks
+                                ``[slice_ptr[s], slice_ptr[s + 1])``
+      slice_win (S,) int32      its window
+      slice_out (S,) int32      -1: the last slice of a run that is its
+                                whole window (stores C); ``p >= 0``: the
+                                last slice of a run that is part of its
+                                window (stores partial ``p``); -2: not the
+                                last slice of its run
+      part_win (NPW,) int32     windows with partials, ascending
+      part_ptr (NPW + 1,) int32 window ``part_win[i]``'s partials
+                                ``[part_ptr[i], part_ptr[i + 1])``, in run
+                                order
+    """
+
+    slice_ptr: torch.Tensor
+    slice_win: torch.Tensor
+    slice_out: torch.Tensor
+    part_win: torch.Tensor
+    part_ptr: torch.Tensor
+    num_slices: int
+    num_partials: int
+    split_blk: int
+
+    @property
+    def num_part_windows(self) -> int:
+        return int(self.part_win.shape[0])
+
+
+def _lane_plan(win_ptr: np.ndarray, split_blk: int):
+    wp = win_ptr.astype(np.int64)
+    lens = np.diff(wp)
+    ns = np.maximum(1, -(-lens // split_blk))
+    first_slice = np.cumsum(ns) - ns
+    win = np.repeat(np.arange(lens.size), ns)
+    idx = np.arange(win.size) - first_slice[win]
+    slice_ptr = np.append(wp[win] + idx * lens[win] // ns[win], wp[-1])
+    grp = np.arange(win.size) // LANES
+    # the last slice of each run (a window's slices in one lane group)
+    last = np.ones(win.size, bool)
+    last[:-1] = (win[1:] != win[:-1]) | (grp[1:] != grp[:-1])
+    whole = grp[first_slice] == grp[first_slice + ns - 1]
+    out = np.full(win.size, -2, np.int64)
+    ends = np.nonzero(last)[0]
+    out[ends[whole[win[ends]]]] = -1
+    part_ends = ends[~whole[win[ends]]]
+    out[part_ends] = np.arange(part_ends.size)
+    part_win, counts = np.unique(win[part_ends], return_counts=True)
+    part_ptr = np.concatenate([[0], np.cumsum(counts)])
+    return slice_ptr, win, out, part_win, part_ptr
+
+
+def lane_plan(op: str, win_ptr: torch.Tensor, split_blk: int) -> LanePlan:
+    """The :class:`LanePlan` of a view's ``win_ptr`` for windows cut above
+    ``split_blk`` K-blocks, memoized on the tensor; its arrays live on
+    ``win_ptr``'s device.  Raises ``ValueError`` naming ``op`` on a
+    ``split_blk`` below 1."""
+    if split_blk < 1:
+        raise ValueError(f"{op}: split_blk must be >= 1, got {split_blk}")
+    plans = getattr(win_ptr, "_lane_plans", None)
+    if plans is None:
+        plans = {}
+        win_ptr._lane_plans = plans
+    plan = plans.get(split_blk)
+    if plan is None:
+        arrays = _lane_plan(win_ptr.cpu().numpy(), split_blk)
+        dev = [torch.from_numpy(a.astype(np.int32)).to(win_ptr.device)
+               for a in arrays]
+        plan = LanePlan(*dev, num_slices=int(arrays[1].size),
+                        num_partials=int(arrays[4][-1]), split_blk=split_blk)
+        plans[split_blk] = plan
     return plan

@@ -1,8 +1,10 @@
-// The window-parallel SpMM kernel, shared by spmm.cu (one head) and
-// spmm_batched.cu (a grid of H heads):
+// The window-parallel SpMM kernel, shared by spmm.cu (one head),
+// spmm_batched.cu (a grid of H heads) and spmm_staged.cu (one head over a
+// gathered copy of B):
 // C[h] (M, N) = A[h] (M, K) @ B[h] (K, N), templated on the value type Tv
 // (float, bf16, or int8 with one fp32 scale per K-block), B's type Tb
-// (float or bf16, also C's) and the index type of one head's B and vals.
+// (float or bf16, also C's unless Tc says otherwise) and the index type of
+// one head's B and vals.
 //
 // Design.  A thread block is G slice groups, each one column tile of
 // n_tile columns; each thread owns kCols adjacent output columns of the
@@ -75,6 +77,13 @@
 //     same bits.  A split plan keeps one column a thread: half the threads
 //     would walk each hub window's slices, twice the chain each (on an
 //     H100, Amazon's transpose at N = 128 took 2.6 ms against 1.0).
+//   * A gathered B (kGathered, spmm_staged.cu): B is the staged copy G =
+//     B[cols] (NNZP x N), and a thread reads row t of G where it reads row
+//     cols[t] of B, so no column id is staged; C may then be of another
+//     type Tc than G's (the staged baseline's fp32 C).  G streams from
+//     device memory, so a thread keeps 16 of its rows in flight and takes
+//     one column at every width.  Everything else, the plan and the order
+//     of every sum included, is the same code.
 //   * Precision (the reference's bf16 and int8 paths): every operand is
 //     widened to fp32 as it is read, the products and every sum are fp32,
 //     and C is rounded to Tb once, at the store (round to nearest even).
@@ -184,13 +193,16 @@ __device__ __forceinline__ int slice_start(int k_lo, int len, int ns, int s) {
 // through L1: the values 16 bytes at a time when vec16 (every chunk's
 // values then start and end on 16 bytes), else a float at a time, or for
 // narrower values by plain loads (the barrier before the chunk is summed
-// orders them as it orders the copies).
-template <int V, typename Tv, typename Idx>
+// orders them as it orders the copies); without kIds (a gathered B) no
+// column id.
+template <int V, typename Tv, typename Idx, bool kIds = true>
 __device__ __forceinline__ void issue_chunk(int t0, int cnt, int tid,
                                             int nthr, const int* cols,
                                             const Tv* vh, bool vec16,
                                             int* sc, Tv* sv) {
-  for (int i = tid; i < cnt; i += nthr) cp_async4(sc + i, cols + t0 + i);
+  if constexpr (kIds) {
+    for (int i = tid; i < cnt; i += nthr) cp_async4(sc + i, cols + t0 + i);
+  }
   const Tv* src = vh + static_cast<Idx>(t0) * V;
   constexpr int kPer16 = 16 / sizeof(Tv);
   if (vec16) {  // cnt * V is then a multiple of kPer16
@@ -264,9 +276,9 @@ __device__ __forceinline__ void issue_scales(int t0, int cnt, int tid,
 // (kFold; without it, one slice whose sum becomes part); this thread takes
 // its kCols columns from col (pair, has2: see load_cols), the chunks
 // through its warp's ring, or with kBlockRing (a block of one group)
-// through the block's.
+// through the block's; kGathered: bh is G = B[cols], row t for vector t.
 template <int V, bool kFold, bool kBlockRing, int kCols, typename Tv,
-          typename Tb, typename Idx>
+          typename Tb, typename Idx, bool kGathered>
 __device__ __forceinline__ void walk_slices(
     int k_lo, int len, int ns, int s_lo, int s_hi, int k_blk,
     const int* __restrict__ cols, const Tv* __restrict__ vh,
@@ -285,8 +297,9 @@ __device__ __forceinline__ void walk_slices(
   auto chunk_len = [&](int t0) { return min(t_hi - t0, kSpmmChunk); };
   auto issue = [&](int ci) {
     const int t0 = t_lo + ci * kSpmmChunk;
-    issue_chunk<V, Tv, Idx>(t0, chunk_len(t0), tid, nthr, cols, vh, vec16,
-                            ring.cols[ci % 3], ring.vals[ci % 3]);
+    issue_chunk<V, Tv, Idx, !kGathered>(t0, chunk_len(t0), tid, nthr, cols,
+                                        vh, vec16, ring.cols[ci % 3],
+                                        ring.vals[ci % 3]);
     if constexpr (std::is_same<Tv, int8_t>::value) {
       issue_scales(t0, chunk_len(t0), tid, nthr, k_blk, scales,
                    ring.scl[ci % 3]);
@@ -339,30 +352,40 @@ __device__ __forceinline__ void walk_slices(
     const int cnt = chunk_len(t0);
     const auto* sv = ring.chunk(ci);
     const int* sc = ring.cols[ci % 3];
+    // the B row of the chunk's vector r: its column id, or for a gathered
+    // B its own index
+    auto brow = [&](int r) {
+      if constexpr (kGathered) {
+        return static_cast<Idx>(t0 + r);
+      } else {
+        return static_cast<Idx>(sc[r]);
+      }
+    };
     int r0 = 0;
     while (r0 < cnt) {
       const int r1 = kFold ? min(fold_at - t0, cnt) : cnt;
       if (active) {
         int r = r0;
-        // 8 gathers in flight, then their products in vector order (the
+        // 8 gathers in flight (16 rows of a gathered B, which come from
+        // device memory, not L2), then their products in vector order (the
         // values are read from shared memory one vector at a time, so the
         // registers hold 8 B values, not 8 vectors)
-        for (; r + kSpmmUnroll <= r1; r += kSpmmUnroll) {
-          float bv[kSpmmUnroll][kCols];
+        constexpr int kUnroll = kGathered ? 2 * kSpmmUnroll : kSpmmUnroll;
+        for (; r + kUnroll <= r1; r += kUnroll) {
+          float bv[kUnroll][kCols];
 #pragma unroll
-          for (int u = 0; u < kSpmmUnroll; ++u) {
-            load_cols<kCols>(bh + (static_cast<Idx>(sc[r + u]) * n + col),
-                             pair, has2, bv[u]);
+          for (int u = 0; u < kUnroll; ++u) {
+            load_cols<kCols>(bh + (brow(r + u) * n + col), pair, has2,
+                             bv[u]);
           }
 #pragma unroll
-          for (int u = 0; u < kSpmmUnroll; ++u) {
+          for (int u = 0; u < kUnroll; ++u) {
             fma_vector<V, kCols>(acc, sv + (r + u) * V, bv[u]);
           }
         }
         for (; r < r1; ++r) {
           float bv[kCols];
-          load_cols<kCols>(bh + (static_cast<Idx>(sc[r]) * n + col), pair,
-                           has2, bv);
+          load_cols<kCols>(bh + (brow(r) * n + col), pair, has2, bv);
           fma_vector<V, kCols>(acc, sv + r * V, bv);
         }
       }
@@ -402,15 +425,16 @@ __device__ __forceinline__ void store_rows(Tb* ch, int w, int m, int n,
   }
 }
 
-// Arguments of both variants of the kernel.
-template <typename Tv, typename Tb>
+// Arguments of both variants of the kernel (C of type Tc: Tb, or fp32
+// for the staged baseline).
+template <typename Tv, typename Tb, typename Tc = Tb>
 struct WindowArgs {
   const int* win_ptr;
-  const int* cols;
+  const int* cols;       // null for a gathered B
   const Tv* vals;
   const float* scales;   // (NB,) per-K-block scales of int8 values, else null
-  const Tb* b;
-  Tb* c;
+  const Tb* b;           // B, or G = B[cols] when gathered
+  Tc* c;
   const int* split_ids;  // the plan's long windows, then its medium ones
   int m, n, num_windows, k_blk, n_tile, groups, cluster, split_blk;
   int num_long, num_medium;
@@ -424,11 +448,11 @@ struct WindowArgs {
 // Two columns a thread (kCols = 2, never with kSplit) hold twice the sums
 // in half the threads: the register budget a thread doubles where V = 8.
 template <int V, bool kSplit, bool kBlockRing, int kCols, typename Tv,
-          typename Tb, typename Idx>
+          typename Tb, typename Idx, typename Tc, bool kGathered>
 __global__ void __launch_bounds__(kSpmmMaxThreads / kCols,
                                   kCols == 2 ? (V == 16 ? 2 : 4)
                                              : (kSplit || V == 16 ? 2 : 3))
-spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
+spmm_window_kernel(const WindowArgs<Tv, Tb, Tc> a) {
   extern __shared__ __align__(16) float smem[];
   static_assert(kCols == 1 || !kSplit, "a split plan: a column a thread");
   constexpr int kSums = kCols * V;
@@ -443,7 +467,7 @@ spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
   const bool has2 = col + 1 < a.n;
   const bool pair = kCols == 2 && has2 && a.n % 2 == 0 &&
                     (reinterpret_cast<uintptr_t>(bh) & 3) == 0;
-  Tb* ch = a.c + h * static_cast<int64_t>(a.m) * a.n;
+  Tc* ch = a.c + h * static_cast<int64_t>(a.m) * a.n;
   const int nwarps = blockDim.x >> 5;
   auto* rings = reinterpret_cast<WindowRing<V, Tv>*>(smem);
   WindowRing<V, Tv>& ring = rings[kBlockRing ? 0 : threadIdx.x >> 5];
@@ -464,7 +488,7 @@ spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
     const int k_lo = a.win_ptr[w];
     const int len = a.win_ptr[w + 1] - k_lo;
     if (kSplit && len > a.split_blk) return;  // its own task
-    walk_slices<V, false, kBlockRing, kCols, Tv, Tb, Idx>(
+    walk_slices<V, false, kBlockRing, kCols, Tv, Tb, Idx, kGathered>(
         k_lo, len, 1, 0, 1, a.k_blk, a.cols, vh, a.scales, bh, a.n, col,
         active, pair, has2, ring, part);
     if (active) store_rows<V, kCols>(ch, w, a.m, a.n, col, part);
@@ -483,7 +507,7 @@ spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
     const int ns = (len + a.split_blk - 1) / a.split_blk;
     const int tg = is_long ? cluster * a.groups : a.groups;
     const int j = is_long ? rank * a.groups + g : g;
-    walk_slices<V, true, false, kCols, Tv, Tb, Idx>(
+    walk_slices<V, true, false, kCols, Tv, Tb, Idx, kGathered>(
         k_lo, len, ns, static_cast<int>((int64_t(j) * ns) / tg),
         static_cast<int>((int64_t(j + 1) * ns) / tg), a.k_blk, a.cols, vh,
         a.scales, bh, a.n, col, active, pair, has2, ring, part);
@@ -501,7 +525,7 @@ spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
       if (!is_long) {
         const int row = w * V + v;
         if (active && row < a.m) {
-          ch[static_cast<int64_t>(row) * a.n + col] = from_f32<Tb>(s);
+          ch[static_cast<int64_t>(row) * a.n + col] = from_f32<Tc>(s);
         }
       } else {
         red[v * nt + lc] = s;
@@ -523,7 +547,7 @@ spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
         }
         const int row = w * V + v;
         if (active && row < a.m) {
-          ch[static_cast<int64_t>(row) * a.n + col] = from_f32<Tb>(s);
+          ch[static_cast<int64_t>(row) * a.n + col] = from_f32<Tc>(s);
         }
       }
     }
@@ -541,7 +565,10 @@ spmm_window_kernel(const WindowArgs<Tv, Tb> a) {
 // windows when n_tile is a multiple of 64 (a group then still fills whole
 // warps); `cluster` blocks form one cluster.  A cluster size or
 // shared-memory size the card refuses is returned as the launch's error.
-template <typename Tv, typename Tb, typename Idx>
+// kGathered: b is G = B[cols] (NNZP x N) and cols is not read; c is of
+// type Tc.
+template <typename Tv, typename Tb, typename Idx, typename Tc = Tb,
+          bool kGathered = false>
 cudaError_t launch_spmm_window(
     const void* win_ptr, const void* cols, const void* vals,
     const void* scales, const void* b, void* c, const void* split_ids, int m,
@@ -555,7 +582,12 @@ cudaError_t launch_spmm_window(
     return cudaErrorInvalidValue;
   }
   const bool split = num_long + num_medium > 0;
-  constexpr bool kPairs = std::is_same<Tb, __nv_bfloat16>::value;
+  // two columns a thread for bf16 B, not for a gathered one: its rows
+  // stream from device memory, and one column a thread keeps more of them
+  // in flight (on an H100, Amazon's A at N = 128, in about two thirds of
+  // the time)
+  constexpr bool kPairs =
+      std::is_same<Tb, __nv_bfloat16>::value && !kGathered;
   // columns a thread
   const int per_thread = kPairs && !split && n_tile % 64 == 0 ? 2 : 1;
   const int threads = groups * n_tile / per_thread;
@@ -569,16 +601,16 @@ cudaError_t launch_spmm_window(
       num_long + medium_tasks + (num_windows + pack - 1) / pack;
   if (tasks * cluster > 0x7fffffff) return cudaErrorInvalidValue;
 
-  const WindowArgs<Tv, Tb> args{static_cast<const int*>(win_ptr),
-                                static_cast<const int*>(cols),
-                                static_cast<const Tv*>(vals),
-                                static_cast<const float*>(scales),
-                                static_cast<const Tb*>(b),
-                                static_cast<Tb*>(c),
-                                static_cast<const int*>(split_ids),
-                                m, n, num_windows, k_blk, n_tile, groups,
-                                cluster, split_blk, num_long, num_medium,
-                                vals_hstride, b_hstride};
+  const WindowArgs<Tv, Tb, Tc> args{static_cast<const int*>(win_ptr),
+                                    static_cast<const int*>(cols),
+                                    static_cast<const Tv*>(vals),
+                                    static_cast<const float*>(scales),
+                                    static_cast<const Tb*>(b),
+                                    static_cast<Tc*>(c),
+                                    static_cast<const int*>(split_ids),
+                                    m, n, num_windows, k_blk, n_tile, groups,
+                                    cluster, split_blk, num_long, num_medium,
+                                    vals_hstride, b_hstride};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tasks * cluster),
                      (n + n_tile - 1) / n_tile, heads);
@@ -615,15 +647,20 @@ cudaError_t launch_spmm_window(
     constexpr int C = decltype(ct)::value;
     constexpr size_t ring = sizeof(WindowRing<V, Tv>);
     if (block_ring) {
-      return run(spmm_window_kernel<V, false, true, C, Tv, Tb, Idx>, ring);
+      return run(
+          spmm_window_kernel<V, false, true, C, Tv, Tb, Idx, Tc, kGathered>,
+          ring);
     }
-    return run(spmm_window_kernel<V, false, false, C, Tv, Tb, Idx>, ring);
+    return run(
+        spmm_window_kernel<V, false, false, C, Tv, Tb, Idx, Tc, kGathered>,
+        ring);
   };
   auto by_cols = [&](auto vt) {
     constexpr int V = decltype(vt)::value;
     if (split) {
-      return run(spmm_window_kernel<V, true, false, 1, Tv, Tb, Idx>,
-                 sizeof(WindowRing<V, Tv>));
+      return run(
+          spmm_window_kernel<V, true, false, 1, Tv, Tb, Idx, Tc, kGathered>,
+          sizeof(WindowRing<V, Tv>));
     }
     if constexpr (kPairs) {
       if (per_thread == 2) return lean(vt, std::integral_constant<int, 2>{});

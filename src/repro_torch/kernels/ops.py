@@ -219,7 +219,7 @@ def _spmm_staged_adapter(fmt, b, *, k_blk: int = 8, n_blk: int = 128):
 
 
 def _spmm_noncoalesced_adapter(fmt, b, *, k_blk: int = 8, n_blk=None):
-    del n_blk  # the mapping fixes the tile: 32 windows x 4 columns
+    del n_blk  # the mapping fixes the tile: 32 slices x 16 columns
     return spmm_noncoalesced_cuda(_ensure_blocked(fmt, k_blk, b.device), b)
 
 

@@ -4,13 +4,19 @@
 Counterpart of ``repro.kernels.spmm_pallas.spmm_pallas_noncoalesced``,
 which launches ``_fused_spmm_kernel`` with serialised per-row fetches: the
 baseline of the paper's coalescing ablation (Fig. 15).  The kernel puts
-the lanes of a warp on neighbouring windows at one column, so they read B
-from different rows, where ``spmm_cuda`` puts them on neighbouring columns
-of one row; on the windows ``spmm_cuda`` does not split its output is
-bitwise-equal to ``spmm_cuda``'s, at every precision.
-``spmm_noncoalesced_cuda`` launches it on CUDA tensors and counts each
-launch in ``spmm_noncoalesced_cuda.launches`` (and per variant in
-``variant_launches``); on CPU tensors it runs
+the 32 lanes of a warp on 32 slices of windows at one column, so one load
+instruction reads B from 32 different rows, where ``spmm_cuda`` puts them
+on neighbouring columns of one row.  Everything else is ``spmm_cuda``'s:
+the slices of its window plan (a lane plan, ``kernels/_window.py``
+:func:`~repro_torch.kernels._window.lane_plan`, windows of more than
+``SPLIT_BLK`` K-blocks cut into slices), values and column ids staged in
+shared memory, 8 gathers in flight.  On the windows ``spmm_cuda`` does not
+split its output is bitwise-equal to ``spmm_cuda``'s, at every precision;
+a split window's slice sums are added in a fixed order (a segmented scan
+over the lanes, then fp32 partials in run order), so two launches give
+the same bits.  ``spmm_noncoalesced_cuda`` launches it on CUDA tensors and
+counts each launch in ``spmm_noncoalesced_cuda.launches`` (and per
+variant in ``variant_launches``); on CPU tensors it runs
 :func:`spmm_noncoalesced_plain`.  Operands are 2-D, as the reference's.
 
 Its variants are ``spmm_cuda``'s (:data:`VARIANTS`): fp32 values and B,
@@ -26,7 +32,8 @@ from repro_torch.core.format import BlockedMEBCRS
 from repro_torch.core.spmm import _spmm_blocked_impl
 
 from . import _build, _checks
-from .spmm_cuda import VARIANTS, _variant_inputs
+from ._window import SPLIT_BLK, lane_plan
+from .spmm_cuda import VARIANTS, _variant_inputs, wide_index
 
 __all__ = ["spmm_noncoalesced_cuda", "spmm_noncoalesced_plain", "VARIANTS"]
 
@@ -42,8 +49,9 @@ def spmm_noncoalesced_cuda(blocked: BlockedMEBCRS,
                            b: torch.Tensor) -> torch.Tensor:
     """``C (M, N) = A @ B`` over ``blocked`` (fp32, bf16 or int8 values,
     see :data:`VARIANTS`), C in B's dtype, sums in fp32, with the
-    non-coalesced thread mapping (the lanes of a warp on 32 windows at one
-    column)."""
+    non-coalesced thread mapping (the lanes of a warp on 32 slices at one
+    column); windows of more than ``SPLIT_BLK`` K-blocks are split into
+    slices, as by ``spmm_cuda``."""
     op = "spmm_noncoalesced_cuda"
     scales = _variant_inputs(op, blocked, b)
     m, k = blocked.shape
@@ -52,7 +60,7 @@ def spmm_noncoalesced_cuda(blocked: BlockedMEBCRS,
                          f"{tuple(blocked.vals.shape)} and {tuple(b.shape)}")
     v = _checks.vector_size(op, blocked)
     n = b.shape[1]
-    if max(m, n) > _checks.int32_max or -(-n // 4) > 65535:
+    if max(m, n) > _checks.int32_max or -(-n // 128) > 65535:
         raise ValueError(f"{op}: shape too large for the kernel's grid")
     tensors = dict(win_ptr=blocked.win_ptr, cols=blocked.cols,
                    vals=blocked.vals, b=b)
@@ -66,11 +74,18 @@ def spmm_noncoalesced_cuda(blocked: BlockedMEBCRS,
     c = torch.empty((m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c
+    plan = lane_plan(op, blocked.win_ptr, SPLIT_BLK)
+    part = torch.empty((plan.num_partials, v, n), dtype=torch.float32,
+                       device=b.device)              # split windows' runs
     err = _build.library("spmm_noncoalesced").spmm_noncoalesced_launch(
-        blocked.win_ptr.data_ptr(), blocked.cols.data_ptr(),
+        plan.slice_ptr.data_ptr(), plan.slice_win.data_ptr(),
+        plan.slice_out.data_ptr(), blocked.cols.data_ptr(),
         blocked.vals.data_ptr(), 0 if scales is None else scales.data_ptr(),
-        b.data_ptr(), c.data_ptr(), m, n, blocked.num_windows, v,
-        blocked.k_blk, _checks.dtype_code(blocked.vals), _checks.dtype_code(b),
+        b.data_ptr(), c.data_ptr(), part.data_ptr() if part.numel() else 0,
+        plan.part_win.data_ptr(), plan.part_ptr.data_ptr(), m, n,
+        plan.num_slices, plan.num_part_windows, v, blocked.k_blk,
+        _checks.dtype_code(blocked.vals), _checks.dtype_code(b),
+        int(wide_index(k * n, blocked.vals.shape[-2] * v)),
         torch.cuda.current_stream(b.device).cuda_stream)
     _build.check_launch("spmm_noncoalesced", err)
     spmm_noncoalesced_cuda.launches += 1

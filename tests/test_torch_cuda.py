@@ -16,7 +16,10 @@ to their plain versions within one bf16 ulp with at least 99% of the
 entries bitwise equal; the attention over value bands (DV > 128) and
 over the SDDMM/SpMM composition (D beyond its shared memory), and the
 window SpMM's 64-bit-index instantiation on a 4 GiB bf16 B; the narrow
-variants of the two SpMM baselines; every kernel the autotuner times at
+variants of the two SpMM baselines, and both redesigned baselines on a
+hub matrix's transpose (the non-coalesced SpMM's slices, runs and
+partials at every precision; the staged SpMM's gather bitwise ``B[cols]``
+and its output bitwise the window SpMM's); every kernel the autotuner times at
 k_blk 16 and 32, a tuned plan whose directions differ in k_blk and route
 against ``blocked``, and a sweep on the card.  The tensor-core SDDMM
 tile shared by the window, head-grid and balanced SDDMMs: the same bits
@@ -59,9 +62,10 @@ from repro_torch.kernels import (attention_balanced_cuda,
                                  spmm_batched_plain, spmm_cuda,
                                  spmm_noncoalesced_cuda,
                                  spmm_noncoalesced_plain, spmm_plain,
-                                 spmm_staged_cuda, spmm_staged_plain)
+                                 spmm_staged_cuda, spmm_staged_plain,
+                                 staged_gather, staged_gather_plain)
 from repro_torch.kernels._combine import run_plan
-from repro_torch.kernels._window import SPLIT_BLK
+from repro_torch.kernels._window import SPLIT_BLK, lane_plan
 from repro_torch.kernels.attention_cuda import rings_fit, value_bands
 from repro_torch.kernels.spmm_cuda import wide_index
 from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
@@ -424,8 +428,9 @@ WINDOW_CASES = [(24, 600, 0.6, 8, 8, 128), (24, 2400, 0.6, 8, 8, 128),
 # 2019), in the plain version as in the kernel, beyond RTOL/ATOL where the
 # terms cancel.  The rows of split windows are held to an fp64 product
 # within 3 times that bound (chip_smoke.py's check of hub windows), the
-# other rows to the plain version.
-HUB_LAMBDA = 3.0
+# other rows to the plain version.  A hub window has more K-blocks than
+# HUB_OF_MEDIAN times the median window, as in chip_smoke.py.
+HUB_LAMBDA, HUB_OF_MEDIAN = 3.0, 4
 
 
 @pytest.mark.parametrize("case", WINDOW_CASES, ids=lambda c: f"{c[0]}x{c[1]}-V{c[3]}-kblk{c[4]}-N{c[5]}")
@@ -867,6 +872,133 @@ def test_narrow_spmm_baselines_on_card(device, case):
     torch.cuda.synchronize()
 
 
+def _hub_transpose(rng):
+    """The transpose of a 1600 x 200 matrix whose columns 0-15 are hubs
+    (density 0.4): 200 x 1600 with two hub windows (about 196 K-blocks each
+    at k_blk 8), windows of about 16 K-blocks, and an empty window (rows
+    96-103)."""
+    a = _matrix(rng, 1600, 200, 0.01)
+    a[:, :16] = _matrix(rng, 1600, 16, 0.4)
+    a[:, 96:104] = 0.0
+    return from_dense(a).transpose()
+
+
+def _view_dense64(view):
+    """The (dequantized) matrix of a blocked view in fp64, dense."""
+    dq = dequantized(view)
+    m, k = view.shape
+    v = view.vector_size
+    win = dq.block_win.long().repeat_interleave(view.k_blk)
+    rows = win[:, None] * v + torch.arange(v, device=win.device)
+    dense = torch.zeros((view.num_windows * v, k), dtype=torch.float64,
+                        device=win.device)
+    dense.index_put_((rows.reshape(-1),
+                      dq.cols.long()[:, None].expand(-1, v).reshape(-1)),
+                     dq.vals.double().reshape(-1), accumulate=True)
+    return dense[:m]
+
+
+def _straddle(rng):
+    """264 x 600 at V = 8, k_blk = 8: 31 windows of 20 K-blocks (one slice
+    each: lanes 0-30 of the first lane group), a window of 65 K-blocks
+    (three slices on lanes 31-33, so its runs straddle the first two lane
+    groups: a scan within the second, fp32 partials across them; not a hub
+    at 65 / 20 K-blocks) and an empty window; one nonzero a column of a
+    window."""
+    a = np.zeros((264, 600), np.float32)
+    for w, blocks in enumerate([20] * 31 + [65]):
+        cols = rng.choice(600, blocks * 8, replace=False)
+        a[8 * w + rng.integers(0, 8, cols.size), cols] = rng.standard_normal(
+            cols.size)
+    return from_dense(a)
+
+
+@pytest.mark.parametrize("matrix", ["hub_transpose", "straddle"])
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "int8", "int8_fp32_b"])
+def test_noncoalesced_splits_hub_windows_on_card(device, variant, matrix):
+    """Row 2 over its lane plan, at every precision, on a hub matrix's
+    transpose and on a matrix whose split window straddles two lane
+    groups: the rows of windows neither it nor the window SpMM splits
+    bitwise ``spmm_cuda``'s; the rows of split windows (slices summed by a
+    segmented scan over the lanes, runs across lane groups by fp32
+    partials) within the running-sum bound of fp64 (plus the rounding to
+    bf16), and those of the split windows that are not hubs at the kernel
+    tolerance of the plain version (one bf16 ulp for a bf16 output); the
+    empty window zero; a second launch the same bits."""
+    rng = np.random.default_rng(21)
+    bl = block_format((_hub_transpose if matrix == "hub_transpose"
+                       else _straddle)(rng), 8, device=device)
+    if matrix == "straddle":
+        assert lane_plan("test", bl.win_ptr, SPLIT_BLK).num_partials == 2
+    m, k = bl.shape
+    b = torch.from_numpy(rng.standard_normal((k, 96)).astype(np.float32)).to(
+        device)
+    if variant == "fp32":
+        view = bl
+    elif variant == "bf16":
+        view = with_values(bl, bl.vals.to(BF16))
+    else:
+        view = quantize_format(bl)
+    if variant in ("bf16", "int8"):
+        b = b.to(BF16)
+    out = spmm_noncoalesced_cuda(view, b)
+    assert out.dtype == b.dtype
+    assert torch.equal(out, spmm_noncoalesced_cuda(view, b))
+    per_win = torch.diff(bl.win_ptr.long())
+    unsplit = (per_win <= SPLIT_BLK).repeat_interleave(bl.vector_size)[:m]
+    assert bool((~unsplit).any())
+    assert torch.equal(out[unsplit], spmm_cuda(view, b)[unsplit])
+    a64 = _view_dense64(view)
+    exact = a64 @ b.double()
+    terms = (per_win * bl.k_blk).double().repeat_interleave(
+        bl.vector_size)[:m, None]
+    limit = ATOL + HUB_LAMBDA * terms.sqrt() * 2.0 ** -24 * (
+        a64.abs() @ b.double().abs())
+    if out.dtype == BF16:
+        limit = limit + 2.0 ** -8 * exact.abs()
+    assert bool(((out.double() - exact).abs() <= limit)[~unsplit].all())
+    hub = (per_win > HUB_OF_MEDIAN * per_win.median()).repeat_interleave(
+        bl.vector_size)[:m]
+    rows = ~unsplit & ~hub
+    if bool(rows.any()):  # none on the hub transpose: only hubs split
+        plain = spmm_noncoalesced_plain(view, b)
+        if out.dtype == BF16:
+            _one_ulp(out[rows], plain[rows])
+        else:
+            torch.testing.assert_close(out[rows], plain[rows], rtol=RTOL,
+                                       atol=ATOL)
+    empty = (per_win == 0).repeat_interleave(bl.vector_size)[:m]
+    assert bool(empty.any()) and not out[empty].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [33, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_staged_reads_back_its_copy_on_card(device, dtype, n):
+    """Row 5 on a hub matrix's transpose with an empty window: the staged
+    gather bitwise ``B[cols]`` (16-byte pieces at N = 96, elements at odd
+    N), the output bitwise ``spmm_cuda``'s (the same window kernel, plan
+    and order, reading the staged copy; bf16 one rounding of the same fp32
+    sum), the empty window's rows zero, a second launch the same bits, and
+    one launch of each kernel counted per call."""
+    rng = np.random.default_rng(23)
+    bl = block_format(_hub_transpose(rng), 8, device=device)
+    view = bl if dtype == torch.float32 else with_values(bl,
+                                                         bl.vals.to(BF16))
+    b = torch.from_numpy(rng.standard_normal((bl.shape[1], n)).astype(
+        np.float32)).to(device).to(dtype)
+    assert torch.equal(staged_gather(view, b), staged_gather_plain(view, b))
+    before = (spmm_staged_cuda.launches, staged_gather.launches)
+    out = spmm_staged_cuda(view, b)
+    assert (spmm_staged_cuda.launches, staged_gather.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype
+    assert torch.equal(out, spmm_staged_cuda(view, b))
+    assert torch.equal(out, spmm_cuda(view, b))
+    assert not out[96:104].any()
+    torch.cuda.synchronize()
+
+
 def _hub_fmt(rng):
     """200 x 1600 with two hub windows (rows 0-15 at density 0.4: about
     1,570 nonzero vectors each, 98 and 49 K-blocks at k_blk 16 and 32, so
@@ -1022,8 +1154,8 @@ def test_tuned_sweep_on_card_times_every_candidate_and_caches(device,
 
 
 def _refusals(dev):
-    """What the ten wrappers say, on ``dev``, to a column tile of 0, a
-    wrongly shaped operand, vector size 4 and another view's schedule
+    """What the ten wrappers say, on ``dev``, to a column tile of 0 (and
+    the staged SpMM to one of 1024, above its 512), a wrongly shaped operand, vector size 4 and another view's schedule
     (the all-empty view's among them): each call's message, or
     ``"ran"``."""
     rng = np.random.default_rng(0)
@@ -1045,6 +1177,7 @@ def _refusals(dev):
         lambda bl: spmm_balanced_cuda(bl, d(36, 16), n_blk=0),
         lambda bl: spmm_balanced_cuda(bl, d(35, 16)),
         lambda bl: spmm_staged_cuda(bl, d(36, 16), n_blk=0),
+        lambda bl: spmm_staged_cuda(bl, d(36, 16), n_blk=1024),
         lambda bl: spmm_staged_cuda(bl, d(35, 16)),
         lambda bl: spmm_noncoalesced_cuda(bl, d(35, 16)),
         lambda bl: sddmm_cuda(bl, d(40, 8), d(36, 7)),

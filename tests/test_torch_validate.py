@@ -137,10 +137,11 @@ def test_wrapper_refuses_on_cpu_with_the_card_message(name):
     call, tiled, wrong_shape, shape_msg = _WRAPPERS[name]
     blocked = _view()
     assert call(blocked) is not None              # accepted arguments run
-    if tiled:
-        with pytest.raises(ValueError, match=rf"^{name}: n_blk=0 must be a "
-                           r"multiple of 32 in \[32, \d+\]$"):
-            call(blocked, n_blk=0)
+    if tiled:  # the tiled kernels take 32 to at most 512 columns
+        for n_blk in (0, 1024):
+            with pytest.raises(ValueError, match=rf"^{name}: n_blk={n_blk} "
+                               r"must be a multiple of 32 in \[32, \d+\]$"):
+                call(blocked, n_blk=n_blk)
     with pytest.raises(ValueError, match=rf"^{name}: {shape_msg}"):
         wrong_shape(blocked)
     with pytest.raises(ValueError, match=rf"^{name}: vector_size 4 not in "
