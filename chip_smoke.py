@@ -187,6 +187,15 @@ a non-zero exit at the first phase that fails:
      ring all-gather matmul's rank-local steps at n = 2 and 4; the state
      resharded onto a second mesh and back, bitwise, and the per-rank
      resident parameter bytes at (8, 1), (4, 2) and (2, 4).
+  10. the dry-run and roofline tools (``repro_torch.testing.dryrun_card``;
+     no FlashSparse kernel, the counters stay at zero): qwen3-0.6b's
+     ``train_4k`` cell planned and accounted on ``pod16x16`` (a fake group
+     of 256 ranks, ``meta`` tensors), its dry-run and roofline rows at the
+     H100's datasheet constants; phase 8's bf16 step (28 layers, 8 x 4,096
+     tokens in 4 microbatches) on a one-rank mesh traced on ``meta`` and on
+     the card: the two flop counts equal, the predicted peak within 25% of
+     ``torch.cuda.max_memory_allocated`` over the step, the modeled step
+     time beside phase 8's measured one.
 
 It prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -1718,7 +1727,8 @@ def main() -> None:
     from repro_torch.models.layers import (sparse_attention,
                                            sparse_attention_staged)
     from repro_torch.sparse.graphs import make_dataset
-    from repro_torch.testing import lm_card, lm_shard_card, lm_train_card
+    from repro_torch.testing import (dryrun_card, lm_card, lm_shard_card,
+                                     lm_train_card)
     from repro_torch.train.sparse_attention_train import (
         TOLERANCES as ATTN_TOLERANCES, dense_mask, dense_masked_attention,
         initial_w, make_inputs, params_from_jax, train_value_projection,
@@ -3745,6 +3755,20 @@ def main() -> None:
     sharded_lm["card"] = card
     torch.cuda.empty_cache()
 
+    phase("10. the dry-run and roofline tools: qwen3-0.6b train_4k on "
+          "pod16x16 (fake group, meta), phase 8's step counted on meta and "
+          "on the card")
+    # The reference's XLA-compile accounting: no pallas_call, no kernel
+    # launch; the counters stay at zero.
+    reset_counts()
+    dryrun_result = dryrun_card.run(
+        DEVICE, log=print,
+        measured_step_ms=train_lm["bf16_train_4k"]["median_step_ms"])
+    stray = {name: n for name, n in counts().items() if n}
+    if stray:
+        raise SystemExit(f"FAIL: the dry-run phase launched {stray}")
+    dryrun_result["card"] = card
+
     v = blk.vector_size
     # Each distinct input read once (the main path passes Q and K as one
     # tensor, AGNN's q = k = ĥ, counted once), the output written once, and
@@ -4108,6 +4132,7 @@ def main() -> None:
                       "lm_serving": lm_result,
                       "lm_training": train_lm,
                       "lm_sharded": sharded_lm,
+                      "dryrun": dryrun_result,
                       "split_blk_sweep": sweep, "run_blk_sweep": run_sweep,
                       "card": card,
                       "seconds": round(time.time() - t_start, 1)}))

@@ -67,5 +67,5 @@ def cell_is_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
     """
     if shape.name == "long_500k" and not cfg.supports_long_context:
         return False, ("full quadratic attention at 524288 would be "
-                       "O(S^2); skipped (pure full-attention arch)")
+                       "O(S^2); skipped per brief (pure full-attention arch)")
     return True, ""

@@ -49,6 +49,8 @@ __all__ = [
     "block_format",
     "blocked_view",
     "window_skew",
+    "memory_footprint_me_bcrs",
+    "memory_footprint_sr_bcrs",
 ]
 
 
@@ -502,3 +504,28 @@ def build_schedule(blocked: BlockedMEBCRS, split_blk: int = 1,
     if level != "none":
         _validate.validate_schedule(sched, blocked, check=level)
     return sched.to(blocked.win_ptr.device)
+
+
+# ---------------------------------------------------------------------------
+# Memory footprint accounting (paper Table 7)
+# ---------------------------------------------------------------------------
+
+
+def memory_footprint_me_bcrs(fmt: MEBCRS, value_bytes: int = 2) -> int:
+    """Bytes of the padding-free ME-BCRS format (W row pointers)."""
+    w = fmt.num_windows
+    nnzv = fmt.nnzv
+    return 4 * w + 4 * nnzv + value_bytes * nnzv * fmt.vector_size
+
+
+def memory_footprint_sr_bcrs(fmt: MEBCRS, k: int = 8,
+                             value_bytes: int = 2) -> int:
+    """Bytes of the zero-padding SR-BCRS scheme [Li et al., SC'22].
+
+    Each window is padded to a multiple of ``k`` vectors and 2·W row
+    pointers are stored (start of window + start of padding), per §3.5.
+    """
+    counts = np.diff(fmt.row_pointers.cpu().numpy().astype(np.int64))
+    padded = int((-(-counts // k) * k).sum())
+    w = fmt.num_windows
+    return 4 * 2 * w + 4 * padded + value_bytes * padded * fmt.vector_size

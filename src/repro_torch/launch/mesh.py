@@ -1,18 +1,26 @@
 """Device meshes for the sharded sparse ops.
 
-Counterpart of ``repro.launch.mesh``'s ``mesh_from_arg`` and
-``make_host_mesh``.  A mesh is a
+Counterpart of ``repro.launch.mesh``.  A mesh is a
 :class:`torch.distributed.device_mesh.DeviceMesh` with the dims
 ``("data", "model")`` over the ranks of the default process group: NCCL
 on the card, gloo on the CPU.  Several ranks come from ``torchrun`` (or
 any ``init_process_group`` the caller makes); a one-rank mesh starts its
 own one-rank group from a ``FileStore`` in a temporary directory when
 none is running, so a single process needs no launcher.
+
+The production meshes (:func:`make_production_mesh`) are the reference's
+pods: ``(16, 16)`` over ``("data", "model")``, or ``(2, 16, 16)`` over
+``("pod", "data", "model")``, where the "pod" axis carries only batch.
+A *function*, so importing this module starts no process group.  The
+dry-run builds them over :func:`fake_group`, a process group of n ranks
+in one process that communicates nothing (the reference forces 512 host
+devices for the same purpose).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import shutil
 import tempfile
@@ -23,8 +31,8 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.core.format import resolve_device
 
-__all__ = ["AXES", "make_mesh", "make_host_mesh", "mesh_from_arg",
-           "one_rank_mesh"]
+__all__ = ["AXES", "make_mesh", "make_host_mesh", "make_production_mesh",
+           "fake_group", "mesh_from_arg", "one_rank_mesh"]
 
 AXES = ("data", "model")
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
@@ -98,6 +106,48 @@ def one_rank_mesh(device=None):
         if started:
             dist.destroy_process_group()
             shutil.rmtree(path, ignore_errors=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The single-pod ``(16, 16)`` ``("data", "model")`` mesh, or the
+    multi-pod ``(2, 16, 16)`` ``("pod", "data", "model")`` one, over the
+    ranks of the default process group (its device type is the group's:
+    the card under NCCL, the CPU otherwise)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < need:
+        raise RuntimeError(
+            f"mesh {shape} needs {need} ranks, the process group has "
+            f"{have} — run under launch/dryrun.py (which starts a fake "
+            "group of 512 ranks) or on that many cards")
+    device_type = "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+    return DeviceMesh(device_type,
+                      torch.arange(need).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A default process group of ``world_size`` ranks in this process,
+    this process rank 0, for the span of the context: torch's ``"fake"``
+    backend, whose collectives return at once and move nothing, so a
+    step traced on ``meta`` tensors over a mesh of its ranks shows one
+    rank's shapes and collectives.  Refuses to start while another
+    default group is live; destroys its own on exit."""
+    # torch's own testing backend: importing it registers "fake"
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is already running; "
+                           "the fake group needs none")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def mesh_from_arg(spec: str, *, device=None,

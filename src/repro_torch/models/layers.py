@@ -570,7 +570,7 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     rank too (:func:`moe_ffn_ep` with ``token_parallel=False``): every
     rank routes all the tokens, with the global capacity, through the
     experts it holds.  DTensor has no rule for the routing's
-    ``searchsorted`` / ``bincount``, and the reference's layout
+    ``searchsorted`` and expert counts, and the reference's layout
     constraints on the dispatch buffers have no buffers to place there.
     """
     mesh = current_mesh()
@@ -588,7 +588,7 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
 
     # load-balancing aux loss (Switch-style)
     me = probs.mean(dim=0)
-    ce = torch.bincount(eidx.reshape(-1), minlength=e).float() / (t * k)
+    ce = _expert_load(eidx, e) / (t * k)
     aux = e * torch.sum(me * ce)
 
     order, slot, keep, cap = moe_slots(eidx, cfg)
@@ -599,6 +599,15 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.moe_shared_experts:
         out = out + mlp(p["shared"], xt)
     return out.reshape(b, s, d), aux
+
+
+def _expert_load(eidx: torch.Tensor, e: int) -> torch.Tensor:
+    """How many routed pairs each of the ``e`` experts got (fp32): the
+    counts of ``bincount``, by a scatter-add, which also runs on the
+    ``meta`` device (the dry-run traces the MoE layers there)."""
+    flat = eidx.reshape(-1)
+    return torch.zeros(e, dtype=torch.long, device=flat.device).scatter_add_(
+        0, flat.long(), torch.ones_like(flat, dtype=torch.long)).float()
 
 
 def moe_ep_capacity(t_loc: int, cfg) -> int:
@@ -624,8 +633,7 @@ def moe_ffn_ep_local(p, xt: torch.Tensor, cfg, *, j0: int, cap_loc: int):
     e, k = cfg.moe_experts, cfg.moe_top_k
     probs, gates, eidx = moe_route(p, xt, cfg)
     me = probs.mean(dim=0)
-    ce = torch.bincount(eidx.reshape(-1), minlength=e).float() / (
-        xt.shape[0] * k)
+    ce = _expert_load(eidx, e) / (xt.shape[0] * k)
     order, slot, keep, _ = moe_slots(eidx, cfg, cap=cap_loc, j0=j0,
                                      e_loc=e_loc)
     y_tok = _expert_ffn(xt, order, slot, keep, cap_loc, e_loc, p["w_gate"],

@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.format import resolve_device
@@ -624,16 +625,17 @@ def _extract_gqa_cache(params, batch, cfg, capacity):
                          f"{capacity}")
     x = _embed_tokens(params, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    shape = (cfg.n_layers, b, capacity, cfg.n_kv_heads, cfg.head_dim)
-    kv = {"k": torch.zeros(shape, dtype=cfg.dtype, device=tokens.device),
-          "v": torch.zeros(shape, dtype=cfg.dtype, device=tokens.device)}
-    for i, lp in enumerate(params["layers"]):
+    ks, vs = [], []
+    for lp in params["layers"]:
         norm_x = rms_norm(x, lp["attn_norm"], cfg.rmsnorm_eps)
         _, k, v = gqa_project_qkv(lp["attn"], norm_x, cfg, positions)
         x, _ = _decoder_layer(lp, x, cfg)
-        kv["k"][i, :, :s] = k.to(cfg.dtype)
-        kv["v"][i, :, :s] = v.to(cfg.dtype)
-    return kv
+        ks.append(k.to(cfg.dtype))
+        vs.append(v.to(cfg.dtype))
+    # the slots past the prompt are zeros; stacked and padded rather than
+    # written into a zeroed buffer, which also runs on DTensors
+    pad = (0, 0, 0, 0, 0, capacity - s)
+    return {"k": F.pad(torch.stack(ks), pad), "v": F.pad(torch.stack(vs), pad)}
 
 
 # ------------------------------------------------------------------- loss --

@@ -11,8 +11,9 @@ hands to the JAX package) and returns tensors:
   ``reshard``           ``reshard_state`` onto the mesh: each rank's
                         local shards, and a round trip through a second
                         mesh;
-  ``lm_train``          sharded train steps and the local shard shape of
-                        every parameter the loss saw;
+  ``lm_train``          sharded train steps (gradient compression and
+                        microbatches as ``inp`` says) and the local
+                        shard shape of every parameter the loss saw;
   ``lm_8bit``           one sharded step with 8-bit moments;
   ``act_sp``            the ``act_sp`` forward and its layer layouts;
   ``lm_cli``            ``launch/train.py`` on the mesh with a checkpoint
@@ -134,14 +135,22 @@ def _reshard_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
 
 def _lm_train_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
     """Sharded steps from ``inp["state"]``, one a batch of
-    ``inp["batches"]``; the local shard shape of each parameter the loss
-    received against the spec's; the final state (whole, on the lead
-    rank)."""
+    ``inp["batches"]``, under the compression ``inp["compress"]`` (none
+    by default; the error buffers start at zero) in
+    ``inp["microbatches"]`` microbatches (1); the local shard shape
+    of each parameter the loss received against the spec's; the final
+    state (whole, on the lead rank)."""
     from repro_torch.train import train_step as T
+    from repro_torch.train.compression import CompressionConfig, init_error
 
     cfg = get_reduced(inp["arch"], **inp.get("overrides", {}))
-    ts = T.TrainStepConfig()
-    state = reshard_state(_state(inp, cfg), mesh)
+    ts = T.TrainStepConfig(
+        microbatches=inp.get("microbatches", 1),
+        compression=CompressionConfig(kind=inp.get("compress", "none")))
+    state = _state(inp, cfg)
+    if ts.compression.kind != "none":
+        state["err"] = init_error(state["params"])
+    state = reshard_state(state, mesh)
     specs = param_shardings(state["params"], mesh)
     want = {p: local_shape(t.shape, s, mesh) for (p, t), (_, s) in
             zip(leaf_paths(state["params"]), spec_paths(specs))}
@@ -217,15 +226,19 @@ def _act_sp_case(mesh: DeviceMesh, inp: dict) -> Dict[str, torch.Tensor]:
 
 
 def _lm_cli_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
-    """``launch/train.py`` on this mesh (flags from its shape)."""
+    """``launch/train.py`` on this mesh (flags from its shape; with
+    ``--compress inp["compress"]`` when given, and a checkpoint directory
+    when ``inp["dir"]`` is)."""
     from repro_torch.launch import train as launch_train
 
     d, m = mesh.shape
-    args = launch_train.parse_args(
-        ["--arch", inp["arch"], "--reduced", "--device", "cpu",
-         "--data-axis", str(d), "--model-axis", str(m),
-         "--steps", str(inp["steps"]), "--batch", "4", "--seq", "16",
-         "--checkpoint-dir", inp["dir"], "--checkpoint-every", "2"])
+    argv = ["--arch", inp["arch"], "--reduced", "--device", "cpu",
+            "--data-axis", str(d), "--model-axis", str(m),
+            "--steps", str(inp["steps"]), "--batch", "4", "--seq", "16",
+            "--compress", inp.get("compress", "none")]
+    if inp.get("dir"):
+        argv += ["--checkpoint-dir", inp["dir"], "--checkpoint-every", "2"]
+    args = launch_train.parse_args(argv)
     out = launch_train.run(args, mesh=mesh)
     return {"start": out["start_step"], "losses": out["losses"]}
 

@@ -25,8 +25,10 @@ mesh as the ambient one (``constrain`` lays out the activations) and
 under ``implicit_replication`` (the constants the model makes, rope
 tables and masks, meet DTensor operands as replicated); each gradient is
 reduced to its parameter's placements; AdamW updates the shards.  The
-batch is sharded by ``sharding.batch_pspec``.  Gradient compression is
-not ported to the sharded step and raises there.
+batch is sharded by ``sharding.batch_pspec``.  Gradient compression
+runs on the shards (``compression.roundtrip_sharded``), on a leaf made
+whole where an int8 block or top-k's ``k`` straddles ranks: the
+one-device step's result, to summation order.
 
 ``compressed_psum`` is an int8-compressed mean over a process group
 (all-gather the codes and scales, dequantize and average locally).
@@ -41,7 +43,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.format import resolve_device
 from repro_torch.core.quantize import quantize_blocked
@@ -51,7 +53,8 @@ from repro_torch.models.lm import (STACKED, init_lm, lm_loss, stack_layers,
                                    tensor_from_numpy)
 
 from .compression import (CompressionConfig, compress_int8, compress_topk,
-                          decompress_int8, decompress_topk, init_error)
+                          decompress_int8, decompress_topk, init_error,
+                          roundtrip_sharded)
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.pytree import leaves, tree_map, unflatten
 
@@ -109,11 +112,29 @@ def train_state_from_jax(cfg: ArchConfig, state: Dict, device=None) -> Dict:
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], n: int
                         ) -> Dict[str, torch.Tensor]:
+    """Each leaf (B, ...) as (n, B/n, ...).  A DTensor leaf split over
+    its batch dim is split rank by rank: microbatch i takes the i-th
+    slice of every rank's rows, so no row moves between ranks (a global
+    reshape would regroup the rows across them).  Every row is in one
+    microbatch as in the reference, and the step is its result to
+    summation order where the microbatches hold equal counts of unmasked
+    labels."""
+
     def resh(x):
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch {b} not divisible by microbatches {n}")
-        return x.reshape((n, b // n) + tuple(x.shape[1:]))
+        if not isinstance(x, DTensor):
+            return x.reshape((n, b // n) + tuple(x.shape[1:]))
+        loc = x.to_local()
+        if loc.shape[0] % n:
+            raise ValueError(f"a rank's {loc.shape[0]} rows not divisible "
+                             f"by microbatches {n}")
+        pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+              for p in x.placements]
+        return DTensor.from_local(
+            loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:])),
+            x.device_mesh, pl, run_check=False)
 
     return {k: resh(v) for k, v in batch.items()}
 
@@ -188,10 +209,9 @@ def apply_gradients(state: Dict, grads: Dict, ts: TrainStepConfig
     and the new error buffers."""
     new_err = None
     if ts.compression.kind != "none" and _state_mesh(grads) is not None:
-        raise NotImplementedError(
-            "gradient compression is not ported to the sharded train step; "
-            "run it with compression 'none' or on one device")
-    if ts.compression.kind == "int8":
+        grads, new_err = roundtrip_sharded(grads, state["err"],
+                                           ts.compression)
+    elif ts.compression.kind == "int8":
         comp, new_err = compress_int8(grads, state["err"], ts.compression)
         grads = decompress_int8(comp, grads)
     elif ts.compression.kind == "topk":

@@ -1502,3 +1502,17 @@ def test_moe_ep_rank_bodies_sum_to_the_dense_moe_on_card(device, model):
                                atol=1e-5 * float(want.abs().max()))
     assert float(cfg.moe_experts * torch.sum(me * ce)) == pytest.approx(
         float(aux), rel=1e-6)
+
+
+def test_dryrun_flop_count_on_card_equals_meta(device):
+    """The training phase's bf16 step at full width, 2 of 28 layers (8 x
+    4,096 tokens in 4 microbatches, a one-rank mesh), traced on ``meta``
+    and on the card's tensors: the same flops and bytes (exact), and the
+    predicted peak within the dry-run phase's gate of
+    ``max_memory_allocated``."""
+    from repro_torch.testing import dryrun_card
+
+    out = dryrun_card.count_twice(device, log=lambda *_: None, n_layers=2)
+    assert out["flops_meta"] == out["flops_card"] > 0
+    assert out["bytes_meta"] == out["bytes_card"]
+    assert out["peak_error"] <= dryrun_card.PEAK_GATE

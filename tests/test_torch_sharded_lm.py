@@ -15,7 +15,14 @@ forward and the trainer CLI with its resume onto another mesh.  Gates: routing (
 largest entry, the parameters within ``1e-5`` of the state's largest
 parameter entry (summation order differs between the sharded and the
 one-device runs, and between the frameworks; see the train-step test);
-resharded shards bitwise.
+resharded shards bitwise.  The compressed sharded steps are held
+against the port's one-device compressed steps (which
+``test_torch_lm_train.py`` holds to JAX): losses and parameters as
+above; top-k's moments and error buffers within ``1e-5`` of each leaf's
+largest entry (it selects the same entries); int8's error buffers and
+moments within one quantization step of the leaf's largest corrected
+gradient (an int8 code may round one step apart when the sums run in
+another order), for the moments weighted by what AdamW carries of it.
 """
 
 import os
@@ -48,6 +55,8 @@ MOE_MESHES = ((2, 2), (1, 4))
 CAPACITY = (4.0, 1.25)           # dropless, and with drops
 CM_MESHES = ((4, 1), (2, 2))
 STEPS, B, S = 3, 4, 16
+# compression -> microbatches (top-k's steps split each rank's rows)
+COMPRESS = {"int8": 1, "topk": 2}
 
 _CHILD = """
 import dataclasses, pickle, sys
@@ -268,6 +277,13 @@ def _run_ranks(jx, work):
     jobs.append(("act_sp", (2, 2), "act_sp",
                  {"arch": DENSE, "state": jx[f"state_{DENSE}"],
                   "batches": jx["batches"]}))
+    for kind in COMPRESS:
+        jobs.append((f"train_{kind}", (2, 2), "lm_train",
+                     {"arch": DENSE, "state": jx[f"state_{DENSE}"],
+                      "batches": jx["batches"], "compress": kind,
+                      "microbatches": COMPRESS[kind]}))
+    jobs.append(("cli_int8", (2, 2), "lm_cli",
+                 {"arch": DENSE, "steps": 2, "compress": "int8"}))
     jobs.append(("cli22", (2, 2), "lm_cli",
                  {"arch": DENSE, "steps": 4, "dir": ckpt}))
     jobs.append(("cli21", (2, 1), "lm_cli",
@@ -472,3 +488,73 @@ def test_constrain_is_the_identity_without_a_mesh():
     assert constrain(x, "act_batch", None) is x
     with activation_mesh(None):
         assert constrain(x, "act_batch") is x
+
+
+def _one_device_compressed(jx, kind):
+    """The port's one-device steps under ``kind`` compression from the
+    same state and batches; and, per leaf, one quantization step of its
+    largest corrected gradient over the steps (the int8 tolerance)."""
+    from repro_torch.train.compression import CompressionConfig, init_error
+    from repro_torch.train.train_step import accumulate_grads, \
+        apply_gradients
+
+    cfg = get_reduced(DENSE)
+    ts = TrainStepConfig(compression=CompressionConfig(kind=kind),
+                         microbatches=COMPRESS[kind])
+    state = train_state_from_jax(cfg, jx[f"state_{DENSE}"], device="cpu")
+    state["err"] = init_error(state["params"])
+    losses, steps = [], {}
+    for t in jx["batches"]:
+        loss, _, grads = accumulate_grads(cfg, ts, state["params"],
+                                          {"tokens": torch.from_numpy(t)})
+        for path, g in leaf_paths(grads):
+            e = dict(leaf_paths(state["err"]))[path]
+            steps[path] = max(steps.get(path, 0.0),
+                              float((g.float() + e).abs().max()) / 127.0)
+        state, _ = apply_gradients(state, grads, ts)
+        losses.append(float(loss))
+    return losses, dict(leaf_paths(state)), steps
+
+
+@pytest.mark.parametrize("kind", COMPRESS)
+def test_sharded_compressed_steps_match_one_device(jx, ranks, kind):
+    from repro_torch.train.optimizer import AdamWConfig
+
+    res = ranks[0][f"train_{kind}"]
+    losses, state, steps = _one_device_compressed(jx, kind)
+    _close(res["losses"], losses)
+    top = max(float(np.abs(v.numpy()).max()) for p, v in state.items()
+              if p.startswith("params"))
+    b1, b2 = AdamWConfig().b1, AdamWConfig().b2   # AdamW carries (1 - b)
+    checked = set()
+    for path, got in res["state"].items():
+        want = state[path]
+        if path.startswith("params"):
+            err = float((got - want).abs().max())
+            assert err <= TOL * top, (path, err / top)
+        elif kind == "topk" and path.startswith(("err/", "opt/m/",
+                                                 "opt/v/")):
+            _close(got, want)
+        elif path.startswith(("err/", "opt/m/", "opt/v/")):
+            group, leaf = (("err", path[4:]) if path.startswith("err/")
+                           else (path[:5], path[6:]))
+            q = 1.01 * steps[leaf]
+            tol = {"err": q, "opt/m": STEPS * (1 - b1) * q,
+                   "opt/v": STEPS * (1 - b2) * q * 255 * q}[group]
+            assert float((got - want).abs().max()) <= tol, path
+        else:
+            continue
+        checked.add(path.split("/")[0])
+    assert checked == {"params", "err", "opt"}
+    for r in range(4):
+        assert ranks[r][f"train_{kind}"]["losses"] == res["losses"]
+
+
+def test_cli_trains_sharded_with_int8_compression(ranks):
+    args = launch_train.parse_args(
+        ["--arch", DENSE, "--reduced", "--device", "cpu", "--steps", "2",
+         "--batch", "4", "--seq", "16", "--compress", "int8",
+         "--log-every", "100"])
+    plain = launch_train.run(args)["losses"]
+    for r in range(4):
+        _close(ranks[r]["cli_int8"]["losses"], plain)
