@@ -186,13 +186,20 @@ a non-zero exit at the first phase that fails:
      against the dense MoE, and the (2, 2) bodies against the CPU's; the
      ring all-gather matmul's rank-local steps at n = 2 and 4; the state
      resharded onto a second mesh and back, bitwise, and the per-rank
-     resident parameter bytes at (8, 1), (4, 2) and (2, 4).
+     resident parameter bytes at (8, 1), (4, 2) and (2, 4); the sharded
+     serving step: qwen3-0.6b bf16 at published width and depth, 8
+     ``lm_decode_step``s on DTensors (the cache laid out by
+     ``cache_shardings``) after a prefill against 8 plain ones, and the
+     vocab-parallel ``lm_loss`` against the plain one (within 1e-6,
+     bitwise expected).
   10. the dry-run and roofline tools (``repro_torch.testing.dryrun_card``;
      no FlashSparse kernel, the counters stay at zero): qwen3-0.6b's
      ``train_4k`` cell planned and accounted on ``pod16x16`` (a fake group
      of 256 ranks, ``meta`` tensors), its dry-run and roofline rows at the
      H100's datasheet constants; phase 8's bf16 step (28 layers, 8 x 4,096
-     tokens in 4 microbatches) on a one-rank mesh traced on ``meta`` and on
+     tokens in 4 microbatches) and qwen3-0.6b's decode step (bf16, full
+     depth, ``decode_32k``'s capacity of 32,768 with the batch cut to 4:
+     a 15.03 GB cache) on a one-rank mesh, each traced on ``meta`` and on
      the card: the two flop counts equal, the predicted peak within 25% of
      ``torch.cuda.max_memory_allocated`` over the step, the modeled step
      time beside phase 8's measured one.
@@ -3744,7 +3751,7 @@ def main() -> None:
 
     phase("9. the sharded LM: qwen3-0.6b's sharded step on a one-rank NCCL "
           "mesh, moonshot's expert-parallel MoE bodies, the ring matmul, "
-          "resharding")
+          "resharding, the sharded decode step and vocab-parallel loss")
     # Plain PyTorch and collectives (the reference's sharding layer is
     # jnp, shard_map and collectives): the counters stay at zero.
     reset_counts()
@@ -3756,8 +3763,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase("10. the dry-run and roofline tools: qwen3-0.6b train_4k on "
-          "pod16x16 (fake group, meta), phase 8's step counted on meta and "
-          "on the card")
+          "pod16x16 (fake group, meta), phase 8's step and a decode step "
+          "counted on meta and on the card")
     # The reference's XLA-compile accounting: no pallas_call, no kernel
     # launch; the counters stay at zero.
     reset_counts()

@@ -52,6 +52,7 @@ __all__ = [
     "axis_sizes",
     "placements",
     "local_shape",
+    "shard_range",
     "spec_paths",
 ]
 
@@ -360,6 +361,26 @@ def placements(spec: Spec, mesh) -> Tuple[Any, ...]:
         for i in idx:
             out[i] = Shard(d)
     return tuple(out)
+
+
+def shard_range(t, dim: int) -> Tuple[int, int, List[int]]:
+    """``(start, stop, mesh dims)`` of this rank's shard of dim ``dim``
+    of the DTensor ``t``: DTensor splits a dim over its mesh dims major
+    to minor, in even chunks (the rules split only dims they divide; an
+    uneven split raises)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    start, n, dims = 0, t.shape[dim], []
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            if n % mesh.size(i):
+                raise ValueError(f"dim {dim} of {t.shape[dim]} split "
+                                 f"unevenly over mesh dim {i}")
+            n //= mesh.size(i)
+            start += mesh.get_local_rank(i) * n
+            dims.append(i)
+    return start, start + n, dims
 
 
 def local_shape(shape: Sequence[int], spec: Spec, mesh: MeshLike

@@ -29,7 +29,13 @@ Deliberate differences from the reference:
     and the caching allocator's rounding is not modeled;
   * the steps are the port's: a train step updates its state in place
     (``alias_bytes``: the reference's donation), a decode step clones its
-    cache (the reference donates it).
+    cache (the reference donates it);
+  * what GSPMD partitions by itself the port's model does by hand on the
+    DTensors, so the trace counts those collectives: a decode cell
+    attends its cache where ``cache_shardings`` lays it (a split
+    sequence merged by all-reduces, ``models/layers.decode_merge``), and
+    a train cell's loss is the vocab-parallel cross entropy (no rank
+    holds more than its vocab shard of the logits or their gradient).
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -32,11 +33,13 @@ from repro_torch.core.format import BlockedMEBCRS
 from repro_torch.core.sddmm import with_values
 from repro_torch.core.softmax import sparse_softmax
 from repro_torch.distributed.ctx import current_mesh
+from repro_torch.distributed.sharding import shard_range
 from repro_torch.pytree import tree_map
 
 __all__ = [
     "rms_norm", "apply_rope", "full_attention", "chunked_attention",
-    "attention", "init_gqa", "gqa_project_qkv", "gqa_attn", "gqa_decode",
+    "attention", "decode_merge", "init_gqa", "gqa_project_qkv", "gqa_attn",
+    "gqa_decode",
     "init_mla", "mla_attn", "mla_decode", "init_mlp", "mlp", "init_moe",
     "moe_ffn", "moe_ffn_ep", "moe_ffn_ep_local", "moe_ep_capacity",
     "moe_route", "moe_slots", "split_heads", "sum_over",
@@ -237,9 +240,11 @@ def _attention_local(q, k, v, *, kv_len, **kw):
     flatten a sharded head dim inside the score product, which torch
     releases before 2.13 refuse.)  Where the kv-heads do not divide the
     "model" ranks but the query heads do, the kv-heads are repeated to
-    one a query head (the same products)."""
+    one a query head (the same products).  With ``kv_len`` (decode) the
+    keys are a cache laid out by ``cache_shardings``:
+    :func:`_attention_decode`."""
     if kv_len is not None:
-        raise NotImplementedError("decode attention takes no DTensor cache")
+        return _attention_decode(q, k, v, kv_len)
     mesh = q.device_mesh
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     b, _, hq, _ = q.shape
@@ -255,6 +260,88 @@ def _attention_local(q, k, v, *, kv_len, **kw):
     out = attention(*(t.redistribute(mesh, layout).to_local()
                       for t in (q, k, v)), **kw)
     return DTensor.from_local(out, mesh, layout, run_check=False)
+
+
+def _cache_layout(cache: DTensor, dims=(0, 1, 2)):
+    """The placements of a cache DTensor, checked: a mesh dim may split
+    only the tensor dims ``dims`` (batch, sequence, heads), and nothing
+    is partial.  Anything else raises: no layout is gathered here."""
+    pls = tuple(cache.placements)
+    for pl in pls:
+        if not (isinstance(pl, Replicate)
+                or (isinstance(pl, Shard) and pl.dim in dims)):
+            raise ValueError(f"a decode cache split as {pls}: the sharded "
+                             f"decode takes splits of dims {dims} only")
+    return pls
+
+
+def _rows_layout(pls) -> list:
+    """Only the batch split (dim 0) of a layout; replicated elsewhere."""
+    return [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in pls]
+
+
+def decode_merge(scores: torch.Tensor, values, groups) -> torch.Tensor:
+    """Softmax attention over a key dim split across ranks: the merge
+    GSPMD emits for a sequence-sharded decode.
+
+    ``scores``: fp32, keys last, the local keys' (masked: ``-1e30``);
+    ``values(p)``: the local product of probabilities ``p`` (the scores'
+    shape) with the local values.  Each rank takes its local max, then
+    the global one by an all-reduce MAX over ``groups`` (one process
+    group per mesh dim that splits the keys), its local sum of ``exp``
+    and the global sum by an all-reduce SUM, and its share of the output
+    ``values(exp(s - max) / sum)`` in fp32, summed by a last all-reduce.
+    With no group it is one rank's softmax.  The probabilities are
+    normalised before the product, as the one-device softmax's are (and
+    rounded where ``values`` rounds them)."""
+    m = scores.amax(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    e = torch.exp(scores - m)
+    den = e.sum(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(den, group=g)
+    out = values(e / den)
+    for g in groups:
+        dist.all_reduce(out, group=g)
+    return out
+
+
+def _attention_decode(q, k, v, kv_len):
+    """Decode attention over a DTensor cache ``k``, ``v`` (B, S, Hkv, D)
+    laid out by ``cache_shardings``, with ``kv_len`` (B,) valid keys a
+    row.  The cache is never moved: the query takes the cache's batch and
+    head splits (replicated over its sequence split), each rank scores
+    its local keys, masked by ``kv_len`` in global positions, and where
+    the sequence is split the ranks that hold it merge by
+    :func:`decode_merge`.  Where no mesh dim splits the sequence, each
+    rank runs the one-device code on its batch and head shard."""
+    mesh = k.device_mesh
+    pls = _cache_layout(k)
+    if tuple(v.placements) != pls:
+        raise ValueError(f"K cache split as {pls}, V as {v.placements}")
+    start, stop, seq = shard_range(k, 1)
+    q_pl = [Replicate() if i in seq else pl for i, pl in enumerate(pls)]
+    q_loc = q.redistribute(mesh, q_pl).to_local()
+    kv_loc = _as_local(kv_len, mesh, _rows_layout(pls))
+    k_loc, v_loc = k.to_local(), v.to_local()
+    b, sq, hq, d = q_loc.shape
+    hkv = k_loc.shape[2]
+    qg = q_loc.reshape(b, sq, hkv, hq // hkv, d)
+    if not seq:
+        out = full_attention(qg, k_loc, v_loc, causal=False, kv_len=kv_loc)
+    else:
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                              k_loc.float()) / math.sqrt(d)
+        kpos = torch.arange(start, stop, device=k_loc.device)
+        valid = kpos[None, :] < kv_loc[:, None]
+        scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
+        out = decode_merge(scores, lambda p: torch.einsum(
+            "bhgqk,bkhd->bqhgd", p.to(v_loc.dtype).float(), v_loc.float()),
+            [mesh.get_group(i) for i in seq]).to(v_loc.dtype)
+    return DTensor.from_local(out.reshape(b, sq, hq, -1), mesh, q_pl,
+                              run_check=False)
 
 
 # ------------------------------------------------------------------- init --
@@ -345,12 +432,27 @@ def _scatter_time(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
     ``pos``, in place; returns ``buf``.  A row whose ``pos`` is past the
     end is left as it was, as the reference's one-hot blend leaves it.
     For finite values this is the blend's result, without reading and
-    writing the whole buffer."""
-    n = buf.shape[1]
-    rows = torch.arange(buf.shape[0], device=buf.device)
-    at = pos.clamp(max=n - 1)
-    inside = (pos < n).reshape((-1,) + (1,) * (buf.dim() - 2))
-    buf[rows, at] = torch.where(inside, new[:, 0].to(buf.dtype), buf[rows, at])
+    writing the whole buffer.  On a DTensor ``buf`` (a cache laid out by
+    ``cache_shardings``) each rank writes, on its local tensor, the rows
+    whose ``pos`` falls in its sequence range, at ``pos - start``:
+    nothing of the cache moves between ranks."""
+    start, n = 0, buf.shape[1]
+    loc = buf
+    if isinstance(buf, DTensor):
+        mesh = buf.device_mesh
+        pls = _cache_layout(buf, dims=tuple(range(buf.dim())))
+        start, stop, seq = shard_range(buf, 1)
+        n = stop - start
+        new = _as_local(new, mesh, [Replicate() if i in seq else pl
+                                    for i, pl in enumerate(pls)])
+        pos = _as_local(pos, mesh, _rows_layout(pls))
+        loc = buf.to_local()
+    rows = torch.arange(loc.shape[0], device=loc.device)
+    at = (pos - start).clamp(0, n - 1)
+    inside = ((pos >= start) & (pos < start + n)).reshape(
+        (-1,) + (1,) * (loc.dim() - 2))
+    loc[rows, at] = torch.where(inside, new[:, 0].to(loc.dtype),
+                                loc[rows, at])
     return buf
 
 
@@ -429,19 +531,52 @@ def mla_decode(p, x, cache, pos, cfg) -> Tuple[torch.Tensor, Dict]:
 
     w_uk = p["w_uk"].reshape(cfg.kv_lora_rank, h, cfg.qk_nope_dim)
     q_lat = torch.einsum("bqhd,chd->bqhc", q_nope.float(), w_uk.float())
-    scores = (
-        torch.einsum("bqhc,btc->bhqt", q_lat, ckv.float())
-        + torch.einsum("bqhr,btr->bhqt", q_rope.float(), k_rope.float())
-    ) / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-    valid = (torch.arange(ckv.shape[1], device=x.device)[None, :]
-             < (pos + 1)[:, None])
-    scores = torch.where(valid[:, None, None, :], scores, -1e30)
-    pr = torch.softmax(scores, dim=-1)
-    out_lat = torch.einsum("bhqt,btc->bqhc", pr, ckv.float())
+    scale = math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if isinstance(ckv, DTensor):
+        out_lat = _mla_attend_sharded(q_lat, q_rope, ckv, k_rope, pos + 1,
+                                      scale)
+    else:
+        scores = (
+            torch.einsum("bqhc,btc->bhqt", q_lat, ckv.float())
+            + torch.einsum("bqhr,btr->bhqt", q_rope.float(), k_rope.float())
+        ) / scale
+        valid = (torch.arange(ckv.shape[1], device=x.device)[None, :]
+                 < (pos + 1)[:, None])
+        scores = torch.where(valid[:, None, None, :], scores, -1e30)
+        pr = torch.softmax(scores, dim=-1)
+        out_lat = torch.einsum("bhqt,btc->bqhc", pr, ckv.float())
     w_uv = p["w_uv"].reshape(cfg.kv_lora_rank, h, cfg.v_head_dim)
     out = torch.einsum("bqhc,chd->bqhd", out_lat, w_uv.float())
     y = out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
     return y, {"ckv": ckv, "k_rope": k_rope}
+
+
+def _mla_attend_sharded(q_lat, q_rope, ckv, k_rope, kv_len, scale):
+    """``mla_decode``'s latent attention over a DTensor cache (``ckv``
+    (B, S, C), ``k_rope`` (B, S, R), laid out by ``cache_shardings``):
+    the queries (B, 1, H, .) take the cache's batch split with every
+    head, each rank scores its sequence shard, masked by ``kv_len`` in
+    global positions, and the ranks that split the sequence merge by
+    :func:`decode_merge`.  Returns the latent output (B, 1, H, C), fp32,
+    laid out like the cache's batch."""
+    mesh = ckv.device_mesh
+    pls = _cache_layout(ckv, dims=(0, 1))
+    if tuple(k_rope.placements) != pls:
+        raise ValueError(f"ckv split as {pls}, k_rope as {k_rope.placements}")
+    start, stop, seq = shard_range(ckv, 1)
+    rows = _rows_layout(pls)
+    ql, qr = (_as_local(t, mesh, rows).float() for t in (q_lat, q_rope))
+    c_loc, r_loc = ckv.to_local().float(), k_rope.to_local().float()
+    kv_loc = _as_local(kv_len, mesh, rows)
+    scores = (torch.einsum("bqhc,btc->bhqt", ql, c_loc)
+              + torch.einsum("bqhr,btr->bhqt", qr, r_loc)) / scale
+    valid = torch.arange(start, stop, device=c_loc.device)[None, :] \
+        < kv_loc[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    out = decode_merge(scores, lambda p: torch.einsum("bhqt,btc->bqhc", p,
+                                                      c_loc),
+                       [mesh.get_group(i) for i in seq])
+    return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
 # -------------------------------------------------------------- MLP / MoE --
@@ -698,10 +833,10 @@ def _placed(mesh, **by_axis):
     return [by_axis.get(a, Replicate()) for a in mesh.mesh_dim_names]
 
 
-def _as_local(t, mesh, layout, grad):
+def _as_local(t, mesh, layout, grad=None):
     """``t``'s local tensor after a redistribution to ``layout``, whose
     gradient goes back as ``grad`` placements (a plain ``t`` is taken as
-    replicated)."""
+    replicated: every rank holds the same values)."""
     if not isinstance(t, DTensor):
         t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
@@ -872,11 +1007,14 @@ def _mamba_split(zxbcdt, d_inner: int, gn: int):
             zxbcdt[..., 2 * d_inner + 2 * gn:])
 
 
-def _batch_local(fn, p, x):
+def _batch_local(fn, p, x, state=None):
     """``fn(p, x)`` rank by rank on DTensors, data-parallel: each rank
     takes its batch shard ("data") and the weights whole (gathered; their
     gradients are partial over the batch shards), and the "model" ranks
-    compute the same output."""
+    compute the same output.  With ``state`` (a dict of DTensors with a
+    leading batch dim: a decode cache's layer) it is ``fn(p, x, state)``
+    on the state's rows, whole in every other dim, and returns ``(y,
+    new state)`` laid out the same way."""
     mesh = x.device_mesh
     n_data = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("data", 1)
     tok = Shard(0) if x.shape[0] % n_data == 0 else Replicate()
@@ -886,8 +1024,14 @@ def _batch_local(fn, p, x):
     p_loc = tree_map(lambda w: w.redistribute(mesh, whole_w).to_local(
         grad_placements=grad_w), p)
     layout = _placed(mesh, data=tok)
-    y = fn(p_loc, x.redistribute(mesh, layout).to_local())
-    return DTensor.from_local(y, mesh, layout, run_check=False)
+    x_loc = x.redistribute(mesh, layout).to_local()
+    if state is None:
+        return DTensor.from_local(fn(p_loc, x_loc), mesh, layout,
+                                  run_check=False)
+    y, new = fn(p_loc, x_loc, {k: _as_local(t, mesh, layout)
+                               for k, t in state.items()})
+    return tree_map(lambda t: DTensor.from_local(t, mesh, layout,
+                                                 run_check=False), (y, new))
 
 
 def mamba2_block(p, x, cfg, *, chunk: int = 128) -> torch.Tensor:
@@ -934,8 +1078,13 @@ def mamba2_decode(p, x, cache, cfg) -> Tuple[torch.Tensor, Dict]:
     """Single-token recurrent step.
 
     cache: {"conv": (B, W-1, conv_dim), "ssm": (B, H, P, N)}; returns
-    (y, the new conv window and state).
+    (y, the new conv window and state).  On DTensors it runs
+    data-parallel (:func:`_batch_local`, as :func:`mamba2_block`): each
+    rank steps its rows' states, whole in their heads and channels.
     """
+    if isinstance(x, DTensor):
+        return _batch_local(
+            lambda p_, x_, c_: mamba2_decode(p_, x_, c_, cfg), p, x, cache)
     b, s, d = x.shape  # s == 1
     d_inner = cfg.ssm_expand * d
     g, n = cfg.ssm_ngroups, cfg.ssm_state

@@ -41,6 +41,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.format import resolve_device
 from repro_torch.distributed.ctx import constrain
+from repro_torch.distributed.sharding import shard_range
 from repro_torch.pytree import tree_map
 
 from .config import ArchConfig
@@ -182,6 +183,15 @@ def _unbind(tree) -> List:
         parts = {k: _unbind(v) for k, v in tree.items()}
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, DTensor) and any(
+            isinstance(pl, Shard) and pl.dim == 0 for pl in tree.placements):
+        # a layer dim split over a mesh dim (the rules give a stacked
+        # leaf the "expert" axis where its rank reads as an expert
+        # weight's): gathered over that mesh dim, then unbound; the
+        # gradient goes back to the split by the redistribution
+        tree = tree.redistribute(tree.device_mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim == 0 else pl
+            for pl in tree.placements])
     return list(torch.unbind(tree))
 
 
@@ -501,13 +511,13 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int, device=None
 # ------------------------------------------------------------ decode step --
 
 
-def _store(stacked: Dict, i: int, new: Dict) -> None:
-    """Write layer ``i``'s new cache entries into the stacked buffers
-    (the attention decodes wrote theirs in place already)."""
+def _store(stacked: Dict, i: int, new: Dict, view: Dict) -> None:
+    """Write layer ``i``'s new cache entries into the stacked buffers;
+    an entry that is the layer's ``view`` itself was written in place
+    (the attention decodes' ``_scatter_time``) and is left alone."""
     for key, val in new.items():
-        dst = stacked[key][i]
-        if val.data_ptr() != dst.data_ptr():
-            dst.copy_(val)
+        if val is not view[key]:
+            stacked[key][i].copy_(val)
 
 
 def _layer_view(stacked: Dict, i: int) -> Dict:
@@ -526,12 +536,14 @@ def lm_decode_step(params, tokens, cache: Dict, cfg: ArchConfig
 
     if cfg.family in ATTN_FAMILIES:
         for i, lp in enumerate(params["layers"]):
-            x, lc = _layer_decode_attn(lp, x, _layer_view(layers, i), pos, cfg)
-            _store(layers, i, lc)
+            view = _layer_view(layers, i)
+            x, lc = _layer_decode_attn(lp, x, view, pos, cfg)
+            _store(layers, i, lc, view)
     elif cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
-            x, lc = _layer_decode_mamba(lp, x, _layer_view(layers, i), cfg)
-            _store(layers, i, lc)
+            view = _layer_view(layers, i)
+            x, lc = _layer_decode_mamba(lp, x, view, cfg)
+            _store(layers, i, lc, view)
     elif cfg.family == "hybrid":
         shared = cache.get("shared_attn")
         if shared is not None:
@@ -540,19 +552,21 @@ def lm_decode_step(params, tokens, cache: Dict, cfg: ArchConfig
         period = cfg.attn_every or (cfg.n_layers + 1)
         inv = 0
         for i, lp in enumerate(params["layers"]):
-            x, lc = _layer_decode_mamba(lp, x, _layer_view(layers, i), cfg)
-            _store(layers, i, lc)
+            view = _layer_view(layers, i)
+            x, lc = _layer_decode_mamba(lp, x, view, cfg)
+            _store(layers, i, lc, view)
             if (i + 1) % period == 0 and shared is not None:
-                x, sc = _layer_decode_attn(params["shared_block"], x,
-                                           _layer_view(shared, inv), pos, cfg)
-                _store(shared, inv, sc)
+                view = _layer_view(shared, inv)
+                x, sc = _layer_decode_attn(params["shared_block"], x, view,
+                                           pos, cfg)
+                _store(shared, inv, sc, view)
                 inv += 1
     elif cfg.family in ENCDEC_FAMILIES:
         memory = cache["memory"]
         for i, lp in enumerate(params["layers"]):
-            x, lc = _layer_decode_encdec(lp, x, _layer_view(layers, i), pos,
-                                         memory, cfg)
-            _store(layers, i, lc)
+            view = _layer_view(layers, i)
+            x, lc = _layer_decode_encdec(lp, x, view, pos, memory, cfg)
+            _store(layers, i, lc, view)
     else:
         raise ValueError(cfg.family)
     new["pos"] = pos + 1
@@ -647,20 +661,100 @@ def lm_loss(params, batch: Dict, cfg: ArchConfig, aux_weight: float = 0.01
     shifted by one, and a negative label is masked out.
 
     CE is ``logsumexp(logits) - logits[target]`` in fp32, so no second
-    (B, S, V) log-softmax buffer is kept.  ``params`` may hold its layers
-    stacked (the training state's layout) or as lists.  Returns
-    ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``.
+    (B, S, V) log-softmax buffer is kept.  On DTensor logits (a mesh) it
+    is the vocab-parallel cross entropy (:func:`_vocab_parallel_ce`): no
+    rank holds more than its own shard of the logits or of their
+    gradient.  ``params`` may hold its layers stacked (the training
+    state's layout) or as lists.  Returns ``(ce + aux_weight * aux,
+    {"ce": ce, "aux": aux})``.
     """
     logits, aux = lm_forward(unstack_layers(params), batch, cfg)
+    if isinstance(logits, DTensor):
+        loss = _vocab_parallel_ce(logits, batch["tokens"])
+        return loss + aux_weight * aux, {"ce": loss, "aux": aux}
     targets = batch["tokens"][:, 1:].long()
     logits = logits[:, :-1].float()
     lse = torch.logsumexp(logits, dim=-1)                        # (B, S-1)
-    # The gather over a vocab-sharded DTensor leaves a masked partial
-    # that torch reduces only at the gather's own (B, S-1, 1) shape:
-    # reduce it there (a no-op without a mesh).
-    picked = constrain(torch.gather(logits, -1,
-                                    targets.clamp(min=0)[..., None]),
-                       "act_batch")[..., 0]
+    picked = torch.gather(logits, -1, targets.clamp(min=0)[..., None])[..., 0]
     mask = (targets >= 0).to(f32)
     loss = ((lse - picked) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def _vocab_parallel_ce(logits: DTensor, tokens) -> DTensor:
+    """The masked mean cross entropy of DTensor logits (B, S, V), rank by
+    rank on the local shard (B_loc, S, V_loc): the logsumexp and the
+    target's logit come from two all-reduces over the mesh dims that
+    split the vocab (:class:`_VocabParallelNLL`), the sums over the
+    batch shards from one more.  The logits' layout is taken as it comes
+    (``_logits`` lays it out): a mesh dim may split the batch (dim 0) or
+    the vocab (dim 2); any other split raises.  Returns the loss as a
+    replicated 0-d DTensor."""
+    mesh = logits.device_mesh
+    pls = tuple(logits.placements)
+    for pl in pls:
+        if not (isinstance(pl, Replicate)
+                or (isinstance(pl, Shard) and pl.dim in (0, 2))):
+            raise ValueError(f"vocab-parallel cross entropy takes logits "
+                             f"split on batch or vocab, got {pls}")
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in pls]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    targets = tokens.redistribute(mesh, rows).to_local()[:, 1:].long()
+    local = logits.to_local(grad_placements=pls)[:, :-1].float()
+    v0 = shard_range(logits, 2)[0]
+    vocab = [mesh.get_group(i) for i, pl in enumerate(pls)
+             if isinstance(pl, Shard) and pl.dim == 2]
+    nll = _VocabParallelNLL.apply(local, targets, v0, vocab)    # (B_loc, S-1)
+    mask = (targets >= 0).to(f32)
+    sums = torch.stack([(nll * mask).sum(), mask.sum()])
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            sums = sum_over(sums, mesh.get_group(i))
+    loss = sums[0] / torch.clamp(sums[1], min=1.0)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-position ``logsumexp(logits) - logits[target]`` of the local
+    vocab shard ``lg`` (B, T, V_loc) whose columns start at ``v0``; the
+    statistics meet over ``groups`` (the vocab's mesh dims): the max by
+    an all-reduce MAX, the sum of ``exp`` and the picked logit (0 on
+    every rank but the target's) by all-reduce SUMs.  A target outside
+    every rank's range (a masked label) picks 0.  The backward is
+    ``g * softmax - g * onehot`` on the local shard, no collective: the
+    all-reduced statistics are constants of each rank's own columns.
+    The arithmetic is ``torch.logsumexp``'s and the gather's, so one rank
+    gives the one-device loss and gradient bit for bit."""
+
+    @staticmethod
+    def forward(ctx, lg, targets, v0, groups):
+        import torch.distributed as dist
+
+        n = lg.shape[-1]
+        m = lg.amax(dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        se = torch.exp(lg - m).sum(dim=-1)
+        for g in groups:
+            dist.all_reduce(se, group=g)
+        lse = torch.log(se) + m[..., 0]
+        held = (targets >= v0) & (targets < v0 + n)
+        idx = (targets - v0).clamp(0, n - 1)
+        picked = torch.where(held, torch.gather(lg, -1, idx[..., None])[..., 0],
+                             0.0)
+        for g in groups:
+            dist.all_reduce(picked, group=g)
+        ctx.save_for_backward(lg, lse, idx, held)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, idx, held = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(lg - lse[..., None])
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(held, -g, 0.0)[..., None])
+        return grad, None, None, None

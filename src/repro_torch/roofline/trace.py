@@ -32,6 +32,9 @@ What is read, per rank:
                   ``argument + output - alias + temp`` is the rank's peak.
                   Live bytes are tracked per storage object: every
                   ``meta`` storage has ``data_ptr`` 0.
+  largest         the bytes of the largest storage the step allocated
+  collective      the shapes of each collective's results, in the order
+  shapes          of ``collectives``
 """
 
 from __future__ import annotations
@@ -118,6 +121,9 @@ class StepTrace:
     memory: Dict[str, int]
     ops: Dict[str, int]          # local aten op -> calls
     seconds: float
+    largest: int = 0             # bytes of the largest storage allocated
+    collective_shapes: List[List[Tuple[int, ...]]] = dataclasses.field(
+        default_factory=list)
 
     def dump(self) -> str:
         """The trace as text, ops by count then collectives: what the
@@ -138,6 +144,8 @@ class _Counter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives: List[Tuple[str, float, int]] = []
+        self.collective_shapes: List[List[Tuple[int, ...]]] = []
+        self.largest = 0
         self.ops: Dict[str, int] = {}
         self.live = 0
         self.peak = 0
@@ -158,6 +166,7 @@ class _Counter(TorchDispatchMode):
                 continue
             self._known[st] = True
             n = st.nbytes()
+            self.largest = max(self.largest, n)
             self.live += n
             self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._free, n)
@@ -182,6 +191,7 @@ class _Counter(TorchDispatchMode):
                 self.collectives.append(
                     (kind, float(sum(_nbytes(t) for t in outs)),
                      _group_size(args, kwargs)))
+                self.collective_shapes.append([tuple(t.shape) for t in outs])
             self._allocated(outs, ins)
             return out
         self.ops[str(func)] = self.ops.get(str(func), 0) + 1
@@ -220,4 +230,5 @@ def trace_step(fn: Callable, *args) -> Tuple[StepTrace, Any]:
         "alias_bytes": alias,
     }
     return StepTrace(float(counter.flops), float(counter.bytes),
-                     counter.collectives, memory, counter.ops, seconds), result
+                     counter.collectives, memory, counter.ops, seconds,
+                     counter.largest, counter.collective_shapes), result

@@ -18,7 +18,15 @@ on the first failed check and otherwise returns what it measured:
       in place) is held within ``PEAK_GATE`` of
       ``torch.cuda.max_memory_allocated`` over the card's step (the bytes
       live before the state was made subtracted); the modeled step time
-      at ``HW_H100`` is printed beside the training phase's measured one.
+      at ``HW_H100`` is printed beside the training phase's measured one;
+  (c) qwen3-0.6b's serving step at its published width and depth (bf16,
+      ``decode_32k``'s capacity of 32,768 with its batch cut from 128 to
+      ``DECODE["batch"]`` = 4, so the cache holds 15.03 GB), laid out as
+      ``plan_cell`` lays the cell out (the serving rules, the cache by
+      ``cache_shardings``) on a one-rank mesh and traced twice as (b):
+      flops equal, the predicted peak (the step's clone of the cache
+      included) within ``PEAK_GATE`` of ``max_memory_allocated``; the
+      modeled step beside the card's.
 
 Run it alone on a card with ``python -m repro_torch.testing.dryrun_card``.
 """
@@ -36,11 +44,16 @@ from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.data.synthetic import SyntheticLMData, input_specs
-from repro_torch.distributed.elastic import reshard_state
-from repro_torch.distributed.sharding import batch_pspec, placements
-from repro_torch.launch.cells import _meta_train_state, account_cell
+from repro_torch.distributed.elastic import reshard_state, reshard_tree
+from repro_torch.distributed.sharding import (batch_pspec, cache_shardings,
+                                              param_shardings, placements,
+                                              serving_rules)
+from repro_torch.launch.cells import _meta_train_state, _under, account_cell
 from repro_torch.launch.mesh import (AXES, fake_group, make_production_mesh,
                                      one_rank_mesh)
+from repro_torch.models.lm import (abstract_lm, init_cache, init_lm,
+                                   lm_decode_step, stack_layers,
+                                   unstack_layers)
 from repro_torch.roofline.analysis import HW_H100, analyze_trace
 from repro_torch.roofline.report import dryrun_table, roofline_table
 from repro_torch.roofline.trace import trace_step
@@ -49,12 +62,14 @@ from repro_torch.train.train_step import (TrainStepConfig, init_train_state,
                                           make_train_step)
 
 __all__ = ["LMCheckFailed", "run", "plan_and_account", "count_twice",
-           "PEAK_GATE"]
+           "count_decode", "PEAK_GATE"]
 
 ARCH = "qwen3-0.6b"
 # (b): the training phase's bf16 step (lm_train_card.BF16)
 STEP = dict(batch=8, microbatches=4)
 PEAK_GATE = 0.25       # predicted peak within 25% of the measured one
+# (c): decode_32k's capacity, its batch of 128 cut to 4 (cache 15.03 GB)
+DECODE = dict(batch=4, capacity=SHAPES["decode_32k"].seq_len, pos=32000)
 
 
 def plan_and_account(log: Callable = print) -> Dict:
@@ -164,6 +179,99 @@ def count_twice(device="cuda", log: Callable = print,
     return out
 
 
+def _decode_inputs(cfg, mesh, device):
+    """(c)'s inputs on ``device`` ("meta": shapes only), laid out as
+    ``plan_cell`` lays a decode cell out."""
+    b = DECODE["batch"]
+    if torch.device(device).type == "meta":
+        params = abstract_lm(cfg)
+    else:
+        params = stack_layers(init_lm(
+            cfg, torch.Generator(device).manual_seed(0), device))
+    cache = init_cache(cfg, b, DECODE["capacity"], device)
+    tokens = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    if torch.device(device).type != "meta":
+        cache["pos"].fill_(DECODE["pos"])
+    p_sh = param_shardings(params, mesh, serving_rules())
+    c_sh = cache_shardings(cache, mesh, batch=b)
+    return (reshard_tree(params, p_sh, mesh), _place(tokens, mesh),
+            reshard_tree(cache, c_sh, mesh))
+
+
+def _serve_step(cfg):
+    def step(params, tokens, cache):
+        return lm_decode_step(unstack_layers(params), tokens, cache, cfg)
+
+    return step
+
+
+def count_decode(device="cuda", log: Callable = print) -> Dict:
+    """(c)."""
+    cfg = get_config(ARCH)
+    with fake_group(1):
+        mesh = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=AXES)
+        args = _decode_inputs(cfg, mesh, "meta")
+        with _under(mesh):
+            meta, _ = trace_step(_serve_step(cfg), *args)
+        del args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    with one_rank_mesh(device) as mesh:
+        args = _decode_inputs(cfg, mesh, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _under(mesh):
+            card, (logits, _) = trace_step(_serve_step(cfg), *args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        measured = torch.cuda.max_memory_allocated() - live
+        finite = bool(torch.isfinite(logits.to_local()[..., :cfg.vocab])
+                      .all())
+        cache_bytes = sum(t.to_local().numel() * t.element_size()
+                          for t in args[2]["layers"].values())
+        del args, logits
+    torch.cuda.empty_cache()
+    report = analyze_trace(meta, arch=ARCH, shape="decode_32k",
+                           mesh_name="one-rank", chips=1, mflops=0.0)
+    predicted = report.peak_mem_bytes
+    share = abs(predicted - measured) / measured
+    out = {"batch": DECODE["batch"], "capacity": DECODE["capacity"],
+           "cache_bytes": cache_bytes, "flops_meta": meta.flops,
+           "flops_card": card.flops, "bytes_meta": meta.bytes_accessed,
+           "bytes_card": card.bytes_accessed, "memory_meta": meta.memory,
+           "memory_card": card.memory, "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": measured, "peak_error": share,
+           "modeled_step_s": report.step_time_s,
+           "modeled_terms_s": {"compute": report.compute_s,
+                               "memory": report.memory_s,
+                               "collective": report.collective_s},
+           "card_traced_step_s": wall, "meta_trace_s": meta.seconds,
+           "logits_finite": finite}
+    log(f"  decode step, {cfg.n_layers} layers, B = {DECODE['batch']} (cut "
+        f"from 128), capacity {DECODE['capacity']:,} (cache "
+        f"{cache_bytes / 1e9:.2f} GB): flops on meta {meta.flops:.6e}, on "
+        f"the card {card.flops:.6e}; bytes accessed "
+        f"{meta.bytes_accessed:.6e} / {card.bytes_accessed:.6e}")
+    log(f"  peak memory predicted {predicted / 2**30:.3f} GiB, measured "
+        f"(max_memory_allocated) {measured / 2**30:.3f} GiB: {share:.1%} "
+        f"apart (gate {PEAK_GATE:.0%})")
+    log(f"  modeled step {report.step_time_s * 1e3:.3f} ms at {HW_H100.name} "
+        f"({report.bottleneck}-bound); the traced step on the card took "
+        f"{wall * 1e3:.1f} ms (the trace's per-op overhead included)")
+    if meta.flops != card.flops:
+        _fail(f"decode flops on meta {meta.flops} != on the card "
+              f"{card.flops}")
+    if not finite:
+        _fail("the counted decode step's logits are not finite")
+    if share > PEAK_GATE:
+        _fail(f"decode: predicted peak {predicted} is {share:.1%} off the "
+              f"measured {measured} (gate {PEAK_GATE:.0%})")
+    return out
+
+
 def run(device="cuda", log: Callable = print,
         measured_step_ms: Optional[float] = None) -> Dict:
     """Both parts; ``measured_step_ms`` is the training phase's median
@@ -180,6 +288,9 @@ def run(device="cuda", log: Callable = print,
         "card")
     result["count"] = count_twice(device, log,
                                   measured_step_ms=measured_step_ms)
+    log("  (c) qwen3-0.6b's decode step (decode_32k's capacity, B = 4), "
+        "counted on meta and on the card")
+    result["decode"] = count_decode(device, log)
     result["seconds"] = time.perf_counter() - t0
     log(f"  the dry-run phase took {result['seconds']:.1f} s")
     return result

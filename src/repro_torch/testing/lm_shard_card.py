@@ -26,7 +26,17 @@ on the first failed check and otherwise returns what it measured:
   (d) (a)'s sharded state resharded onto a second one-rank mesh and
       back, bitwise; the per-rank resident parameter bytes of qwen3-0.6b
       and moonshot at (data, model) = (8, 1), (4, 2) and (2, 4), from
-      ``param_shardings`` on meta shapes (nothing allocated).
+      ``param_shardings`` on meta shapes (nothing allocated);
+  (e) the sharded serving step: qwen3-0.6b at its published width and
+      depth, bf16, seed 0, a prefill of B = 4 prompts of 128 tokens at
+      capacity 256, then 8 ``lm_decode_step``s on the one-rank mesh (the
+      weights laid out by the serving rules, the cache by
+      ``cache_shardings``) against 8 plain steps: each step's logits
+      within ``1e-6`` of the largest logit (bitwise expected: at one
+      rank the cache's sequence is whole and each rank runs the
+      one-device attention), each step's time both ways; and the
+      vocab-parallel ``lm_loss`` of the same weights on 2 x 512 tokens
+      against the plain one, within ``1e-6`` (bitwise expected).
 
 Run it alone on a card with ``python -m repro_torch.testing.lm_shard_card``.
 """
@@ -42,21 +52,26 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import get_config
-from repro_torch.distributed.elastic import reshard_state, whole
+from repro_torch.distributed.ctx import activation_mesh
+from repro_torch.distributed.elastic import reshard_state, reshard_tree, whole
 from repro_torch.distributed.overlap import ring_matmul_step
-from repro_torch.distributed.sharding import (batch_pspec, local_shape,
-                                              param_shardings, placements,
+from repro_torch.distributed.sharding import (batch_pspec, cache_shardings,
+                                              local_shape, param_shardings,
+                                              placements, serving_rules,
                                               spec_paths)
 from repro_torch.launch.mesh import AXES, one_rank_mesh
 from repro_torch.models.layers import (init_moe, mlp, moe_ep_capacity,
                                        moe_ffn, moe_ffn_ep_local)
-from repro_torch.models.lm import abstract_lm
+from repro_torch.models.lm import (abstract_lm, init_lm, lm_decode_step,
+                                   lm_loss, lm_prefill, stack_layers,
+                                   unstack_layers)
 from repro_torch.pytree import leaf_paths, tree_map
 from repro_torch.testing.lm_card import LMCheckFailed, _fail
-from repro_torch.train.train_step import (TrainStepConfig, init_train_state,
-                                          make_train_step)
+from repro_torch.train.train_step import (TrainStepConfig, _sharded,
+                                          init_train_state, make_train_step)
 
 __all__ = ["LMCheckFailed", "run"]
 
@@ -69,6 +84,9 @@ MATMUL = (4096, 1024, 3072)
 MATMUL_RANKS = (2, 4)
 MATMUL_TOL = 1e-4
 RESIDENT_MESHES = ((8, 1), (4, 2), (2, 4))
+DECODE = dict(batch=4, prompt=128, capacity=256, steps=8)
+LOSS_TOKENS = (2, 512)
+DECODE_TOL = 1e-6             # of the largest logit, and of the loss
 
 
 def _events_ms(fn) -> tuple:
@@ -270,6 +288,72 @@ def check_reshard(state, mesh, log) -> Dict:
     return {"roundtrip_bitwise": same, "resident_bytes": table}
 
 
+def check_sharded_decode(device, mesh, log) -> Dict:
+    """(e)."""
+    cfg = get_config("qwen3-0.6b")
+    b, t = DECODE["batch"], DECODE["prompt"]
+    params = init_lm(cfg, torch.Generator(device).manual_seed(0), device)
+    rng = np.random.default_rng(0)
+
+    def tokens(shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, shape)
+                                .astype(np.int32)).to(device)
+
+    prompt = tokens((b, t))
+    steps = [tokens((b, 1)) for _ in range(DECODE["steps"])]
+    stacked = stack_layers(params)
+    pd = unstack_layers(reshard_tree(
+        stacked, param_shardings(stacked, mesh, serving_rules()), mesh))
+    out = {"plain_ms": [], "sharded_ms": [], "rel_err": [], "bitwise": True}
+    with torch.no_grad():
+        _, cache = lm_prefill(params, {"tokens": prompt}, cfg,
+                              DECODE["capacity"])
+        cd = reshard_tree(cache, cache_shardings(cache, mesh, batch=b), mesh)
+        out["cache_layout"] = str(cd["layers"]["k"].placements)
+        tok_pl = placements(batch_pspec(mesh), mesh)
+        for tok in steps:
+            (lg, cache), ms = _events_ms(
+                lambda: lm_decode_step(params, tok, cache, cfg))
+            out["plain_ms"].append(ms)
+            tok_d = distribute_tensor(tok, mesh, tok_pl, src_data_rank=None)
+            with activation_mesh(mesh), implicit_replication():
+                (lg_d, cd), ms = _events_ms(
+                    lambda: lm_decode_step(pd, tok_d, cd, cfg))
+            out["sharded_ms"].append(ms)
+            got = whole(lg_d)[..., :cfg.vocab]
+            out["rel_err"].append(_rel_err(got, lg[..., :cfg.vocab]))
+            out["bitwise"] = out["bitwise"] and torch.equal(
+                got, lg[..., :cfg.vocab])
+        out["cache_bitwise"] = all(
+            torch.equal(whole(cd["layers"][k]), cache["layers"][k])
+            for k in ("k", "v"))
+        batch = {"tokens": tokens(LOSS_TOKENS)}
+        loss, _ = lm_loss(params, batch, cfg)
+        with _sharded(mesh):
+            loss_d, _ = lm_loss(pd, {"tokens": distribute_tensor(
+                batch["tokens"], mesh, tok_pl, src_data_rank=None)}, cfg)
+        loss_d = whole(loss_d)
+    out["loss"], out["loss_sharded"] = float(loss), float(loss_d)
+    out["loss_rel_err"] = abs(out["loss_sharded"] - out["loss"]) / abs(
+        out["loss"])
+    out["loss_bitwise"] = torch.equal(loss_d, loss)
+    worst = max(out["rel_err"])
+    log(f"  sharded decode (1, 1), qwen3-0.6b bf16 {cfg.n_layers} layers, "
+        f"B = {b}, "
+        f"cache {out['cache_layout']}: {DECODE['steps']} steps after a "
+        f"{t}-token prefill, max rel err {worst:.3e} (gate {DECODE_TOL}), "
+        f"bitwise {out['bitwise']}, cache bitwise {out['cache_bitwise']}")
+    log(f"  decode step ms: plain {[round(x, 3) for x in out['plain_ms']]}, "
+        f"sharded {[round(x, 3) for x in out['sharded_ms']]}")
+    log(f"  vocab-parallel lm_loss on {LOSS_TOKENS[0]} x {LOSS_TOKENS[1]} "
+        f"tokens: {out['loss_sharded']!r} vs plain {out['loss']!r}, rel err "
+        f"{out['loss_rel_err']:.3e}, bitwise {out['loss_bitwise']}")
+    if worst > DECODE_TOL or out["loss_rel_err"] > DECODE_TOL:
+        _fail(f"sharded decode: max rel err {worst:.3e}, loss "
+              f"{out['loss_rel_err']:.3e}")
+    return out
+
+
 def run(device="cuda", log: Callable = print) -> Dict:
     device = torch.device(device)
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -280,12 +364,13 @@ def run(device="cuda", log: Callable = print) -> Dict:
             state = step.pop("_state")
             reshard = check_reshard(state, mesh, log)
             del state
+            decode = check_sharded_decode(device, mesh, log)
         moe = check_moe_ep(device, log)
         ring = check_ring_matmul(device, log)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return {"sharded_step": step, "moe_ep": moe, "ring_matmul": ring,
-            "reshard": reshard,
+            "reshard": reshard, "sharded_decode": decode,
             "plain_step_ms_median": statistics.median(step["plain_ms"][1:]),
             "sharded_step_ms_median": statistics.median(
                 step["sharded_ms"][1:])}

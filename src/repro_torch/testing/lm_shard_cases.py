@@ -17,7 +17,10 @@ hands to the JAX package) and returns tensors:
   ``lm_8bit``           one sharded step with 8-bit moments;
   ``act_sp``            the ``act_sp`` forward and its layer layouts;
   ``lm_cli``            ``launch/train.py`` on the mesh with a checkpoint
-                        (the resume runs as a second job on another mesh).
+                        (the resume runs as a second job on another mesh);
+  ``lm_decode``         the sharded serving step: decode steps on a cache
+                        laid out by ``cache_shardings``;
+  ``lm_loss``           the vocab-parallel ``lm_loss`` and its gradients.
 
 This module imports no JAX.
 """
@@ -34,9 +37,9 @@ from torch.distributed.tensor import distribute_tensor
 from repro_torch.configs import get_reduced
 from repro_torch.distributed.ctx import activation_mesh
 from repro_torch.distributed.elastic import reshard_state, reshard_tree, whole
-from repro_torch.distributed.sharding import (batch_pspec, local_shape,
-                                              param_shardings, placements,
-                                              spec_paths)
+from repro_torch.distributed.sharding import (batch_pspec, fit_pspec,
+                                              local_shape, param_shardings,
+                                              placements, spec_paths)
 from repro_torch.pytree import leaf_paths, tree_map
 
 __all__ = ["CASES"]
@@ -243,7 +246,68 @@ def _lm_cli_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
     return {"start": out["start_step"], "losses": out["losses"]}
 
 
+def _lm_decode_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
+    """The sharded serving step: the port's one-device ``lm_prefill`` of
+    ``inp["batch"]`` at capacity ``inp["cap"]`` (``pos`` then set to
+    ``inp["pos"]`` row by row), the cache laid out by ``cache_shardings``
+    and the weights by the serving rules, then ``lm_decode_step`` on
+    DTensors for each of ``inp["steps"]`` (B, 1) tokens.  Returns the
+    cache before and after the steps and each step's logits, whole, and
+    each cache leaf's placements and local shape."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  serving_rules)
+    from repro_torch.models import lm
+
+    cfg = get_reduced(inp["arch"], **inp.get("overrides", {}))
+    params = lm.lm_params_from_jax(cfg, inp["params"], device="cpu")
+    batch = {k: _t(v) for k, v in inp["batch"].items()}
+    with torch.no_grad():
+        _, cache = lm.lm_prefill(params, batch, cfg, inp["cap"])
+    cache["pos"] = _t(inp["pos"])
+    b = cache["pos"].shape[0]
+    stacked = lm.stack_layers(params)
+    pd = reshard_tree(stacked, param_shardings(stacked, mesh,
+                                               serving_rules()), mesh)
+    cd = reshard_tree(cache, cache_shardings(cache, mesh, batch=b), mesh)
+    layout = {p: (str(t.placements), tuple(t.to_local().shape))
+              for p, t in leaf_paths(cd)}
+    first = _whole_tree(cd)
+    logits = []
+    with activation_mesh(mesh), implicit_replication(), torch.no_grad():
+        for tokens in inp["steps"]:
+            tok = _place(_t(tokens), fit_pspec(("batch", None),
+                                               tokens.shape, mesh), mesh)
+            out, cd = lm.lm_decode_step(lm.unstack_layers(pd), tok, cd, cfg)
+            logits.append(whole(out))
+    return {"prefill": first, "logits": logits, "cache": _whole_tree(cd),
+            "layout": layout}
+
+
+def _lm_loss_case(mesh: DeviceMesh, inp: dict) -> Dict[str, object]:
+    """The sharded ``lm_loss`` (vocab-parallel cross entropy) of
+    ``inp["params"]`` (stacked, laid out by ``param_shardings``) on
+    ``inp["tokens"]``, and its gradient of every parameter, whole."""
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import _sharded
+
+    cfg = get_reduced(inp["arch"], **inp.get("overrides", {}))
+    stacked = tree_map(_t, inp["params"])
+    pd = reshard_tree(stacked, param_shardings(stacked, mesh), mesh)
+    live = tree_map(lambda t: t.detach().requires_grad_(), pd)
+    flat = [t for _, t in leaf_paths(live)]
+    tokens = _place(_t(inp["tokens"]), batch_pspec(mesh), mesh)
+    with _sharded(mesh):
+        loss, _ = lm.lm_loss(live, {"tokens": tokens}, cfg)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return {"loss": whole(loss.detach()),
+            "grads": {p: None if g is None else whole(g)
+                      for (p, _), g in zip(leaf_paths(live), grads)}}
+
+
 CASES = {"moe_ep": _moe_ep_case, "collective_matmul": _collective_matmul_case,
          "reshard": _reshard_case, "lm_train": _lm_train_case,
          "lm_8bit": _lm_8bit_case, "act_sp": _act_sp_case,
-         "lm_cli": _lm_cli_case}
+         "lm_cli": _lm_cli_case, "lm_decode": _lm_decode_case,
+         "lm_loss": _lm_loss_case}

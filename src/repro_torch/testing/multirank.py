@@ -1,8 +1,10 @@
 """Run the sharded ops on several gloo ranks of the CPU.
 
 The multi-device layer (:mod:`repro_torch.distributed`) runs one rank per
-process.  :func:`spawn` starts ``world`` processes (the ``spawn`` start
-method), joins them in a gloo group through a ``FileStore`` under a
+process.  :func:`spawn` starts ``world`` processes (the ``forkserver``
+start method: a fresh server process imports torch and the cases once,
+and the ranks fork from it), joins them in a gloo group through a
+``FileStore`` under a
 working directory (no port, so runs side by side never collide), and has
 every rank run a list of jobs; each job names a mesh shape and a case of
 :data:`CASES`, and the ranks outside a job's mesh skip it.  Each rank's
@@ -129,7 +131,14 @@ CASES = {"ops": _ops_case, "train": _train_case,
          "compressed_psum": _compressed_psum_case,
          **{name: _lm_case(name) for name in (
              "moe_ep", "collective_matmul", "reshard", "lm_train",
-             "lm_8bit", "act_sp", "lm_cli")}}
+             "lm_8bit", "act_sp", "lm_cli", "lm_decode", "lm_loss")}}
+
+
+# what the ranks import, torch's lazy imports of a DTensor step included
+_PRELOAD = ["repro_torch.testing.multirank",
+            "repro_torch.testing.lm_shard_cases", "repro_torch.models.lm",
+            "repro_torch.train.train_step", "torch.distributed.tensor",
+            "torch._dynamo"]
 
 
 def _mesh(shape: Tuple[int, int]) -> DeviceMesh:
@@ -171,8 +180,12 @@ def spawn(world: int, jobs: Sequence[tuple], workdir) -> List[dict]:
     # would make each start wait for the child before to import torch.
     with open(os.path.join(workdir, "jobs.pkl"), "wb") as f:
         pickle.dump(list(jobs), f)
+    # The ranks fork from a single-threaded server that imported torch and
+    # the cases once (the first spawn of a process starts it): a rank
+    # skips the seconds of CPU its own imports would take.
+    mp.get_context("forkserver").set_forkserver_preload(_PRELOAD)
     mp.start_processes(_worker, args=(world, workdir), nprocs=world,
-                       start_method="spawn")
+                       start_method="forkserver")
     out = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                       weights_only=False) for r in range(world)]
     for r, res in enumerate(out):

@@ -14,6 +14,12 @@
     the attention's repeated kv heads, the norms and the vocab
     all-gather of the loss); the ring bytes the formulas over the
     recorded collectives; no process group left afterwards;
+  * ``compile_cell`` on a fake ``(2, 2)`` group at reduced size: the
+    serving cells (``decode_32k`` of qwen3, deepseek, mamba2, seamless;
+    ``long_500k`` of zamba2) and seamless's ``train_4k`` (its encoder
+    leaves split their layer dim) trace with flops; a decode step whose
+    cache splits its sequence all-reduces the merge's max and sum, two a
+    layer, and no other;
   * on a one-rank gloo mesh, the trace of real CPU tensors counts the
     flops, bytes and memory of the trace on ``meta`` (exact);
   * the dry-run CLI at 2 layers on the 256-rank mesh: a rerun skips the
@@ -175,6 +181,37 @@ def test_account_cell_on_a_fake_two_by_two_group(arch):
     assert all(k in COLLECTIVES and g in (2, 4)
                for k, _, g in res.trace.collectives)
     assert res.report.model_flops_total == plan.mflops
+
+
+@pytest.mark.parametrize("arch,shape,merged", [
+    ("qwen3-0.6b", "decode_32k", 0),          # kv-heads divide "model"
+    ("deepseek-v3-671b", "decode_32k", 2),    # MLA: sequence over "model"
+    ("mamba2-2.7b", "decode_32k", 0),         # no attention
+    ("seamless-m4t-medium", "decode_32k", 0),
+    ("zamba2-1.2b", "long_500k", 1),          # B = 1: sequence over "data"
+    ("seamless-m4t-medium", "train_4k", None),
+])
+def test_compile_cell_traces_serving_cells_on_two_by_two(arch, shape, merged):
+    """The cells the reference compiles on a mesh, traced on a fake
+    (2, 2) group; ``merged``: the attention layers whose decode merges a
+    split sequence (each all-reduces its max and sum, shaped (..., 1,
+    1))."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    with fake_group(4):
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        plan = cells.plan_cell(arch, shape, mesh,
+                               cfg_overrides=_port_over(arch))
+        res = cells.compile_cell(plan, mesh, "m2x2")
+    assert not dist.is_initialized()
+    assert res.error is None and res.trace.flops > 0
+    assert res.report.per_device_flops > 0
+    if merged is not None:
+        stats = sum(kind == "all-reduce" and outs[0][-2:] == (1, 1)
+                    for (kind, _, _), outs in zip(
+                        res.trace.collectives, res.trace.collective_shapes))
+        assert stats == 2 * merged
 
 
 def test_meta_trace_counts_what_real_tensors_do():
