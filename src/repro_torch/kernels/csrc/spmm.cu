@@ -10,18 +10,17 @@
 // once is vals (NNZP x V) + cols (NNZP) + win_ptr + B (K x N) + C (M x N);
 // the work is 2 * NNZP * V * N flops, far below the fp32 rate for that
 // traffic (about 8 flops per byte at V = 8), so device memory bounds it.
-// bf16 halves the bytes of vals, B and C, int8 quarters those of vals; the
-// arithmetic stays on the CUDA cores in fp32, which still leaves bytes the
-// bound.
+// bf16 halves the bytes of vals, B and C, int8 quarters those of vals.
 //
 // Design: the window-parallel kernel of spmm_window.cuh launched for one
-// head: slice groups of threads, each thread one output column with V
-// running sums in registers, the vectors' column ids and values streamed
-// through shared memory by cp.async and B read one coalesced row segment
-// per vector (the paper's memory-efficient thread mapping); a window of
-// more than split_blk K-blocks is cut into slices over the groups of a
-// block or of a thread-block cluster, whose sums meet in (distributed)
-// shared memory in a fixed order.
+// head: FlashSparse's swap and transpose on mma.sync m16n8k8 (TF32; 3xTF32
+// for fp32 operands), a warp on 32 output columns of a window with its V
+// rows on the mma's n side, the vectors' column ids and values streamed
+// through shared memory by cp.async and each B row gathered in whole
+// sectors (the paper's memory-efficient thread mapping); a window of more
+// than split_blk K-blocks is cut into slices over the groups of a block or
+// of a thread-block cluster, whose sums meet in (distributed) shared
+// memory in a fixed order.
 #include "spmm_window.cuh"
 
 // win_ptr (W + 1,) int32, cols (NNZP,) int32, vals (NNZP, V) of vals_type

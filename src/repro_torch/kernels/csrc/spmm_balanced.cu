@@ -23,8 +23,8 @@
 //      order, into runs of about run_blk K-blocks (cut only at segment
 //      boundaries, near a window boundary where one is close).  One thread
 //      block per (run, column tile, head) walks its run's K-blocks in
-//      order, each thread on one output column with the V accumulators in
-//      registers.  A run is a list of pieces, one per window it touches;
+//      order, a warp on 32 output columns with their V rows' accumulators
+//      in registers.  A run is a list of pieces, one per window it touches;
 //      at the end of a piece the block stores the window's rows of C when
 //      the run holds the whole window, and otherwise writes one fp32
 //      (V, N) partial to the piece's edge entry.  So a run leaves partials
@@ -32,16 +32,24 @@
 //      at its end.  The run's (cols, vals) stream through a ring of three
 //      chunks of 32 vectors in shared memory, each copied by cp.async two
 //      chunks ahead, so a chunk costs one barrier and no synchronous
-//      load; each thread gathers its column of the chunk's
-//      B rows with loads unrolled 8 deep.  (Staging the gathered B rows
-//      through shared memory by cp.async one chunk ahead was slower on the
-//      card, and an L2 prefetch of the next chunk's lines gained nothing.)
-//      Each chunk's fp32 sum of at most 32 products is folded into fp64
-//      accumulators: a run of 32 K-blocks, or an unsplit hub window of
-//      400,000 vectors, then drifts no more than one chunk does (an fp32
-//      running sum over a run drifts by about sqrt(length) * 2^-24 of the
-//      run's size, beyond the kernel tolerance on the hub rows of a
-//      power-law graph's transpose).
+//      load.  The products are the window SpMM's (spmm_window.cuh,
+//      mma_range): FlashSparse's swap and transpose on mma.sync m16n8k8,
+//      the window's V rows on the n side, a k-step of 8 vectors of one
+//      chunk and one piece (a piece's end or the chunk's end cuts a step
+//      short, and the fragment columns past the cut multiply zeros), a
+//      lane gathering four neighbouring columns of two B rows a k-step
+//      with one 16-byte (bf16: 8-byte) load each, the gathers of two
+//      k-steps of fp32 B (four of bf16) in flight before their products.
+//      (Staging the gathered B rows through shared memory by cp.async one
+//      chunk ahead was slower on the card, and an L2 prefetch of the next
+//      chunk's lines gained nothing.)  Each k-step's big.big product (a
+//      sum of 8 products) is added to fp64 accumulators, and each chunk
+//      range's small products (lo, at most 32 vectors) where the range
+//      ends: a run of 32 K-blocks, or an unsplit hub window of 400,000
+//      vectors, then drifts no more than one k-step does (an fp32 running
+//      sum over a run drifts by about sqrt(length) * 2^-24 of the run's
+//      size, beyond the kernel tolerance on the hub rows of a power-law
+//      graph's transpose).
 //   2. combine tree: the edge entries of each window that runs cut are
 //      summed by a tree of groups (tree_meta, from kernels/_combine.py),
 //      one level per launch: one thread block per (group, column tile,
@@ -62,16 +70,29 @@
 // of chip_smoke.py prints them for every plan.  A zero-length piece (an
 // empty window) stores zeros; the dummy block of an all-empty matrix is
 // never visited.
-// Precision: every operand is widened to fp32 as it is read (the ring and
-// the B loads of spmm_window.cuh), the products and the chunk sums are
-// fp32 and the folds, partials and tree those of the fp32 kernel, and C is
-// rounded to B's type once, from the fp32 value the fp32 kernel stores:
+// Precision: every operand is widened to fp32 as it is read; fp32 products
+// in 3xTF32 (big.big from a zero accumulator, the small products in lo's
+// mma chain).  A piece of a long window (one the run plan cuts, or of more
+// than kTailBlocks K-blocks) also splits its fp32 operands' tails off
+// (the part TF32's small cannot hold, exact in TF32) and takes the three
+// products of order 2^-22 (big.tail, tail.big, small.small, in lo): a hub
+// window's sum of 400,000 products carries 3xTF32's representation error
+// (up to 2^-22 of each product), which on a row of Amazon's transpose that
+// cancels to 9.4e-4 out of terms summing to 32,609 came to 5.3e-6, and
+// with the plain version's own error passed the kernel tolerance; with
+// the tails each product is taken to about 2^-33.  Short windows keep
+// 3xTF32 (on Amazon's A the tails cost 16%).  bf16 operands are exact in
+// TF32 and take only big.big; the folds, partials and tree are those of
+// the fp32 kernel, and C is rounded to B's type once, from the fp32 value
+// the fp32 kernel stores:
 // the bf16 result is the fp32 kernel's on the widened operands, rounded,
 // bit for bit.  int8 values and their K-block scales land by cp.async and
 // each landed chunk is dequantized once, q * scale in fp32, into an fp32
 // slot of the ring (WindowRing, as in the window SpMM: a conversion by
 // every column thread ran that kernel 2.1x slower and spilled), so the
-// int8 result is the fp32 kernel's on the q * scale values.  16-byte
+// int8 result is the fp32 kernel's on the q * scale values (with bf16 B
+// two products a k-step, big.big and big.small, and on a long window's
+// pieces big.tail too; with fp32 B those of fp32).  16-byte
 // copies need k_blk * V * sizeof(value) % 16 == 0 (every chunk then starts
 // and ends on 16 bytes); otherwise 4-byte copies (fp32) or plain loads.
 #include "spmm_window.cuh"
@@ -80,24 +101,30 @@ namespace {
 
 constexpr int kChunk = repro::kSpmmChunk;  // vectors per pipeline step
 constexpr int kThreads = 256;  // most threads per block (column tile)
+// A piece of a window that the run plan cuts, or one of more K-blocks than
+// this, takes its products with the operands' tails (see Precision).
+constexpr int kTailBlocks = 32;
 
 using repro::cp_async16;
 using repro::cp_async4;
 using repro::cp_async_commit;
 using repro::cp_async_wait_all;
 using repro::from_f32;
-using repro::load_b;
+using repro::store_quad;
+using repro::tile_row;
+using repro::Tiles;
 using repro::WindowRing;
 
 // The state of a run: the current piece, where it ends (in vectors), and
-// the V accumulators of this thread's column (fp64: each step's fp32 sum of
-// at most 32 products is folded in, so a long run does not drift).
+// this lane's V accumulators, laid out as repro::Tiles (fp64: each chunk
+// range's fp32 sum of at most 32 vectors is folded in, so a long run does
+// not drift).
 template <int V>
 struct Run {
   const int* pieces;
   int p, p_hi;
   int64_t p_end;
-  double acc[V];
+  double acc[V / 4][4];
 };
 
 __device__ __forceinline__ int64_t piece_end(const int* pieces, int p,
@@ -114,34 +141,50 @@ __device__ __forceinline__ int chunk_len(int64_t t0, int64_t t_hi) {
 // Stores every piece that ends at or before vector t: the window's rows of
 // C when the run holds the whole window (the fp32 sum, rounded to Tb), else
 // its fp32 edge entry of part; and zeroes the accumulators for the next.
+// This lane's share: rows nt * 8 + 2 q + hh (q = lane % 4) at columns c ..
+// c + 3; vec: N a multiple of 4 (C and part aligned), one vector store a
+// row.
 template <int V, typename Tb>
 __device__ __forceinline__ void flush_upto(Run<V>& run, int64_t t, int k_blk,
-                                           bool active, Tb* c, float* part,
-                                           int64_t h, int m, int n, int col,
-                                           int64_t entries) {
+                                           bool active, bool vec, Tb* c,
+                                           float* part, int64_t h, int m,
+                                           int n, int col, int64_t entries) {
+  const int q = threadIdx.x & 3;
   while (run.p < run.p_hi && run.p_end <= t) {
     const int* pm = run.pieces + 4 * run.p;
     if (active) {
-      if (pm[3] < 0) {
-        const int64_t row0 = static_cast<int64_t>(pm[0]) * V;
-        Tb* ch = c + (h * m + row0) * n + col;
+      Tiles<V> x;
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
-          if (row0 + v < m) {
-            ch[v * static_cast<int64_t>(n)] =
-                from_f32<Tb>(static_cast<float>(run.acc[v]));
-          }
+      for (int k = 0; k < V / 4; ++k) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[k][i] = static_cast<float>(run.acc[k][i]);
         }
-      } else {
-        float* q = part + ((h * entries + pm[3]) * V) * n + col;
+      }
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
-          q[v * static_cast<int64_t>(n)] = static_cast<float>(run.acc[v]);
+      for (int nt = 0; nt < V / 8; ++nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int v = nt * 8 + 2 * q + hh;
+          float y[4];
+          tile_row<V>(x, nt, hh, y);
+          if (pm[3] < 0) {
+            const int64_t row = static_cast<int64_t>(pm[0]) * V + v;
+            if (row < m) {
+              store_quad(c + (h * m + row) * n + col, col, n, vec, y);
+            }
+          } else {
+            store_quad(part + ((h * entries + pm[3]) * V + v) * n + col, col,
+                       n, vec, y);
+          }
         }
       }
     }
 #pragma unroll
-    for (int v = 0; v < V; ++v) run.acc[v] = 0.0;
+    for (int k = 0; k < V / 4; ++k) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) run.acc[k][i] = 0.0;
+    }
     if (++run.p < run.p_hi) run.p_end = piece_end(run.pieces, run.p, k_blk);
   }
 }
@@ -196,11 +239,17 @@ spmm_run_kernel(const int* __restrict__ run_ptr, const int* __restrict__ pieces,
   constexpr bool kInt8 = std::is_same<Tv, int8_t>::value;
 
   const int nt = blockDim.x, tid = threadIdx.x;
-  const int col = blockIdx.y * nt + tid;
+  // a warp on 32 columns, this lane on four of them from col
+  const int wcol = blockIdx.y * nt + (tid & ~31);
+  const int col = wcol + 4 * ((tid & 31) >> 2);
   const int64_t h = blockIdx.z;
-  const bool active = col < n;
+  const bool active = wcol < n;  // warp-uniform
   const Tv* vh = vals + h * vals_hstride;
   const Tb* bh = b + h * b_hstride;
+  // 16-byte (fp32) or 8-byte (bf16) accesses to four columns of a row of
+  // B, C and part (fresh allocations)
+  const auto addr_b = reinterpret_cast<uintptr_t>(bh);
+  const bool vec = n % 4 == 0 && addr_b % sizeof(repro::Quad<Tb>) == 0;
   Run<V> run;
   run.pieces = pieces;
   run.p = run_ptr[blockIdx.x];
@@ -210,7 +259,10 @@ spmm_run_kernel(const int* __restrict__ run_ptr, const int* __restrict__ pieces,
   const int nchunks = static_cast<int>((t_hi - t_lo + kChunk - 1) / kChunk);
   run.p_end = piece_end(pieces, run.p, k_blk);
 #pragma unroll
-  for (int v = 0; v < V; ++v) run.acc[v] = 0.0;
+  for (int k = 0; k < V / 4; ++k) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) run.acc[k][i] = 0.0;
+  }
   // chunks start at K-block boundaries (or 32 vectors after one), so every
   // chunk's values are 16-byte aligned when a K-block's are
   const bool vec16 = (reinterpret_cast<uintptr_t>(vh) & 15) == 0 &&
@@ -229,7 +281,8 @@ spmm_run_kernel(const int* __restrict__ run_ptr, const int* __restrict__ pieces,
       ring.dequantize(0, chunk_len(t_lo, t_hi), tid, nt);
     }
   }
-  flush_upto<V>(run, t_lo, k_blk, active, c, part, h, m, n, col, entries);
+  flush_upto<V>(run, t_lo, k_blk, active, vec, c, part, h, m, n, col,
+                entries);
   for (int ci = 0; ci < nchunks; ++ci) {
     // Chunks ci and ci + 1 have landed and every thread is done with chunk
     // ci - 1: refill its slot with chunk ci + 2, which stays in flight
@@ -248,30 +301,36 @@ spmm_run_kernel(const int* __restrict__ run_ptr, const int* __restrict__ pieces,
       }
     }
     const int cnt = chunk_len(t0, t_hi);
-    const auto* sv = ring.chunk(ci);
     const int* sc = ring.cols[ci % 3];
+    auto brow = [&](int r) { return static_cast<int64_t>(sc[r]); };
     int r0 = 0;
     while (r0 < cnt && run.p < run.p_hi) {
       const int64_t to_end = run.p_end - t0;
       const int r1 = to_end < cnt ? static_cast<int>(to_end) : cnt;
-      if (active) {
-        float cs[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) cs[v] = 0.f;
-#pragma unroll 8
-        for (int r = r0; r < r1; ++r) {
-          const float bv[1] = {load_b(bh + static_cast<int64_t>(sc[r]) * n + col)};
-          repro::fma_vector<V, 1>(cs, sv + r * V, bv);
+      if (active) {  // each k-step's big.big into fp64, then the range's lo
+        Tiles<V> lo;
+        repro::zero_tiles<V>(lo);
+        const int* pm = run.pieces + 4 * run.p;
+        if (pm[3] >= 0 || pm[2] > kTailBlocks) {  // a long window: tails
+          repro::mma_range<V, true>(r0, r1, ring.chunk(ci), brow, bh, n, col,
+                                    vec, run.acc, lo);
+        } else {
+          repro::mma_range<V, false>(r0, r1, ring.chunk(ci), brow, bh, n,
+                                     col, vec, run.acc, lo);
         }
 #pragma unroll
-        for (int v = 0; v < V; ++v) run.acc[v] += cs[v];
+        for (int k = 0; k < V / 4; ++k) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) run.acc[k][i] += lo[k][i];
+        }
       }
       r0 = r1;
-      flush_upto<V>(run, t0 + r1, k_blk, active, c, part, h, m, n, col,
+      flush_upto<V>(run, t0 + r1, k_blk, active, vec, c, part, h, m, n, col,
                     entries);
     }
   }
-  flush_upto<V>(run, t_hi, k_blk, active, c, part, h, m, n, col, entries);
+  flush_upto<V>(run, t_hi, k_blk, active, vec, c, part, h, m, n, col,
+                entries);
 }
 
 template <int V, typename Src, typename Tb>

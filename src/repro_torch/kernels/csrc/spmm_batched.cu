@@ -20,17 +20,15 @@
 // heads on gridDim.z.  Windows stay on gridDim.x, which has no 65,535
 // limit.  A shared operand is read with a head stride of 0 from its one
 // copy, the reference's "(1, ...) slice" rule.  Per (head, window, column)
-// the accumulation order is spmm.cu's, so this launch is bitwise-equal to
+// the order of the products and sums is spmm.cu's, so this launch is
+// bitwise-equal to
 // H launches of spmm.cu, as the reference promises for its batched grid.
 // The pattern (win_ptr, cols) and the window plan are shared by the
 // heads.  A window of Aᵀ with thousands of blocks (the global keys of a
 // strided attention pattern) is cut into slices over a thread-block
 // cluster, as in spmm.cu.  The precision variants are spmm.cu's
 // instantiations of the same kernel (spmm_window.cuh): each operand
-// widened to fp32 as it is read, C rounded to B's type once; a split
-// plan (the attention pattern's Aᵀ, whose global-key windows hold up to
-// 2,048 K-blocks) keeps one column a thread at bf16, an unsplit one takes
-// two.
+// widened to fp32 as it is read, C rounded to B's type once.
 #include "spmm_window.cuh"
 
 // win_ptr (W + 1,) int32, cols (NNZP,) int32, vals (NNZP, V) of vals_type

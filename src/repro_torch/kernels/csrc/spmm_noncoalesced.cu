@@ -56,14 +56,16 @@
 //     partials in run order.  No atomics: every sum is taken in the same
 //     order on every launch, so two launches give the same bits.
 //   * Bits.  A window of at most split_blk K-blocks is one slice in one
-//     lane: one fp32 running sum in vector order, acc[v] = fma(a[t, v],
-//     B[cols[t], col], acc[v]), every operand widened to fp32 as it is read
-//     (an int8 value to q * scale[t / k_blk], rounded to fp32, as
-//     spmm_window.cuh dequantizes it), no shuffle addition, one rounding to
-//     B's type at the store: spmm.cu's arithmetic, so there the outputs are
-//     the same bits at every precision.
+//     lane: one fp32 running sum in vector order on the CUDA cores,
+//     acc[v] = fma(a[t, v], B[cols[t], col], acc[v]) (spmm_fma.cuh), every
+//     operand widened to fp32 as it is read (an int8 value to
+//     q * scale[t / k_blk], rounded to fp32, as spmm_window.cuh dequantizes
+//     it), no shuffle addition, one rounding to B's type at the store.
+//     spmm.cu takes its products on the tensor cores in k-steps of 8
+//     vectors, so the two agree to the kernel tolerance, not bit for bit.
 // Padding vectors are multiplied, empty windows store zeros, and rows >= M
 // are not written, as in spmm.cu.
+#include "spmm_fma.cuh"
 #include "spmm_window.cuh"
 
 namespace {

@@ -26,8 +26,8 @@
 // Design.  spmm.cu's kernel with a gathered B (kGathered) and an fp32 C,
 // on the same window plan (kernels/_window.py): slices of the windows of
 // more than split_blk K-blocks over a block or a cluster, the values
-// staged by cp.async, G read by neighbouring threads on neighbouring
-// columns, 8 rows in flight.
+// staged by cp.async, the products on the tensor cores, a lane reading
+// four neighbouring columns of a G row where it reads them of a B row.
 // So this baseline and spmm.cu differ in the staged copy and its passes
 // alone: every sum is taken in the same order, and on every window C is
 // spmm.cu's, bit for bit, before the cast (fp32), and after it (bf16: one

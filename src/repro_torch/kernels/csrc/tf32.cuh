@@ -1,6 +1,7 @@
 // fp32 and bf16 operands on the TF32 tensor cores (mma.sync m16n8k8),
 // shared by the fused attention (attention.cu), the SDDMM tile
-// (sddmm_rows.cuh) and the run-carried attention (attention_balanced.cu,
+// (sddmm_rows.cuh), the window and balanced SpMMs (spmm_window.cuh,
+// spmm_balanced.cu) and the run-carried attention (attention_balanced.cu,
 // which takes the bf16 widening only).
 //
 // A bf16 is the top half of the fp32 with the same value, so widening is a
@@ -43,16 +44,22 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 
 // An mma operand fragment of N fp32 values split into TF32 big and small;
 // kExact: values that TF32 holds exactly (widened bf16), whose small part
-// is 0 and is never used.
-template <int N, bool kExact = false>
+// is 0 and is never used.  kTail: also the tail x - big - small, which
+// TF32 holds exactly (at most 2 significant bits), so big + small + tail
+// is x.
+template <int N, bool kExact = false, bool kTail = false>
 struct Frag {
-  uint32_t big[N], small[N];
+  uint32_t big[N], small[N], tail[kTail ? N : 1];
   __device__ __forceinline__ void set(int i, float x) {
     if constexpr (kExact) {
       big[i] = __float_as_uint(x);
     } else {
       big[i] = to_tf32(x);
-      small[i] = to_tf32(x - __uint_as_float(big[i]));
+      const float r = x - __uint_as_float(big[i]);
+      small[i] = to_tf32(r);
+      if constexpr (kTail) {
+        tail[i] = __float_as_uint(r - __uint_as_float(small[i]));
+      }
     }
   }
 };
@@ -67,11 +74,20 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 
 // a . b in 3xTF32: big.big into hi, big.small + small.big into lo.  Two
 // accumulators make two chains of dependent mma instead of one.  A product
-// with an exact operand's small part is 0 and is not taken.
-template <bool kAExact, bool kBExact>
+// with an exact operand's small part (or tail) is 0 and is not taken.
+// With tails (kTail) the products of order 2^-22 go into lo first,
+// big.tail, tail.big and small.small: then each product a_k b_k is taken
+// to within about 2^-33 of itself, where 3xTF32 alone is off by up to
+// 2^-22 (a sum of 400,000 products can show it; spmm_window.cuh).
+template <bool kAExact, bool kBExact, bool kTail>
 __device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4],
-                                           const Frag<4, kAExact>& a,
-                                           const Frag<2, kBExact>& b) {
+                                           const Frag<4, kAExact, kTail>& a,
+                                           const Frag<2, kBExact, kTail>& b) {
+  if constexpr (kTail) {
+    if constexpr (!kBExact) mma_tf32(lo, a.big, b.tail);
+    if constexpr (!kAExact) mma_tf32(lo, a.tail, b.big);
+    if constexpr (!kAExact && !kBExact) mma_tf32(lo, a.small, b.small);
+  }
   if constexpr (!kBExact) mma_tf32(lo, a.big, b.small);
   if constexpr (!kAExact) mma_tf32(lo, a.small, b.big);
   mma_tf32(hi, a.big, b.big);

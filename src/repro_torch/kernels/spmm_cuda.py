@@ -73,9 +73,8 @@ def spmm_cuda(blocked: BlockedMEBCRS, b: torch.Tensor, *,
     """``C (M, N) = A @ B`` over ``blocked`` (fp32, bf16 or int8 values,
     see :data:`VARIANTS`), C in B's dtype, sums in fp32; ``n_blk`` is the
     column tile (columns per slice group, a multiple of 32 up to 512: a
-    thread each, or for bf16 B where no window is split two adjacent
-    columns a thread), and windows of more than ``SPLIT_BLK`` K-blocks are
-    split."""
+    warp on each 32, its products on the tensor cores), and windows of
+    more than ``SPLIT_BLK`` K-blocks are split."""
     op = "spmm_cuda"
     scales = _variant_inputs(op, blocked, b)
     m, k = blocked.shape

@@ -31,6 +31,7 @@ from repro_torch.core.format import block_format
 from repro_torch.kernels import attention_cuda
 from repro_torch.models.layers import sparse_attention, sparse_attention_staged
 from repro_torch.train import sparse_attention_train as sat
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

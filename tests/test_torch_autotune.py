@@ -49,6 +49,7 @@ from repro_torch.kernels.autotune import (SCHEMA_VERSION, AutotuneCache,
 from repro_torch.models import gnn
 from repro_torch.sparse.structure import classify_format
 from repro_torch.train import gnn_train
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 VENDORED = vendored_names()
 BLOCKED = ("vals", "cols", "mask", "block_win", "win_ptr")

@@ -26,6 +26,7 @@ from repro_torch.kernels import (attention_balanced_cuda,
                                  spmm_balanced_cuda, spmm_balanced_plain)
 from repro_torch.kernels.attention_balanced_cuda import RUN_BLK as ATTN_RUN
 from repro_torch.kernels.spmm_balanced_cuda import RUN_BLK as SPMM_RUN
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # fp32 on both sides; the sums are taken in another order.
 RTOL, ATOL = 1e-5, 1e-5

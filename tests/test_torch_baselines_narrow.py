@@ -28,6 +28,7 @@ from repro_torch.kernels import (spmm_cuda, spmm_noncoalesced_cuda,
                                  spmm_noncoalesced_plain, spmm_staged_cuda,
                                  spmm_staged_plain)
 from repro_torch.models import gnn
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # the modules (the package attributes of these names are the wrappers)
 nc_module, st_module = (importlib.import_module(f"repro_torch.kernels.{n}")

@@ -6,11 +6,14 @@ lane, 32 lanes a group; a window's slices in one group (a run) are added
 by a segmented scan over the lanes, and the runs of a window that spans
 groups by fp32 partials in run order.  Row 5 (``csrc/spmm_staged.cu``)
 walks row 1's window plan over the staged copy ``G = B[cols]``, row ``t``
-of G for vector ``t``.  Both walks are emulated here in numpy (fp32 sums,
-each product fused into its sum through fp64) and held to row 1's walk
-(bitwise where the kernels promise it) and to the JAX package's
-interpret-mode kernels; the lane plan's host arrays cover every K-block
-exactly once, on every vendored matrix and its transpose.
+of G for vector ``t``.  Both walks are emulated here in numpy: row 2's
+on the CUDA cores (fp32 sums, each product fused into its sum through
+fp64), held to row 1's tensor-core walk (``tests/_torch_spmm_tile.py``:
+k-steps of 8 vectors in 3xTF32, another order of summation) at the fp32
+tolerance; row 5's, which is row 1's kernel over G, bitwise; both against
+the JAX package's interpret-mode kernels.  The lane plan's host arrays
+cover every K-block exactly once, on every vendored matrix and its
+transpose.
 """
 
 import numpy as np
@@ -19,13 +22,16 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import _torch_spmm_tile as tile
 import repro.core as jcore
 from repro.data.datasets import load_vendored
 from repro.kernels.spmm_pallas import (spmm_pallas_noncoalesced,
                                        spmm_pallas_staged)
 from repro_torch.core.format import block_format, from_coo, from_dense
+from repro_torch.core.sddmm import with_values
 from repro_torch.kernels._window import (LANES, SPLIT_BLK, lane_plan,
                                          window_plan)
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")
@@ -65,31 +71,15 @@ def _running_sum(vals, rows_of, t_lo, t_hi, n):
     return acc
 
 
-def _emulate_window(blocked, vals, rows_of, n, n_tile=128):
-    """Row 1's walk over its window plan (``spmm_window.cuh``): a slice one
-    running sum, a group's slices added in order, a window's groups in
-    order within a block, its blocks in rank order.  ``rows_of(t)`` is
-    the B row vector ``t`` reads."""
-    kb, v = blocked.k_blk, blocked.vector_size
-    plan = window_plan("test", blocked.win_ptr, SPLIT_BLK, n_tile)
-    out = np.zeros((plan.num_windows * v, n), np.float32)
-    sl = plan.slices(blocked.win_ptr)
-    for w in np.unique(sl[:, 0]):
-        groups = {}
-        for _, _, first, count, _, rank, grp in sl[sl[:, 0] == w]:
-            acc = _running_sum(vals, rows_of, first * kb, (first + count) * kb,
-                               n)
-            groups[(rank, grp)] = groups.get(
-                (rank, grp), np.zeros_like(acc)) + acc
-        by_rank = {}
-        for rank, grp in sorted(groups):
-            by_rank[rank] = by_rank.get(rank, np.float32(0)) + groups[(rank,
-                                                                       grp)]
-        total = np.zeros((v, n), np.float32)
-        for rank in sorted(by_rank):
-            total = total + by_rank[rank]
-        out[w * v:(w + 1) * v] = total
-    return out[:blocked.shape[0]]
+def _emulate_window(blocked, vals, b, rows_of=None):
+    """Row 1's walk over its window plan (``spmm_window.cuh``, emulated by
+    ``tests/_torch_spmm_tile.py``): k-steps of 8 vectors on the tensor
+    cores, a slice's sums folded in order, a window's groups in order
+    within a block, its blocks in rank order.  ``rows_of(idx)``: the B rows
+    vectors ``idx`` read (default ``B[cols[idx]]``)."""
+    return tile.window_emulated(with_values(blocked, torch.from_numpy(vals)),
+                                torch.from_numpy(b), SPLIT_BLK, n_tile=128,
+                                rows_of=rows_of)
 
 
 def _emulate_lanes(blocked, plan, b):
@@ -135,15 +125,11 @@ def test_noncoalesced_walk_matches_row1_and_pallas(name, split_blk):
         (port.shape[1], 12)).astype(np.float32)
     plan = lane_plan("test", port.win_ptr, split_blk)
     out = _emulate_lanes(port, plan, b)
-    lens = np.diff(port.win_ptr.numpy())
     if split_blk == 1:  # runs within a group and across groups
         assert plan.num_partials > 0 and (plan.slice_out.numpy() == -1).any()
-    unsplit = np.repeat(lens <= min(split_blk, SPLIT_BLK),
-                        port.vector_size)[:port.shape[0]]
-    cols = port.cols.numpy()
-    row1 = _emulate_window(port, port.vals.numpy(), lambda t: b[cols[t]],
-                           b.shape[1])
-    np.testing.assert_array_equal(out[unsplit], row1[unsplit])
+    # row 1 sums in tensor-core k-steps, row 2 in vector order
+    row1 = _emulate_window(port, port.vals.numpy(), b)
+    np.testing.assert_allclose(out, row1, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(out, np.asarray(spmm_pallas_noncoalesced(
         jb, jnp.asarray(b), interpret=True)), rtol=RTOL, atol=ATOL)
 
@@ -169,11 +155,9 @@ def test_staged_walk_over_g_matches_row1_and_pallas(precision):
     if precision == "bf16":  # operands widened from bf16, as the kernel
         vals, b = (torch.from_numpy(x).to(torch.bfloat16).float().numpy()
                    for x in (vals, b))
-    cols = port.cols.numpy()
-    g = b[cols]                                # the staged copy
-    out = _emulate_window(port, vals, lambda t: g[t], b.shape[1])
-    np.testing.assert_array_equal(out, _emulate_window(
-        port, vals, lambda t: b[cols[t]], b.shape[1]))
+    g = b[port.cols.numpy()]                   # the staged copy
+    out = _emulate_window(port, vals, b, rows_of=lambda idx: g[idx])
+    np.testing.assert_array_equal(out, _emulate_window(port, vals, b))
     assert not out[8:16].any()
     want = np.asarray(spmm_pallas_staged(jb, jnp.asarray(b), interpret=True,
                                          precision=precision),

@@ -27,6 +27,7 @@ from repro_torch.kernels import (ref, sddmm_batched_cuda, sddmm_cuda,
                                  spmm_batched_cuda, spmm_cuda,
                                  spmm_noncoalesced_cuda, spmm_staged_cuda)
 from repro_torch.kernels.spmm_staged_cuda import zero_unvisited
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # fp32 on both sides; the sums are taken in another order.
 RTOL, ATOL = 1e-5, 1e-5

@@ -56,6 +56,7 @@ from repro_torch.pytree import leaf_paths
 from repro_torch.roofline.analysis import COLLECTIVES, \
     collective_bytes_from_trace
 from repro_torch.roofline.trace import trace_step
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -28,6 +28,7 @@ from repro_torch.testing.multirank import spawn
 from repro_torch.train import compression as tcomp
 from repro_torch.pytree import leaf_paths, tree_map
 from repro_torch.train.train_step import train_state_from_jax
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

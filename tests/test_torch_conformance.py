@@ -33,6 +33,7 @@ from repro_torch.core.spmm import spmm
 from repro_torch.data import datasets as tds
 from repro_torch.testing import conformance as conf
 from repro_torch.testing.faults import FaultNotDetected
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # the modules (the package attributes of these names are the functions)
 jsddmm = importlib.import_module("repro.core.sddmm")

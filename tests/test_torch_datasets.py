@@ -13,6 +13,7 @@ import pytest
 
 from repro.data import datasets as jds
 from repro_torch.data import datasets as tds
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -19,6 +19,7 @@ from repro_torch.core import (ad_plan, attention, block_format, dispatch,
 from repro_torch.core import metrics
 from repro_torch.core.validate import ValidationError
 from repro_torch.testing.faults import corrupt_blocked
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -19,6 +19,7 @@ import torch
 from repro.testing import faults as jfaults
 from repro_torch.core import block_format, dispatch
 from repro_torch.testing import faults as tfaults
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

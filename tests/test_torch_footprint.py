@@ -18,6 +18,7 @@ import repro_torch.sparse as tsparse
 from repro.data.datasets import load_vendored, vendored_names
 from repro_torch.core import (from_coo, memory_footprint_me_bcrs,
                               memory_footprint_sr_bcrs)
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -15,6 +15,7 @@ from repro.data.datasets import load_vendored, vendored_names
 from repro_torch.core import format as tf
 from repro_torch.core.autodiff import ad_plan
 from repro_torch.core.validate import ValidationError
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 VENDORED = vendored_names()
 CANONICAL = ("row_pointers", "column_indices", "values", "mask")

@@ -22,6 +22,7 @@ from repro.models import gnn as jgnn
 from repro_torch.core import ad_plan, block_format, from_coo
 from repro_torch.models import gnn
 from repro_torch.sparse import graphs
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # fp32 sums re-ordered over several layers.

@@ -18,6 +18,7 @@ from repro_torch.core import attention, dispatch, sddmm, spmm
 from repro_torch.core.format import block_format, from_dense
 from repro_torch.core.softmax import sparse_softmax
 from repro_torch.kernels import (attention_cuda, ref, sddmm_cuda, spmm_cuda)
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # fp32 on both sides; the sums are taken in another order.
 RTOL, ATOL = 1e-5, 1e-5

@@ -20,6 +20,7 @@ from repro.configs import get_reduced as jax_reduced
 from repro.models import layers as jl
 from repro_torch.configs import get_reduced
 from repro_torch.models import layers as tl
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

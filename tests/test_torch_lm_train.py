@@ -54,6 +54,7 @@ from repro_torch.train import compression as tcomp
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_step as tts
 from repro_torch.pytree import leaf_paths, tree_map
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -26,6 +26,7 @@ from repro_torch import configs as tcfg
 from repro_torch.train import optimizer as topt
 from repro_torch.pytree import leaf_paths
 from repro_torch.train.train_step import train_state_from_jax
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

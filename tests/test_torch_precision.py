@@ -48,6 +48,7 @@ from repro_torch.kernels.attention_cuda import DV_BAND, value_bands
 from repro_torch.kernels.spmm_cuda import wide_index
 from repro_torch.models import gnn
 from repro_torch.train import gnn_train
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 # One bf16 ulp of an entry (2^-7 of it at most) plus a floor of 1e-6 of the

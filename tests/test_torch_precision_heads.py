@@ -51,6 +51,7 @@ from repro_torch.kernels import (attention_balanced_cuda, attention_cuda,
                                  spmm_balanced_cuda, spmm_batched_cuda)
 from repro_torch.models import gnn
 from repro_torch.train import sparse_attention_train as sat
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 # One bf16 ulp of an entry (2^-7 of it at most) plus a floor of 1e-6 of the

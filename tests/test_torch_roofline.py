@@ -27,6 +27,7 @@ from repro.roofline import report as jreport
 from repro_torch.configs import get_config
 from repro_torch.roofline import analysis, report
 from repro_torch.roofline.trace import StepTrace
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -16,6 +16,7 @@ from repro_torch.core import ad_plan
 from repro_torch.core import format as tf
 from repro_torch.core.validate import ValidationError, validate_schedule
 from repro_torch.kernels._combine import COMBINE_FANIN, run_plan
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 SCHEDULE = ("seg_win", "seg_meta", "blk_id", "blk_win")
 # a power-law hub matrix, a banded one, a rectangular one

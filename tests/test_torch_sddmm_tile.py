@@ -35,6 +35,7 @@ from repro.kernels import ref as jref
 from repro_torch.core.format import block_format, from_dense
 from repro_torch.kernels import (sddmm_balanced_plain, sddmm_batched_plain,
                                  sddmm_plain)
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # The kernels' tolerance against their plain versions (fp32, sums in
 # another order), which the emulated tile must meet against fp64 too.

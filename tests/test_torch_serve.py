@@ -20,6 +20,7 @@ from repro.models import lm as jlm
 from repro_torch import configs as tcfg
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

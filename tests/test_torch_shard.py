@@ -14,6 +14,7 @@ a ``cuda_sharded`` plan at 2 ranks (logits, gradients, two steps)."""
 import pytest
 
 import _torch_shard_ref as ref
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 IMPL = "cuda_sharded"
 

@@ -24,6 +24,7 @@ from repro_torch.distributed import (partition_schedule,
                                      spmm_sharded_overlap)
 from repro_torch.launch.mesh import one_rank_mesh
 from repro_torch.testing import conformance as conf
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 IMPL = "cuda_sharded_overlap"
 

@@ -34,6 +34,7 @@ from repro_torch.distributed import (activation_mesh, attention_sharded_local,
                                      spmm_sharded, spmm_sharded_local)
 from repro_torch.kernels import spmm_balanced_cuda
 from repro_torch.launch.mesh import make_mesh, mesh_from_arg, one_rank_mesh
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

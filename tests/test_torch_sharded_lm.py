@@ -43,6 +43,7 @@ from repro_torch.testing import multirank
 from repro_torch.train.train_step import (TrainStepConfig, init_train_state,
                                           make_train_step,
                                           train_state_from_jax)
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

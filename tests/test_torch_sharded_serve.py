@@ -51,6 +51,7 @@ from repro_torch.configs import SHAPES, get_config, get_reduced
 from repro_torch.models import lm
 from repro_torch.pytree import leaf_paths, tree_map
 from repro_torch.testing import multirank
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -37,6 +37,7 @@ from repro_torch.models.lm import (abstract_lm, init_cache, init_lm,
                                    stack_layers)
 from repro_torch.pytree import leaf_paths
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

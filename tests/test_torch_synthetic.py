@@ -19,6 +19,7 @@ from repro.data import synthetic as jsyn
 from repro_torch import configs as tcfg
 from repro_torch.core.format import to_dense
 from repro_torch.data import synthetic as tsyn
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

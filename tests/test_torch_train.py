@@ -26,6 +26,7 @@ from repro_torch.core import (ad_plan, attention_ad, block_format, dispatch,
 from repro_torch.models import gnn
 from repro_torch.train import gnn_train
 from repro_torch.train.train_step import make_gnn_train_step
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # fp32 gradients of sums taken in another order.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5

@@ -34,6 +34,7 @@ from repro_torch.kernels import (attention_balanced_cuda, attention_cuda,
                                  sddmm_cuda, spmm_balanced_cuda,
                                  spmm_batched_cuda, spmm_cuda,
                                  spmm_noncoalesced_cuda, spmm_staged_cuda)
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.dispatch.FallbackWarning")

@@ -4,12 +4,13 @@ The window plan of ``spmm_window.cuh`` (``kernels/_window.py``) on every
 vendored matrix, its transpose and the all-empty matrix: every K-block in
 exactly one slice, no slice longer than ``split_blk``, short windows
 unsplit, the slices of a window in a fixed order over groups and ranks.
-The kernel's order of summation over the plan, emulated in fp32, against
-the dense product.  The 3xTF32 products of the tensor-core attention
-(``attention.cu``), emulated with TF32 rounding, against fp64: within the
-kernel tolerance, where plain TF32 is not.  And the plain versions on
-windows the kernel splits against the JAX package's interpret-mode
-kernels.
+The kernel's order of summation over the plan (its tensor-core k-steps,
+slice folds and group and rank sums, ``tests/_torch_spmm_tile.py``),
+emulated, against the dense product.  The 3xTF32 products of the
+tensor-core attention (``attention.cu``), emulated with TF32 rounding,
+against fp64: within the kernel tolerance, where plain TF32 is not.  And
+the plain versions on windows the kernel splits against the JAX
+package's interpret-mode kernels.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import _torch_spmm_tile as tile
 import repro.core as jcore
 from repro.core.sddmm import with_values as jax_with_values
 from repro.data.datasets import load_vendored
@@ -28,6 +30,7 @@ from repro_torch.core.sddmm import with_values
 from repro_torch.kernels import attention_cuda, spmm_batched_cuda, spmm_cuda
 from repro_torch.kernels._window import (MAX_CLUSTER, PACK_WARPS,
                                          SPLIT_BLK, slice_groups, window_plan)
+from _torch_threads import one_intraop_thread  # noqa: F401
 
 # The kernels' tolerance against their plain versions (fp32, sums in
 # another order), which the emulated 3xTF32 attention must meet.
@@ -119,36 +122,6 @@ def test_slice_groups_fill_a_block_of_512_threads():
         16, 8, 4, 4, 2, 1]
 
 
-def _emulate(blocked, plan, b):
-    """C = A @ B in the kernel's order: a slice is one fp32 running sum,
-    vector by vector; a group adds its slices' sums in order; a window adds
-    its groups' sums in order within a block, then its blocks' in rank
-    order."""
-    v, kb, n = blocked.vector_size, blocked.k_blk, b.shape[1]
-    vals, cols = blocked.vals.numpy(), blocked.cols.numpy()
-    out = np.zeros((plan.num_windows * v, n), np.float32)
-    sl = plan.slices(blocked.win_ptr)
-    for w in np.unique(sl[:, 0]):
-        rows = sl[sl[:, 0] == w]
-        sums = {}
-        for _, _, first, count, _, rank, grp in rows:
-            acc = np.zeros((v, n), np.float32)
-            for t in range(first * kb, (first + count) * kb):
-                acc = (acc + np.float32(vals[t])[:, None] * b[cols[t]]
-                       ).astype(np.float32)
-            key = (rank, grp)
-            sums[key] = sums.get(key, np.zeros((v, n), np.float32)) + acc
-        by_rank = {}
-        for (rank, grp) in sorted(sums):
-            by_rank[rank] = by_rank.get(rank, np.float32(0)) + sums[(rank,
-                                                                     grp)]
-        total = np.zeros((v, n), np.float32)
-        for rank in sorted(by_rank):
-            total = total + by_rank[rank]
-        out[w * v:(w + 1) * v] = total
-    return out[:blocked.shape[0]]
-
-
 @pytest.mark.parametrize("split_blk, n_tile", PLANS[:3])
 @pytest.mark.parametrize("name", ["hub_128", "hubgraph_100"])
 def test_kernel_order_over_the_plan_matches_dense(name, split_blk, n_tile):
@@ -160,8 +133,9 @@ def test_kernel_order_over_the_plan_matches_dense(name, split_blk, n_tile):
         (s.shape[0], 6)).astype(np.float32)
     plan = window_plan("test", blocked.win_ptr, split_blk, n_tile)
     assert plan.num_long + plan.num_medium > 0
-    np.testing.assert_allclose(_emulate(blocked, plan, b), dense.T @ b,
-                               rtol=RTOL, atol=ATOL)
+    got = tile.window_emulated(blocked, torch.from_numpy(b), split_blk,
+                               n_tile)
+    np.testing.assert_allclose(got, dense.T @ b, rtol=RTOL, atol=ATOL)
 
 
 def _tf32(x):
