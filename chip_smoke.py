@@ -36,13 +36,18 @@ a non-zero exit at the first phase that fails:
      on a second launch (one case's split window runs across two lane
      groups: a scan within one, fp32 partials across them); the staged
      SpMM at fp32 and bf16 bitwise the window SpMM (the same kernel over
-     its staged copy), its gather bitwise ``B[cols]``, int8 refused; (b)
+     its staged copy), its gather bitwise ``B[cols]``, int8 refused; the
+     run-carried attention at the edges of its design (value bands, D up
+     to 1,500, D not a multiple of 4, V = 16, runs over windows shorter
+     than a chunk) at fp32 and bf16; (b)
      at the main paths' shapes: on the Amazon replica, the
      window-parallel SpMM on A and on its transpose (N = 128 and 32; the
      rows of hub windows against fp64), each with its window plan, the
      balanced kernels over the schedules of A and of its
      transpose (the run-carried SpMM and attention at split_blk in
-     {0, 1, 3} and H in {1, 2}, each also against a second launch), and
+     {0, 1, 3} and H in {1, 2}, each also against a second launch; the
+     attention's hub rows of Aᵀ at split_blk = 0 against fp64, fp32 and
+     widened bf16), and
      the two SpMM baselines at N = 128 (with their narrow variants), the
      non-coalesced one also on the transpose (N = 128 and 32, and bf16 and
      int8 at 128: ordinary rows against the plain version, hub rows
@@ -92,7 +97,8 @@ a non-zero exit at the first phase that fails:
      quantized values shared by both);
      4f. the fused attention over value bands (DV 129 and 256, one launch
      a band) and past its shared memory (D = 720 fp32, through the SDDMM
-     and SpMM kernels) on the Amazon replica, against its plain version;
+     and SpMM kernels) on the Amazon replica, against its plain version,
+     and the run-carried one at the same widths (one launch each);
      4g. multi-head sparse attention under bf16 plans at the widths of
      4c: the forward on ``cuda``, ``cuda_balanced`` and through
      ``sparse_attention_staged`` on the ``cuda`` plan against dense masked
@@ -746,6 +752,46 @@ def check_hub_windows(label: str, blocked, vals, b, out, ref) -> float:
     return err
 
 
+def attention_probs64(blocked, qs, k):
+    """The attention's probabilities in fp64, (NNZP, V) in the view's
+    vector order: each window row's softmax of mask * (Q_s K^T) over its
+    vectors, on the kernel's operands (``qs`` already scaled, in fp32)."""
+    import torch
+
+    kb, v = blocked.k_blk, blocked.vector_size
+    win = blocked.block_win.long().repeat_interleave(kb)       # (NNZP,)
+    cols = blocked.cols.long()
+    qw = torch.zeros((blocked.num_windows * v, qs.shape[-1]),
+                     dtype=torch.float64, device=qs.device)
+    qw[:qs.shape[0]] = qs.double()
+    qw = qw.reshape(blocked.num_windows, v, -1)
+    s = torch.empty((cols.shape[0], v), dtype=torch.float64, device=qs.device)
+    step = 1 << 20
+    for i in range(0, cols.shape[0], step):
+        s[i:i + step] = torch.einsum("td,tvd->tv",
+                                     k[cols[i:i + step]].double(),
+                                     qw[win[i:i + step]])
+    s = torch.where(blocked.mask, s, -torch.inf)
+    mx = torch.full((blocked.num_windows, v), -torch.inf, dtype=torch.float64,
+                    device=qs.device).scatter_reduce(
+        0, win[:, None].expand(-1, v), s, "amax")
+    p = torch.exp(s - mx[win]) * blocked.mask
+    den = torch.zeros_like(mx).index_add_(0, win, p)
+    return p / den.clamp(min=1e-300)[win]
+
+
+def check_attention_hub_windows(label: str, blocked, qs, k, v, out,
+                                ref) -> float:
+    """The run-carried attention ``out`` (fp32, (M, DV)) on its ordinary
+    windows against its plain version ``ref`` at the kernel tolerance and
+    on its hub windows against fp64 within ``check_hub_windows``' bound:
+    the output is P @ V with P the fp64 probabilities of
+    :func:`attention_probs64`."""
+    probs = attention_probs64(blocked, qs, k)
+    return check_hub_windows(label, blocked, probs[None], v[None], out[None],
+                             ref[None])
+
+
 def one_ulp(label: str, out, ref, show: bool = True) -> float:
     """Fail unless the bf16 ``out`` is within one bf16 ulp of ``ref`` (plus
     1e-6 of its largest entry) on every entry and bitwise-equal on at
@@ -815,6 +861,79 @@ def check_narrow_hub_windows(label: str, blocked, b, out, ref) -> float:
           f"off fp64 by {(ref[hub_row].double() - exact).abs().max().item():.3e}",
           flush=True)
     return err
+
+
+def check_attention_balanced_edge(rng) -> None:
+    """The run-carried attention (row 10) at the edges of its design, fp32
+    and bf16, split_blk 0 and 1 (runs of 4 K-blocks at 1): value bands
+    (DV > 128, a block per band), a D whose K ring does not fit a block's
+    shared memory at fp32 (720, 1,500: K fragments from global memory), D
+    not a multiple of 4, V = 16, and runs whose pieces span several
+    windows shorter than a chunk.  One launch per call, the same bits on a
+    second launch, fp32 within the kernel tolerance of its plain version,
+    bf16 bitwise the fp32 kernel on widened operands, rounded, and within
+    one bf16 ulp of its plain version."""
+    import torch
+
+    from repro_torch.core.format import block_format, from_dense
+    from repro_torch.kernels import (attention_balanced_cuda,
+                                     attention_balanced_plain)
+
+    def rand(m, k, density):
+        keep = rng.random((m, k)) < density
+        return (keep * rng.standard_normal((m, k))).astype(np.float32)
+
+    # (label, matrix, V, k_blk, D, DV)
+    cases = [("DV=129, one band and a column", rand(64, 80, 0.2), 8, 8, 16,
+              129),
+             ("DV=256, two bands", rand(64, 80, 0.2), 8, 8, 32, 256),
+             ("V=16, DV=200", rand(40, 90, 0.3), 16, 4, 24, 200),
+             ("D=720", rand(64, 80, 0.2), 8, 8, 720, 32),
+             ("D=1500", rand(48, 64, 0.25), 8, 8, 1500, 16),
+             ("D=13", rand(64, 80, 0.2), 8, 8, 13, 24),
+             ("V=16, D=30, k_blk=2", rand(96, 50, 0.12), 16, 2, 30, 40),
+             ("windows shorter than a chunk, k_blk=2", rand(240, 60, 0.02),
+              8, 2, 32, 32)]
+    beta = torch.tensor(0.3, device=DEVICE)
+    worst = 0.0
+    for label, a, v, k_blk, d, dv in cases:
+        blocked = block_format(from_dense(a, vector_size=v), k_blk,
+                               device=DEVICE)
+        m, k = a.shape
+        q, kk, vv = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(DEVICE) for s in ((2, m, d), (k, d), (2, k, dv)))
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = q.to(dtype), kk.to(dtype), vv.to(dtype)
+            for split, run_blk in ((0, 16), (1, 4)):
+                sched = blocked.schedule(split)
+                tag = (f"attention_balanced [{label}, D={d}, DV={dv}, "
+                       f"{dtype}, split_blk={split}, run_blk={run_blk}]")
+                before = attention_balanced_cuda.launches
+                out = attention_balanced_cuda(blocked, qd, kd, vd, scale=beta,
+                                              schedule=sched, run_blk=run_blk)
+                if attention_balanced_cuda.launches != before + 1:
+                    raise SystemExit(f"FAIL {tag}: not one launch")
+                bitwise(f"{tag}, second launch", out, attention_balanced_cuda(
+                    blocked, qd, kd, vd, scale=beta, schedule=sched,
+                    run_blk=run_blk))
+                ref = attention_balanced_plain(blocked, qd, kd, vd, sched,
+                                               beta, run_blk)
+                if dtype == torch.float32:
+                    worst = max(worst, compare(tag, out, ref, KERNEL_RTOL,
+                                               KERNEL_ATOL, show=False))
+                    continue
+                qs = (qd.float() * beta).to(dtype).float()
+                bitwise(f"{tag} vs the fp32 kernel, rounded", out,
+                        attention_balanced_cuda(
+                            blocked, qs, kd.float(), vd.float(), scale=1.0,
+                            schedule=sched, run_blk=run_blk).to(dtype))
+                one_ulp(tag, out, ref, show=False)
+    print(f"  ok   attention_balanced edges x{len(cases)} (bands, D up to "
+          f"1,500, D % 4 != 0, V = 16, short windows), fp32 and bf16, "
+          f"split_blk 0/1: fp32 max abs err {worst:.3e}, each the same bits "
+          "on a second launch, bf16 bitwise the fp32 kernel rounded",
+          flush=True)
+    torch.cuda.synchronize()
 
 
 def check_narrow_edge(rng) -> None:
@@ -1817,6 +1936,7 @@ def main() -> None:
     check_narrow_heads_edge(np.random.default_rng(3))
     check_sddmm_tiles_edge(np.random.default_rng(4))
     check_narrow_baselines_edge(np.random.default_rng(5))
+    check_attention_balanced_edge(np.random.default_rng(6))
 
     phase("3b. kernels against their plain versions: main-path shapes")
     t0 = time.time()
@@ -1994,6 +2114,27 @@ def main() -> None:
                 compare(f"attention_balanced {tag}, D=DV=32]", out,
                         attention_balanced_plain(bl, qq, h32, vv, sched, beta),
                         KERNEL_RTOL, KERNEL_ATOL)
+                if dirn == "A^T" and split == 0 and h == 1:
+                    # A hub window of A^T is one piece at split_blk = 0:
+                    # one fp32 chain of 3xTF32 products over up to 50,424
+                    # K-blocks.  Its rows against fp64, at fp32 and at
+                    # bf16 (the fp32 kernel on the widened operands: the
+                    # bf16 kernel is that, rounded, check_narrow_balanced)
+                    check_attention_hub_windows(
+                        f"attention_balanced {tag}, D=DV=32]", bl,
+                        h32 * beta, h32, v32, out,
+                        attention_balanced_plain(bl, h32, h32, v32, sched,
+                                                 beta))
+                    qs16 = (h32_16.float() * beta).to(bf16).float()
+                    k16w, v16w = h32_16.float(), v32_16.float()
+                    check_attention_hub_windows(
+                        f"attention_balanced {tag}, D=DV=32, widened bf16]",
+                        bl, qs16, k16w, v16w,
+                        attention_balanced_cuda(bl, qs16, k16w, v16w,
+                                                scale=1.0, schedule=sched),
+                        attention_balanced_plain(bl, qs16, k16w, v16w, sched,
+                                                 1.0))
+                    del qs16, k16w, v16w
     del b_2, h32_2, v32_2, vals_2, out
     # The narrow balanced kernels on A and A^T: the SpMM at bf16 and int8
     # (N = 128 at split_blk 0 / 1 / 3, N = 32 at 1), the SDDMM and the
@@ -2729,6 +2870,21 @@ def main() -> None:
                  else "the SDDMM and SpMM kernels (rings past shared memory)")
         print(f"  {tag}: {route}")
         wide[f"d{d_}_dv{dv_}_{dtype}"] = {"max_abs_err": e_, "route": route}
+        # the run-carried attention: one launch, a block per band; at D =
+        # 720 fp32 its K fragments from global memory
+        tag = tag.replace("attention", "attention_balanced", 1)
+        reset_counts()
+        out = attention_balanced_cuda(bplan.fwd, qq, qq, vv, scale=beta,
+                                      schedule=bplan.fwd_sched)
+        torch.cuda.synchronize()
+        got = counts()
+        if got != expect(**{"attention_balanced" + var: 1}):
+            raise SystemExit(f"FAIL {tag}: launch counts {got}")
+        ref = attention_balanced_plain(bplan.fwd, qq, qq, vv,
+                                       bplan.fwd_sched, beta)
+        e_ = (one_ulp(tag, out, ref) if dtype == bf16 else
+              compare(tag, out, ref, KERNEL_RTOL, KERNEL_ATOL))
+        wide[f"balanced_d{d_}_dv{dv_}_{dtype}"] = {"max_abs_err": e_}
     del qq, vv, out, ref
     torch.cuda.synchronize()
 
@@ -3943,10 +4099,11 @@ def main() -> None:
                  attention_balanced_h12=flops["attention_h12"],
                  attention_balanced_bf16_h12=flops["attention_h12"],
                  attention_bf16_h12=flops["attention_h12"])
-    # Tensor-core operations of the fp32 fused attention at the TF32 rate:
-    # three TF32 products per multiply (3xTF32).
-    tc_flops = {"attention": TF32_PRODUCTS * flops["attention"],
-                "attention_h12": TF32_PRODUCTS * flops["attention_h12"]}
+    # Tensor-core operations of the fp32 fused attentions (rows 9 and 10)
+    # at the TF32 rate: three TF32 products per multiply (3xTF32).
+    tc_flops = {name: TF32_PRODUCTS * flops[name]
+                for name in ("attention", "attention_h12",
+                             "attention_balanced", "attention_balanced_h12")}
     shapes = {
         "spmm": {"M": m, "K": m, "N": 128, "NNZP": nnzp, "nnz": nnz, "V": v,
                  "k_blk": 8},

@@ -3,7 +3,7 @@
 Amazon replica, with a digest of each output, for one source tree, so
 that two trees can be compared on one card in one run.
 
-    python3 scripts/spmm_ab.py [SRC]
+    python3 scripts/spmm_ab.py [SRC] [--only=PREFIX,...]
 
 ``SRC`` is the ``src`` directory whose ``repro_torch`` is imported (by
 default this checkout's); its kernels build into that tree's ``build``
@@ -23,10 +23,20 @@ turns (A, B, B, A), one card, one call.  At the widths of PERF.md §6
          N = 128 and 32 where the tree's row 2 walks a lane plan
          (``kernels/_window.lane_plan``; without one a lane walks a whole
          hub window of A^T, up to 50,424 K-blocks);
+  row 9  ``attention_cuda``: AGNN's one head on A (D = DV = 32, unit
+         rows, Q = K, beta = 1) and the 12-head attention of
+         ``chip_smoke.attention_setup`` (16,384 tokens, D = DV = 64), fp32
+         and bf16;
+  row 10 ``attention_balanced_cuda`` over the split_blk = 1 schedules:
+         the same one head on A and A^T and the same 12 heads, fp32 and
+         bf16;
   the main path: a GCN and an AGNN train step and forward on ``cuda`` and
          ``cuda_balanced`` in fp32 and in bf16, and the GCN under an int8
          plan (``chip_smoke.py`` phase 5's widths, 5 layers, lr 5e-2),
          and the GCN forward on the two baseline routes.
+``--only`` keeps the rows whose names start with one of the prefixes
+(``row10`` holds both ``row10_*`` and ``row10_bf16_*``; ``agnn`` the
+AGNN steps and forwards).
 
 Beside each kernel row it prints the bytes its B gathers move when every
 padded vector reads its B row once (padded vectors x N x the size of B's
@@ -54,7 +64,10 @@ import chip_smoke  # noqa: E402  (puts this checkout's src on the path)
 
 
 def main() -> None:
-    src = pathlib.Path(sys.argv[1] if len(sys.argv) > 1 else ROOT / "src")
+    args = [a for a in sys.argv[1:] if not a.startswith("--only=")]
+    only = tuple(p for a in sys.argv[1:] if a.startswith("--only=")
+                 for p in a[len("--only="):].split(",") if p)
+    src = pathlib.Path(args[0] if args else ROOT / "src")
     sys.path.insert(0, str(src.resolve()))
 
     import numpy as np
@@ -66,7 +79,8 @@ def main() -> None:
     from repro_torch.core.format import from_coo
     from repro_torch.core.quantize import quantize_format
     from repro_torch.core.sddmm import with_values
-    from repro_torch.kernels import (_window, spmm_balanced_cuda,
+    from repro_torch.kernels import (_window, attention_balanced_cuda,
+                                     attention_cuda, spmm_balanced_cuda,
                                      spmm_batched_cuda, spmm_cuda,
                                      spmm_noncoalesced_cuda, spmm_staged_cuda)
     from repro_torch.models.gnn import AGNN, GCN, GNNConfig, gcn_forward
@@ -135,6 +149,31 @@ def main() -> None:
             row2_At_n32=lambda: spmm_noncoalesced_cuda(at, feats[(32,
                                                                   "fp32")]))
 
+    # rows 9 and 10 at AGNN's one head and at the 12-head attention
+    h32 = chip_smoke.unit_rows(rng, n_nodes, 32).cuda()
+    v32 = torch.from_numpy(rng.standard_normal((n_nodes, 32)).astype(
+        np.float32)).cuda()
+    beta = torch.ones((), device="cuda")
+    att = chip_smoke.attention_setup(np.random.default_rng(0))
+    ablk, abblk = att["plan"].fwd, att["bplan"].fwd
+    asched = att["bplan"].fwd_sched
+    for prec, dt in (("", torch.float32), ("_bf16", bf16)):
+        hh, vv = h32.to(dt), v32.to(dt)
+        aq, ak, av = (att[x_].to(dt) for x_ in "qkv")
+        kernels[f"row9{prec}_A_d32"] = (
+            lambda hh=hh, vv=vv: attention_cuda(a, hh, hh, vv, scale=beta))
+        kernels[f"row9{prec}_h12"] = (
+            lambda aq=aq, ak=ak, av=av: attention_cuda(
+                ablk, aq, ak, av, scale=att["scale"]))
+        for d in ("A", "At"):
+            kernels[f"row10{prec}_{d}_d32"] = (
+                lambda hh=hh, vv=vv, d=d: attention_balanced_cuda(
+                    views[d]["fp32"], hh, hh, vv, scale=beta,
+                    schedule=sched[d]))
+        kernels[f"row10{prec}_h12"] = (
+            lambda aq=aq, ak=ak, av=av: attention_balanced_cuda(
+                abblk, aq, ak, av, scale=att["scale"], schedule=asched))
+
     x, labels, mask = (torch.from_numpy(t).cuda() for t in make_task(
         g, seed=0, num_classes=16, in_dim=128))
     gcn_cfg = GNNConfig(model="gcn", in_dim=128, hidden_dim=128,
@@ -185,6 +224,8 @@ def main() -> None:
     runs = {name: (fn, True, {}) for name, fn in kernels.items()}
     runs.update({name: (fn, inference, dict(reps=3, batch=2, warmup=1))
                  for name, (fn, inference) in steps.items()})
+    if only:
+        runs = {k: r for k, r in runs.items() if k.startswith(only)}
     rows = {}
     for name, (fn, inference, timing) in runs.items():
         with torch.inference_mode(inference):

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Time variants of the SpMM kernels' sources against each other and
-against another tree's, on the Amazon replica, in one process on one card.
+"""Time variants of the SpMM (or attention) kernels' sources against each
+other and against another tree's, on the Amazon replica, in one process
+on one card.
 
-    python3 scripts/spmm_variants.py VARIANTS.json [OTHER_CSRC]
+    python3 scripts/spmm_variants.py VARIANTS.json [OTHER_CSRC] [--attention]
 
 ``VARIANTS.json`` maps a variant's name to a list of ``[file, old text,
 new text]`` edits of ``src/repro_torch/kernels/csrc`` (an empty list is
 the sources as they are), for example
 
     {"steps4": [["spmm_window.cuh", "kSpmmSteps = 2;", "kSpmmSteps = 4;"]]}
+
+or to ``{"edits": [...], "chunks_per_warp": N}``, which also sets the
+chunks a warp of row 10 walks (``attention_balanced_cuda``'s
+``CHUNKS_PER_WARP``, hence its runs a warp) while that variant runs.
 
 Each variant (and ``OTHER_CSRC``, another tree's ``csrc`` unpacked with
 ``git archive``, named ``other``) is copied into
@@ -22,9 +27,15 @@ row 4 (``spmm_balanced_cuda`` over the split_blk = 1 schedule) on A and
 A^T at N = 128 (fp32, bf16, int8 values with bf16 B) and N = 32 (fp32)
 with ``chip_smoke.cuda_ms``, and checks each output against the first
 variant's (fp32 rows of A and row 4 at the kernel tolerance, the others
-to 2% of the largest entry).  The last line is one JSON object: the
-card's name and power limit and every variant's times, both turns.
-Needs a CUDA card.
+to 2% of the largest entry).  With ``--attention`` it builds and swaps
+``attention.cu`` and ``attention_balanced.cu`` instead and times rows 9
+(``attention_cuda``) and 10 (``attention_balanced_cuda`` over the
+split_blk = 1 schedules) at AGNN's one head (D = DV = 32, unit rows, on
+A; row 10 on A^T too) and at the 12-head attention of
+``chip_smoke.attention_setup``, fp32 and bf16 (fp32 held to the first
+variant at the kernel tolerance, bf16 to 2%).  The last line is one JSON
+object: the card's name and power limit and every variant's times, both
+turns.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,7 +56,8 @@ import chip_smoke  # noqa: E402  (puts this checkout's src on the path)
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "spmm_variants"
-LIBS = ("spmm", "spmm_balanced")
+LIBS = {"spmm": ("spmm", "spmm_balanced"),
+        "attention": ("attention", "attention_balanced")}
 
 
 def _prepare(name, src, edits):
@@ -63,19 +75,25 @@ def _prepare(name, src, edits):
 
 
 def _registers(d, lib):
-    """``{kernel: registers}`` of one build's ptxas report, demangled."""
-    out, cur = {}, None
+    """``{kernel: registers}`` of one build's ptxas report, demangled (with
+    the bytes of spill stores beside the count where there are any)."""
+    out, cur, spill = {}, None, 0
     for line in (d / f"{lib}.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             name = subprocess.run(["c++filt", cur], capture_output=True,
                                   text=True).stdout.strip()
-            out[re.sub(r"\(.*$", "", name).replace("repro::", "")
-                .replace("(anonymous namespace)::", "")] = int(m.group(1))
-            cur = None
+            name = name.replace("(anonymous namespace)::", "")
+            out[re.sub(r"\(.*$", "", name).replace("repro::", "")] = (
+                f"{m.group(1)} (+{spill} B spilled)" if spill
+                else int(m.group(1)))
+            cur, spill = None, 0
     return out
 
 
@@ -89,14 +107,21 @@ def main() -> None:
     from repro_torch.core.format import from_coo
     from repro_torch.core.quantize import quantize_format
     from repro_torch.core.sddmm import with_values
-    from repro_torch.kernels import _build, spmm_balanced_cuda, spmm_cuda
+    from repro_torch.kernels import (_build, attention_balanced_cuda,
+                                     attention_cuda, spmm_balanced_cuda,
+                                     spmm_cuda)
     from repro_torch.sparse.graphs import make_dataset
 
-    variants = json.loads(pathlib.Path(sys.argv[1]).read_text())
-    dirs = {name: _prepare(name, CSRC, edits)
-            for name, edits in variants.items()}
-    if len(sys.argv) > 2:
-        dirs["other"] = _prepare("other", pathlib.Path(sys.argv[2]), [])
+    args = [a for a in sys.argv[1:] if a != "--attention"]
+    kind = "attention" if "--attention" in sys.argv else "spmm"
+    libs_of = LIBS[kind]
+    variants = {name: v if isinstance(v, dict) else {"edits": v}
+                for name, v in json.loads(
+                    pathlib.Path(args[0]).read_text()).items()}
+    dirs = {name: _prepare(name, CSRC, v["edits"])
+            for name, v in variants.items()}
+    if len(args) > 1:
+        dirs["other"] = _prepare("other", pathlib.Path(args[1]), [])
 
     def compile_one(job):
         d, lib = job
@@ -109,17 +134,17 @@ def main() -> None:
                      f"{proc.stderr}")
 
     _build.build()
-    jobs = [(d, lib) for d in dirs.values() for lib in LIBS]
+    jobs = [(d, lib) for d in dirs.values() for lib in libs_of]
     with ThreadPoolExecutor(len(jobs)) as ex:
         list(ex.map(compile_one, jobs))
     libs = {}
     for name, d in dirs.items():
-        regs = {**_registers(d, "spmm"), **_registers(d, "spmm_balanced")}
+        regs = {k: v for lib in libs_of for k, v in _registers(d, lib).items()}
         print(name, json.dumps({k: v for k, v in regs.items()
                                 if "<8," in k and "long" not in k
                                 and "signed char" not in k}), flush=True)
         libs[name] = {}
-        for lib in LIBS:
+        for lib in libs_of:
             handle = ctypes.CDLL(str(d / f"lib{lib}.so"))
             entry, argtypes = _build.SOURCES[lib]
             fn = getattr(handle, entry)
@@ -139,7 +164,32 @@ def main() -> None:
         (g.num_nodes, 128)).astype(np.float32)).cuda()
     b32, b16 = b[:, :32].contiguous(), b.to(bf16)
     cases = {}
-    for d, view in (("A", plan.fwd), ("At", plan.bwd)):
+    if kind == "attention":
+        h32 = chip_smoke.unit_rows(rng, g.num_nodes, 32).cuda()
+        v32 = b[:, :32].contiguous()
+        beta = torch.ones((), device="cuda")
+        att = chip_smoke.attention_setup(np.random.default_rng(0))
+        ablk, abblk = att["plan"].fwd, att["bplan"].fwd
+        for var, dt in (("", torch.float32), ("_bf16", bf16)):
+            hh, vv = h32.to(dt), v32.to(dt)
+            aq, ak, av = (att[x].to(dt) for x in "qkv")
+            cases[f"r9_A{var}"] = (
+                lambda hh=hh, vv=vv: attention_cuda(plan.fwd, hh, hh, vv,
+                                                    scale=beta))
+            cases[f"r9_h12{var}"] = (
+                lambda aq=aq, ak=ak, av=av: attention_cuda(
+                    ablk, aq, ak, av, scale=att["scale"]))
+            for d, view in (("A", plan.fwd), ("At", plan.bwd)):
+                cases[f"r10_{d}{var}"] = (
+                    lambda hh=hh, vv=vv, view=view, s=view.schedule(1):
+                    attention_balanced_cuda(view, hh, hh, vv, scale=beta,
+                                            schedule=s))
+            cases[f"r10_h12{var}"] = (
+                lambda aq=aq, ak=ak, av=av: attention_balanced_cuda(
+                    abblk, aq, ak, av, scale=att["scale"],
+                    schedule=att["bplan"].fwd_sched))
+    for d, view in ((("A", plan.fwd), ("At", plan.bwd)) if kind == "spmm"
+                    else ()):
         sched = view.schedule(1)
         for var, v_, bb in (("", view, b),
                             ("_bf16", with_values(view, view.vals.to(bf16)),
@@ -154,13 +204,17 @@ def main() -> None:
     names = list(dirs)
     res = {name: {k: [] for k in cases} for name in names}
     ref = {}
+    balanced = sys.modules[attention_balanced_cuda.__module__]
+    chunks_per_warp = balanced.CHUNKS_PER_WARP
     for name in names + names[::-1]:
         _build._libs.update(libs[name])
+        balanced.CHUNKS_PER_WARP = variants.get(name, {}).get(
+            "chunks_per_warp", chunks_per_warp)
         for key, fn in cases.items():
             out = fn()
             want = ref.setdefault(key, out)
-            if out.dtype == torch.float32 and ("_At" not in key
-                                              or key.startswith("r4")):
+            if out.dtype == torch.float32 and (
+                    "_At" not in key or key.startswith(("r4", "r9", "r10"))):
                 ok = torch.allclose(out, want, rtol=chip_smoke.KERNEL_RTOL,
                                     atol=chip_smoke.KERNEL_ATOL)
             else:
@@ -170,6 +224,7 @@ def main() -> None:
                 sys.exit(f"spmm_variants: {name} {key} disagrees")
             res[name][key].append(chip_smoke.cuda_ms(fn))
     _build._libs.update(built)
+    balanced.CHUNKS_PER_WARP = chunks_per_warp
     for name in names:
         print(name, json.dumps({k: round(min(v), 4)
                                 for k, v in res[name].items()}), flush=True)

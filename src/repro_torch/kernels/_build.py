@@ -61,7 +61,7 @@ SOURCES: Dict[str, tuple] = {
                        [_P] * 7 + [_I] * 6 + [_L, _L, _L, _I, _P]),
     "attention_balanced": ("attention_balanced_launch",
                            [_P] * 15 + [_I] * 7 + [_L, _L, _L, _P, _I, _L,
-                                                   _L, _I, _P]),
+                                                   _L, _I, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

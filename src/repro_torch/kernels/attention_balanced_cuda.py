@@ -8,8 +8,14 @@ softmax → SpMM of ``attention_cuda`` over a
 carries a window's softmax state across the segments of a run (a
 :class:`~repro_torch.kernels._combine.RunPlan` of about ``RUN_BLK``
 K-blocks) and merges the pieces of a window that runs cut by log-sum-exp.
-``attention_balanced_cuda`` launches the hand-written kernel on CUDA
-tensors and counts each launch in ``attention_balanced_cuda.launches``; on
+Both products run on the tensor cores in ``attention_cuda``'s chunk step
+(``csrc/attention_chunk.cuh``: ``mma.sync`` m16n8k8 in 3xTF32, the
+window's rows on the n side, K rows gathered by a ring of asynchronous
+copies that runs across the pieces of a warp's runs, the big.big sums
+rounded to nearest); one launch covers every head and every band of
+``DV_BAND`` value columns.  ``attention_balanced_cuda`` launches the
+hand-written kernel on CUDA tensors and counts each launch in
+``attention_balanced_cuda.launches``; on
 CPU tensors it runs :func:`attention_balanced_plain`, which computes each
 (run, window) piece's row maxima, row sums and unnormalised output and
 merges them per window as the kernel does.
@@ -34,13 +40,25 @@ from repro_torch.core.format import BlockedMEBCRS, Schedule
 
 from . import _build, _checks
 from ._combine import run_plan
-from .attention_cuda import VARIANTS
+from .attention_cuda import CHUNKS_PER_WARP, VARIANTS
 from .spmm_balanced_cuda import piece_blocks
 
 __all__ = ["RUN_BLK", "attention_balanced_cuda", "attention_balanced_plain"]
 
 # K-blocks per run of the kernel (chip_smoke.py phase 5 sweeps it).
 RUN_BLK = 16
+
+
+def runs_per_warp(plan, k_blk: int, heads: int) -> int:
+    """Consecutive runs each warp of the kernel walks, their pieces in one
+    stream of chunks (the copies of a run's first chunk then fly during
+    the run before): about ``CHUNKS_PER_WARP`` chunks of 32 vectors (a run
+    holds about ``run_blk * k_blk`` vectors, plus a part chunk a piece), at
+    most 16, and at least 2,048 warps in all."""
+    chunks = (plan.run_blk * k_blk / 32
+              + plan.num_pieces / max(plan.num_runs, 1))
+    rpw = round(CHUNKS_PER_WARP / max(chunks, 1.0))
+    return max(1, min(16, rpw, plan.num_runs * heads // 2048))
 
 
 def attention_balanced_plain(blocked: BlockedMEBCRS, q: torch.Tensor,
@@ -182,6 +200,7 @@ def attention_balanced_cuda(blocked: BlockedMEBCRS, q: torch.Tensor,
         blocked.k_blk, _checks.head_stride(qs, 2), _checks.head_stride(k, 2),
         _checks.head_stride(v, 2), _build.host_ints(tree.level_ints()),
         len(tree.levels), plan.entries, tree.entries, _checks.dtype_code(v),
+        runs_per_warp(plan, blocked.k_blk, h),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("attention_balanced", err)
     attention_balanced_cuda.launches += 1

@@ -79,125 +79,36 @@
 // arithmetic depends neither on the head nor on the windows walked
 // before it, so H heads in one launch give bitwise the output of H
 // one-head launches.
+// The ring's copy helpers and the shared-memory layout are
+// attention_chunk.cuh's, whose Tile runs the same chunk step for the
+// run-carried attention (attention_balanced.cu); this kernel keeps its own
+// copy of the step, with the mma's own accumulation of big.big, so that
+// its machine code and bits stay as they were.
 #include <cuda_bf16.h>
 
 #include <type_traits>
 
-#include "common.cuh"
-#include "tf32.cuh"
+#include "attention_chunk.cuh"
 
 namespace {
 
-constexpr int kChunk = 32;     // vectors per online-softmax step
-constexpr int kPStride = 36;   // P^T row stride (floats): conflict-free
 constexpr int kMaxWindowsPerWarp = 16;  // win_ptr entries: a lane each
 
+using repro::attn::bulk_copy;
+using repro::attn::copy_rows;
+using repro::attn::kChunk;
+using repro::attn::kPStride;
+using repro::attn::Layout;
+using repro::attn::layout;
+using repro::attn::mbar_expect;
+using repro::attn::mbar_wait;
+using repro::attn::narrow;
+using repro::attn::smem_addr;
 using repro::cp_async16;
 using repro::cp_async4;
 using repro::Frag;
 using repro::mma_3xtf32;
 using repro::widen;
-
-// Shared memory of the one warp of a block, in bytes: K rows of two
-// chunks and Q rows of two windows (elements of T), P^T (floats), mask
-// bytes of two chunks, the two chunks' mbarriers (a multiple of 16 bytes
-// in all, every part 16-byte aligned).  The row stride of K and Q, dp
-// elements, is D padded to a multiple of 8, + 16 bytes: the fragment
-// loads then hit distinct banks.
-struct Layout {
-  int dp, k, q, p, mask, bar, total;
-};
-
-__host__ __device__ __forceinline__ Layout layout(int vsz, int d, int elt) {
-  Layout s;
-  s.dp = (d + 7) / 8 * 8 + 16 / elt;
-  s.k = 0;
-  s.q = s.k + 2 * kChunk * s.dp * elt;
-  s.p = s.q + 2 * vsz * s.dp * elt;
-  s.mask = s.p + 4 * vsz * kPStride;
-  s.bar = s.mask + 2 * kChunk * vsz;  // two mbarriers, 8 bytes each
-  s.total = s.bar + 16;
-  return s;
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Copies `rows` rows of `width` elements, row r from src + idx(r) * width,
-// into dst with row stride `stride`, skipping rows >= valid: 16 bytes at a
-// time when vec, else one element at a time (cp.async of 4 bytes for fp32,
-// a plain load for bf16, which the barrier before the chunk is used orders
-// as it orders the copies).  idx is a lane's column id broadcast by
-// shuffle, so every lane runs the same number of iterations.
-template <typename T, typename Idx>
-__device__ __forceinline__ void copy_rows(T* dst, int stride, const T* src,
-                                          int width, int rows, int valid,
-                                          bool vec, int lane, Idx idx) {
-  constexpr int kPer16 = 16 / sizeof(T);
-  if (vec) {
-    const int segs = width / kPer16;
-    for (int i = lane; i < rows * segs; i += 32) {
-      const int r = i / segs, s = i - r * segs;
-      const int64_t row = idx(r);
-      if (r < valid) {
-        cp_async16(dst + r * stride + kPer16 * s,
-                   src + row * width + kPer16 * s);
-      }
-    }
-  } else {
-    for (int i = lane; i < rows * width; i += 32) {
-      const int r = i / width, e = i - r * width;
-      const int64_t row = idx(r);
-      if (r < valid) {
-        if constexpr (sizeof(T) == 4) {
-          cp_async4(dst + r * stride + e, src + row * width + e);
-        } else {
-          dst[r * stride + e] = src[row * width + e];
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from global to shared memory, completing on mbarrier bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// The one arrival of a slot's phase, expecting `bytes` of bulk copies.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n .reg .pred done;\n WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
 
 struct Pos {
   int w;       // window (== the range's end when the stream is done)

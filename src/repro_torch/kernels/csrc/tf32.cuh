@@ -1,8 +1,7 @@
 // fp32 and bf16 operands on the TF32 tensor cores (mma.sync m16n8k8),
-// shared by the fused attention (attention.cu), the SDDMM tile
-// (sddmm_rows.cuh), the window and balanced SpMMs (spmm_window.cuh,
-// spmm_balanced.cu) and the run-carried attention (attention_balanced.cu,
-// which takes the bf16 widening only).
+// shared by the two fused attentions' chunk step (attention_chunk.cuh:
+// attention.cu, attention_balanced.cu), the SDDMM tile (sddmm_rows.cuh)
+// and the window and balanced SpMMs (spmm_window.cuh, spmm_balanced.cu).
 //
 // A bf16 is the top half of the fp32 with the same value, so widening is a
 // shift or a mask.  An fp32 operand x is split into big = tf32(x) (cvt.rna:

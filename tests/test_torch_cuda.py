@@ -14,7 +14,10 @@ attention against the plain ``blocked`` impl.  The bf16 and int8
 variants of the window SpMM, the SDDMM and the fused attention are held
 to their plain versions within one bf16 ulp with at least 99% of the
 entries bitwise equal; the attention over value bands (DV > 128) and
-over the SDDMM/SpMM composition (D beyond its shared memory), and the
+over the SDDMM/SpMM composition (D beyond its shared memory), the
+run-carried attention at the same widths (one launch: a block per band,
+K fragments from global memory past its ring) and at D not a multiple
+of 4, V = 16 and runs over windows shorter than a chunk, and the
 window SpMM's 64-bit-index instantiation on a 4 GiB bf16 B; the narrow
 variants of the two SpMM baselines, and both redesigned baselines on a
 hub matrix's transpose (the non-coalesced SpMM's slices, runs and
@@ -524,9 +527,57 @@ def test_attention_wide_values_and_large_d_on_card(device, case, dtype):
     torch.cuda.synchronize()
 
 
+# The run-carried attention (row 10) at the widths WIDE_ATTENTION holds
+# row 9 to: value bands (DV > 128: a block per band), D = 720 and 1,500
+# (at fp32 a K ring of two chunks no longer fits a block's shared memory,
+# so the K fragments come from global memory); and (M, K, density, V,
+# k_blk, D, DV) with D not a multiple of 4 and runs whose pieces span
+# several windows shorter than a chunk.
+BALANCED_WIDE = WIDE_ATTENTION + [(64, 80, 0.2, 8, 8, 13, 24),
+                                  (96, 50, 0.12, 16, 2, 30, 40),
+                                  (240, 60, 0.02, 8, 2, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=str)
+@pytest.mark.parametrize("case", BALANCED_WIDE, ids=lambda c: f"D{c[5]}-DV{c[6]}-V{c[3]}-kblk{c[4]}")
+def test_attention_balanced_wide_values_and_large_d_on_card(device, case,
+                                                            dtype):
+    m, k, density, v, k_blk, d, dv = case
+    rng = np.random.default_rng(m + d + dv + 1)
+    blocked = block_format(from_dense(_matrix(rng, m, k, density),
+                                      vector_size=v), k_blk, device=device)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    q, kk, vv = t(2, m, d), t(k, d), t(2, k, dv)
+    scale = torch.tensor(0.3, device=device)
+    for split, run_blk in ((0, ATTN_RUN), (1, 4)):
+        sched = blocked.schedule(split)
+        before = attention_balanced_cuda.launches
+        out = attention_balanced_cuda(blocked, q, kk, vv, scale=scale,
+                                      schedule=sched, run_blk=run_blk)
+        assert attention_balanced_cuda.launches == before + 1
+        assert torch.equal(out, attention_balanced_cuda(
+            blocked, q, kk, vv, scale=scale, schedule=sched,
+            run_blk=run_blk))
+        want = attention_balanced_plain(blocked, q, kk, vv, sched, scale,
+                                        run_blk)
+        if dtype == BF16:
+            qs = (q.float() * scale).to(BF16).float()
+            assert torch.equal(out, attention_balanced_cuda(
+                blocked, qs, kk.float(), vv.float(), scale=1.0,
+                schedule=sched, run_blk=run_blk).to(BF16))
+            _one_ulp(out, want)
+        else:
+            torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+
+
 # (M, K, density, V, k_blk, N): the edge CASES' shapes for the narrow
 # variants, and a window of about 1,400 K-blocks cut over a cluster
-NARROW = [c[:6] + (c[6],) for c in CASES] + [(8, 20000, 0.1, (), 8, 8, 64)]
+NARROW =[c[:6] + (c[6],) for c in CASES] + [(8, 20000, 0.1, (), 8, 8, 64)]
 
 
 @pytest.mark.parametrize("case", NARROW, ids=lambda c: f"{c[0]}x{c[1]}-V{c[4]}-kblk{c[5]}-N{c[6]}")
